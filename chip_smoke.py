@@ -1,0 +1,328 @@
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. the card (``nvidia-smi`` name and power limit) and the versions;
+2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``);
+3. holds each kernel against its plain PyTorch version at small shapes;
+4. reduced end to end: the kernel path and the plain path give the same
+   forest and labels;
+5. full size: the README quickstart configuration on 2^20 training rows,
+   F = 128, through ``train_prf`` and ``PRFModel.predict``, with kernel
+   launch counts read around that one run, per-stage times, accuracy,
+   and each kernel timed at the main path's shapes beside its plain
+   version, its bound and (for the histogram) one ``index_add_``;
+6. the launch counts and one JSON line per the smoke contract, then
+   the device line last. The numbers also go to ``artifacts/chip_smoke.json``.
+
+Every failed check raises, so the exit code is non-zero. Exits non-zero
+without a result when no CUDA device is present. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Mean milliseconds per call from CUDA events over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def max_abs(a, b):
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    check(torch.equal(torch.isfinite(a), torch.isfinite(b)), "non-finite patterns differ")
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.core import engine
+    from repro_torch.core.binning import apply_bins, bin_dataset
+    from repro_torch.core.dimred import dimension_reduction
+    from repro_torch.core.dsi import bootstrap_counts
+    from repro_torch.core.forest import fused_vote_scores, grow_forest
+    from repro_torch.core.histograms import class_channels, hist_feature_slab
+    from repro_torch.core.voting import build_payload, oob_accuracy, predict
+    from repro_torch.data.pipeline import screen_blocks
+    from repro_torch.data.tabular import make_classification, train_test_split
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
+    from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card ------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
+        f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # 2. build -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
+
+    rng = np.random.default_rng(0)
+
+    # 3. kernels against their plain versions, small shapes --------------------
+    tc, N, F, S, B, C = 8, 100_003, 37, 64, 64, 4
+    xb = torch.from_numpy(rng.integers(0, B, (N, F)).astype(np.uint8)).to(dev)
+    y = torch.from_numpy(rng.integers(0, C, N)).to(dev)
+    base = class_channels(y, C)
+    w = torch.from_numpy(rng.integers(0, 4, (tc, N)).astype(np.float32)).to(dev)
+    slot_np = rng.integers(0, S, (tc, N)).astype(np.int32)
+    slot_np[rng.random((tc, N)) < 0.1] = -1
+    slot = torch.from_numpy(slot_np).to(dev)
+    for packed in (False, True):
+        hk = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=S, n_bins=B, packed=packed)
+        hp = multi_tree_hist_ref(xb, base, w, slot, n_slots=S, n_bins=B, packed=packed)
+        check(torch.equal(hk, hp), f"histogram kernel != plain (packed={packed})")
+    yr = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(dev)
+    base_r = torch.stack([torch.ones_like(yr), yr, yr * yr], -1)
+    hk_r = hist_ops.multi_tree_hist(xb, base_r, w, slot, n_slots=S, n_bins=B)
+    hp_r = multi_tree_hist_ref(xb, base_r, w, slot, n_slots=S, n_bins=B)
+    torch.testing.assert_close(hk_r, hp_r, rtol=1e-5, atol=1e-3)
+    log(f"hist: bitwise (packed and unpacked), regression max|d| {max_abs(hk_r, hp_r):.3g}")
+
+    mask = torch.from_numpy(rng.random((tc, F)) > 0.3).to(dev)
+    ck, cp = init_carry(tc, S, C, dev), init_carry(tc, S, C, dev)
+    for f0, f1 in ((0, 12), (12, 25), (25, 37)):
+        ck = scan_ops.split_scan_block(hp[:, :, f0:f1], mask[:, f0:f1], ck, f0)
+        cp = split_scan_block_ref(hp[:, :, f0:f1], mask[:, f0:f1], cp, f0)
+    for i in (1, 2, 3, 4):
+        check(torch.equal(ck[i], cp[i]), f"split scan carry field {i} differs")
+    torch.testing.assert_close(ck[0], cp[0], rtol=1e-6, atol=0)
+    log(f"split scan: winners and counts identical over 3 slabs, gain max|d| {max_abs(ck[0], cp[0]):.3g}")
+
+    xf = make_classification(n_samples=N, n_features=F, n_classes=C, seed=1)
+    small = train_prf(xf[0], xf[1], ForestConfig(n_trees=32, max_depth=8, n_bins=B, n_classes=C,
+                                                 tree_chunk=12, hist_reuse="off"), 0, device=dev)
+    xbs, _ = bin_dataset(xf[0], B, device=dev)
+    payload = build_payload(small.forest).contiguous()
+    sk = fused_vote_scores(small.forest, xbs, payload)
+    sp = None
+    fo = small.forest
+    for c0 in range(0, 32, 12):
+        c1 = min(c0 + 12, 32)
+        sp = traverse_block_ref(xbs, fo.feature[c0:c1], fo.threshold[c0:c1], fo.left_child[c0:c1],
+                                payload[c0:c1], sp if sp is not None else torch.zeros_like(sk),
+                                depth=8)
+    torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-6)
+    check(torch.equal(sk.argmax(-1), sp.argmax(-1)), "traversal labels differ")
+    log(f"traverse: 32 trees in chunks of 12, labels identical, max|d| {max_abs(sk, sp):.3g}")
+
+    # 4. reduced end to end: kernel path == plain path --------------------------
+    xr, yr_ = make_classification(n_samples=65_536, n_features=32, n_classes=4, seed=2)
+    cfg_k = ForestConfig(n_trees=8, max_depth=6, n_bins=64, n_classes=4, hist_reuse="off")
+    cfg_p = dataclasses.replace(cfg_k, hist_backend="segment_sum", split_backend="xla",
+                                predict_backend="xla")
+    mk = train_prf(xr, yr_, cfg_k, 5, device=dev)
+    mp = train_prf(xr, yr_, cfg_p, 5, device=dev)
+    for name in ("feature", "threshold", "left_child", "class_counts", "tree_weight"):
+        check(torch.equal(getattr(mk.forest, name), getattr(mp.forest, name)),
+              f"reduced end to end: {name} differs between kernel and plain paths")
+    check(np.array_equal(mk.predict(xr), mp.predict(xr)), "reduced end to end: labels differ")
+    log("reduced end to end (N=65536, F=32, k=8, depth 6): forests and labels identical")
+
+    # 5. full size --------------------------------------------------------------
+    cfg = ForestConfig(n_trees=32, max_depth=8, n_bins=64, n_classes=4)
+    (x, yl), t_data = sync_time(lambda: make_classification(
+        n_samples=1_310_720, n_features=128, n_classes=4, n_informative=12, n_redundant=8,
+        class_sep=1.6, label_noise=0.05, seed=0))
+    xtr, ytr, xte, yte = train_test_split(x, yl, 0.2, 0)
+    log(f"data: train {xtr.shape} test {xte.shape} ({t_data:.2f} s, host)")
+
+    for m in (hist_ops, scan_ops, trav_ops):
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = train_prf(xtr, ytr, cfg, 0, device=dev)
+    pred = model.predict(xte)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    counts = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches,
+              "tree_traverse": trav_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    acc = float(np.mean(pred == yte))
+    levels = engine.levels_run(model.forest)
+    log(f"main path: train_prf + predict {t_main:.3f} s, levels run {levels}, "
+        f"peak device memory {peak / 2**30:.2f} GiB, test accuracy {acc:.4f}")
+    check(acc >= 0.90, f"full-size test accuracy {acc} < 0.90")
+    for name, n in counts.items():
+        check(n > 0, f"{name} was not launched on the main path")
+
+    # per-stage replay of the same pipeline, with host clocks ending in a sync
+    rcfg = cfg.resolved(xtr.shape[1])
+    stages = {}
+    _, stages["validation"] = sync_time(lambda: screen_blocks(
+        [xtr], ytr, policy="raise", n_features=xtr.shape[1], n_classes=rcfg.n_classes))
+    (xbt, edges), stages["binning"] = sync_time(lambda: bin_dataset(xtr, rcfg.n_bins, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    (wt, u), stages["bootstrap"] = sync_time(lambda: (
+        bootstrap_counts(gen, rcfg.n_trees, xtr.shape[0], dev),
+        torch.rand((rcfg.n_trees, xtr.shape[1]), generator=gen, device=dev)))
+    yt = torch.from_numpy(ytr).to(dev)
+    fmask, stages["dimension_reduction"] = sync_time(lambda: dimension_reduction(xbt, yt, wt, rcfg, u))
+    forest, stages["growth"] = sync_time(lambda: grow_forest(xbt, yt, wt, rcfg, fmask, device=dev))
+    forest.tree_weight, stages["oob_weights"] = sync_time(lambda: oob_accuracy(forest, xbt, yt, wt))
+    check(all(torch.equal(getattr(forest, n), getattr(model.forest, n)) for n in type(forest).FIELDS),
+          "staged replay differs from train_prf")
+    edges_t = torch.from_numpy(edges).to(dev)
+    xbe, stages["predict_binning"] = sync_time(lambda: apply_bins(torch.from_numpy(xte).to(dev), edges_t))
+    _, stages["predict"] = sync_time(lambda: predict(forest, xbe))
+    log("stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # kernels at the main path's shapes: the first growth level's slab
+    k, Ntr, Fall = rcfg.n_trees, xtr.shape[0], xtr.shape[1]
+    S, B, C = rcfg.frontier, rcfg.n_bins, rcfg.n_classes
+    W = hist_feature_slab(Ntr, Fall, S, B, C)
+    xs = xbt[:, :W]
+    base = class_channels(yt, C)
+    slot0 = torch.zeros((k, Ntr), dtype=torch.int32, device=dev)
+    fmask_s = fmask[:, :W].contiguous()
+    rows = []
+
+    def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nbytes, nops, library_ms):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / F32_OPS_PER_S * 1e3
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms}
+        rows.append(row)
+        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}, share {row['bound_ms'] / ms:.3f}, library {library_ms}) max|d| {err:.3g}")
+
+    hk = hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B)
+    hp = multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B)
+    check(torch.equal(hk, hp), "full-size histogram kernel != plain")
+    ms = cuda_ms(lambda: hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B))
+    p_ms = cuda_ms(lambda: multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B), reps=2, warmup=1)
+    live = int(((wt > 0) & (slot0 >= 0)).sum())
+    cls = base.argmax(-1)
+    # the yardstick's flat index, built in place: ((((t*S + s)*W + f)*B + b)*C + c)
+    ts = torch.arange(k, device=dev)[:, None, None] * S + slot0.long()[:, :, None]
+    flat = ts * W + torch.arange(W, device=dev)
+    del ts
+    flat.mul_(B).add_(xs.long()[None]).mul_(C).add_(cls[None, :, None])
+    flat = flat.reshape(-1)
+    vals = (wt[:, :, None] * base.max(-1).values[None, :, None]).expand(k, Ntr, W).reshape(-1)
+    lib_ms = cuda_ms(lambda: torch.zeros(k * S * W * B * C, device=dev).index_add_(0, flat, vals),
+                     reps=3, warmup=1)
+    lib_out = torch.zeros(k * S * W * B * C, device=dev).index_add_(0, flat, vals)
+    check(torch.equal(lib_out.view_as(hk), hk), "index_add_ yardstick != kernel")
+    del flat, vals, lib_out
+    kernel_row("gain_ratio_hist", "src/repro_torch/csrc/gain_ratio_hist.cu",
+               "src/repro/kernels/gain_ratio/kernel.py:156", counts["gain_ratio_hist"],
+               max_abs(hk, hp), ms, p_ms,
+               Ntr * W + Ntr * C * 4 + 2 * k * Ntr * 4 + hk.numel() * 4, 2 * live * W, lib_ms)
+    del hp
+
+    carry0 = init_carry(k, S, C, dev)
+    sk = scan_ops.split_scan_block(hk, fmask_s, carry0, 0)
+    sp = split_scan_block_ref(hk, fmask_s, carry0, 0)
+    for i in (1, 2, 3, 4):
+        check(torch.equal(sk[i], sp[i]), f"full-size split scan field {i} differs")
+    ms = cuda_ms(lambda: scan_ops.split_scan_block(hk, fmask_s, carry0, 0))
+    p_ms = cuda_ms(lambda: split_scan_block_ref(hk, fmask_s, carry0, 0), reps=1, warmup=1)
+    ops_per_candidate = 57 * C + 60      # sums, divisions, 6 logs of 22 float ops each
+    kernel_row("split_scan", "src/repro_torch/csrc/split_scan.cu",
+               "src/repro/kernels/split_scan/kernel.py:147", counts["split_scan"],
+               max_abs(sk[0], sp[0]), ms, p_ms,
+               hk.numel() * 4 + fmask_s.numel() + 2 * k * S * (3 * 4 + 2 * C * 4),
+               k * S * W * ((B - 1) * ops_per_candidate + B * C), None)
+    del hk, sk, sp
+
+    fo = model.forest
+    pay = build_payload(fo).contiguous()
+    P = fo.feature.shape[1]
+    zeros = torch.zeros((xbe.shape[0], C), device=dev)
+    tk = trav_ops.traverse_block(xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth)
+    tp = traverse_block_ref(xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth)
+    check(torch.equal(tk.argmax(-1), tp.argmax(-1)), "full-size traversal labels differ")
+    ms = cuda_ms(lambda: trav_ops.traverse_block(xbe, fo.feature, fo.threshold, fo.left_child, pay,
+                                                 zeros, depth=cfg.max_depth))
+    p_ms = cuda_ms(lambda: traverse_block_ref(xbe, fo.feature, fo.threshold, fo.left_child, pay,
+                                              zeros, depth=cfg.max_depth), reps=3, warmup=1)
+    from repro_torch.core.forest import route_to_leaves
+
+    leaves = route_to_leaves(fo, xbe)
+    band = 2 * rcfg.max_splits_per_level
+    steps = int(torch.where(leaves > 0, (leaves - 1) // band + 1, 0).sum())
+    Nte = xbe.shape[0]
+    kernel_row("tree_traverse", "src/repro_torch/csrc/tree_traverse.cu",
+               "src/repro/kernels/tree_traverse/kernel.py:124", counts["tree_traverse"],
+               max_abs(tk, tp), ms, p_ms,
+               Nte * Fall + k * P * (3 * 4 + C * 4) + 2 * Nte * C * 4,
+               2 * steps + Nte * k * C, None)
+
+    # 6. results ------------------------------------------------------------------
+    result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
+              "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds}
+    out_dir = ROOT / "artifacts"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
+    log("launch counts on the main path: " + json.dumps(counts))
+    log(json.dumps({"kernels": rows}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

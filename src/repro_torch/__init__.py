@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the PRF system (``repro`` is the JAX reference).
+
+The resident classification main path — quantile binning, DSI bootstrap,
+dimension reduction, level-synchronous growth, OOB weights and weighted
+voting — runs on an NVIDIA H100 through three hand-written CUDA kernels
+(``csrc/``): the T_GR histogram, the T_NS split scan and the fused tree
+traversal. Every module mirrors its ``repro`` counterpart by name; the
+package imports ``torch`` and ``numpy`` only.
+"""
+from .core.api import PRFModel, fit_prf_from_draws, train_prf  # noqa: F401
+from .core.types import Forest, ForestConfig, GrowthState  # noqa: F401

@@ -1,0 +1,376 @@
+"""Level-synchronous growth engine (paper §4.2), single-device plane.
+
+Counterpart of ``repro/core/engine.py`` restricted to the ``LocalPlane``.
+One level step is: T_GR histograms -> T_NS split scoring
+(``chunked_level_scores``) -> ``plan_level`` -> ``write_level`` ->
+``route_level`` -> ``next_frontier``. ``grow`` runs it in a Python loop
+with one host sync per level (the early-exit test).
+
+On CUDA the default backends run the fused path (``fused_level_scores``):
+the histogram kernel and the split-scan kernel alternate feature slab by
+feature slab, threading the split scan's running-best carry, so the full
+``[tc, S, F, B, C]`` histogram never exists. On the CPU (or with
+``hist_backend="segment_sum"`` / ``split_backend="xla"``) the plain
+PyTorch versions build the full histogram and score it in one shot; both
+give the same winners (first-occurrence argmax over the same gains).
+
+Not ported here, and refused with ``NotImplementedError``: histogram
+reuse, the mesh and multi-process planes, sample-block streaming and
+checkpointed growth (ROADMAP.md Queue 1 items 6-10).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .gain import SplitScores, level_scores, node_counts, resolve_split_backend
+from .histograms import hist_feature_slab, level_histograms
+from .types import Forest, ForestConfig, GrowthState
+
+
+def init_forest(config: ForestConfig, device) -> Forest:
+    k, P = config.n_trees, config.max_nodes + 1  # +1 pad slot
+    C = 3 if config.regression else config.n_classes
+    return Forest(
+        feature=torch.full((k, P), -1, dtype=torch.int32, device=device),
+        threshold=torch.zeros((k, P), dtype=torch.int32, device=device),
+        left_child=torch.full((k, P), -1, dtype=torch.int32, device=device),
+        class_counts=torch.zeros((k, P, C), dtype=torch.float32, device=device),
+        value=torch.zeros((k, P), dtype=torch.float32, device=device),
+        tree_weight=torch.ones((k,), dtype=torch.float32, device=device),
+        config=config,
+    )
+
+
+def _safe_mean(counts: torch.Tensor) -> torch.Tensor:
+    """``sum / count`` of [..., C>=2] regression channels, 0 where the count is 0."""
+    return torch.where(
+        counts[..., 0] > 0,
+        counts[..., 1] / torch.clamp_min(counts[..., 0], 1e-38),
+        torch.zeros_like(counts[..., 0]),
+    )
+
+
+def _gather_feature_bins(xb: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """bins[t, i] = xb[i, f[t, i]] as one flat gather. [k, N] int32."""
+    N, F = xb.shape
+    rows = torch.arange(N, device=xb.device) * F
+    return xb.reshape(-1)[rows[None, :] + f.long()].to(torch.int32)
+
+
+def _rank_splits(gain: torch.Tensor, valid: torch.Tensor, n_max: int) -> torch.Tensor:
+    """Beam selection: rank valid slots by gain (stable), admit the top n_max.
+
+    Returns split_rank [k, S] int32 in [0, n_max) for admitted slots, -1 else.
+    """
+    score = torch.where(valid, gain, torch.full_like(gain, -torch.inf))
+    order = torch.argsort(-score, dim=-1, stable=True)
+    pos = torch.argsort(order, dim=-1, stable=True).to(torch.int32)
+    admitted = valid & (pos < n_max)
+    return torch.where(admitted, pos, torch.full_like(pos, -1))
+
+
+def check_ported(config: ForestConfig, n_features: int) -> None:
+    """Refuse, by name, every path this slice of the port does not run."""
+    if config.sample_block > 0:
+        raise NotImplementedError(
+            "sample_block > 0 (streaming data plane) is not ported yet: ROADMAP.md Queue 1 item 7"
+        )
+    if config.resolved_bin_fit() == "blocked":
+        raise NotImplementedError(
+            "bin_fit='blocked' (streaming quantile sketch) is not ported yet: ROADMAP.md Queue 1 item 7"
+        )
+    if resolve_hist_reuse(config, n_features):
+        raise NotImplementedError(
+            "histogram reuse is not ported yet (ROADMAP.md Queue 1 item 6); "
+            "pass hist_reuse='off', or a size whose cache exceeds hist_reuse_budget_mb"
+        )
+
+
+class CollectivePlane:
+    """The engine's collective protocol — identity ops on a single device."""
+
+    combine_hist = None
+    level_mask = None
+
+    def reduce_root(self, root_counts: torch.Tensor) -> torch.Tensor:
+        return root_counts
+
+    def merge_winners(self, scores: SplitScores, n_node: torch.Tensor):
+        return scores, n_node
+
+    def broadcast_route(self, x_binned, f_i, thr_i) -> torch.Tensor:
+        return (_gather_feature_bins(x_binned, f_i) > thr_i).to(torch.int32)
+
+
+class LocalPlane(CollectivePlane):
+    """Single-device plane: the whole ``[N, F]`` block lives on one device."""
+
+    def __init__(self, feature_mask: Optional[torch.Tensor] = None):
+        self.level_mask = feature_mask
+
+
+def _level_hists(x_binned, base_channels, w_c, slot_c, config: ForestConfig):
+    """One chunk's level histogram (all frontier slots)."""
+    return level_histograms(
+        x_binned, base_channels, w_c, slot_c,
+        n_slots=config.frontier, n_bins=config.n_bins,
+        packed=config.packed_hist and not config.regression,
+        backend=config.hist_backend,
+    )
+
+
+def fused_level_scores(
+    x_binned: torch.Tensor,       # [N, F] uint8
+    base_channels: torch.Tensor,  # [N, C]
+    weights: torch.Tensor,        # [tc, N]
+    sample_slot: torch.Tensor,    # [tc, N]
+    feature_mask: Optional[torch.Tensor],  # [tc, F] bool or None
+    config: ForestConfig,
+):
+    """T_GR -> T_NS per feature slab: histogram of one slab, then the
+    split scan folds it into the running-best carry. Peak histogram
+    footprint is one ``[tc, S, W, B, C]`` slab. Returns (SplitScores,
+    n_node [tc, S])."""
+    from ..kernels.split_scan.ops import split_scan_block
+    from ..kernels.split_scan.ref import init_carry
+
+    tc = weights.shape[0]
+    N, F = x_binned.shape
+    S, B = config.frontier, config.n_bins
+    C = base_channels.shape[-1]
+    W = hist_feature_slab(N, F, S, B, C)
+    mask = (
+        feature_mask if feature_mask is not None
+        else torch.ones((tc, F), dtype=torch.bool, device=x_binned.device)
+    )
+    carry = init_carry(tc, S, C, x_binned.device)
+    for f0 in range(0, F, W):
+        f1 = min(f0 + W, F)
+        hist = _level_hists(x_binned[:, f0:f1], base_channels, weights, sample_slot, config)
+        carry = split_scan_block(
+            hist, mask[:, f0:f1], carry, f0, regression=config.regression
+        )
+        del hist
+    scores = SplitScores(*carry)
+    return scores, node_counts(scores, regression=config.regression)
+
+
+def chunked_level_scores(
+    x_binned: torch.Tensor,       # [N, F] uint8
+    base_channels: torch.Tensor,  # [N, C]
+    weights: torch.Tensor,        # [k, N]
+    sample_slot: torch.Tensor,    # [k, N]
+    feature_mask: Optional[torch.Tensor],  # [k, F] bool or None
+    config: ForestConfig,
+):
+    """T_GR + T_NS stage 1 for all k trees, ``tree_chunk`` trees at a time.
+
+    A remainder chunk is padded with zero-weight, all-parked dummy trees
+    whose rows are dropped from the result. Returns (SplitScores [k, S,
+    ...], n_node [k, S]).
+    """
+    k = config.n_trees
+    tc = min(config.tree_chunk if config.tree_chunk > 0 else k, k)
+    split_be = resolve_split_backend(config.split_backend, x_binned.device)
+
+    def score_chunk(w_c, slot_c, mask_c):
+        if split_be == "pallas":
+            return fused_level_scores(x_binned, base_channels, w_c, slot_c, mask_c, config)
+        hist = _level_hists(x_binned, base_channels, w_c, slot_c, config)
+        return level_scores(hist, mask_c, regression=config.regression, backend=split_be)
+
+    if tc >= k:
+        return score_chunk(weights, sample_slot, feature_mask)
+
+    mask = (
+        feature_mask if feature_mask is not None
+        else torch.ones((k, x_binned.shape[1]), dtype=torch.bool, device=x_binned.device)
+    )
+    kp = -(-k // tc) * tc
+    if kp != k:                  # pad the remainder chunk with dummy trees
+        weights = torch.nn.functional.pad(weights, (0, 0, 0, kp - k))
+        sample_slot = torch.nn.functional.pad(sample_slot, (0, 0, 0, kp - k), value=-1)
+        mask = torch.nn.functional.pad(mask, (0, 0, 0, kp - k))
+    outs = [
+        score_chunk(weights[c:c + tc], sample_slot[c:c + tc], mask[c:c + tc])
+        for c in range(0, kp, tc)
+    ]
+    scores = SplitScores(*(torch.cat(parts)[:k] for parts in zip(*(o[0] for o in outs))))
+    n_node = torch.cat([o[1] for o in outs])[:k]
+    return scores, n_node
+
+
+def resolve_hist_reuse(config: ForestConfig, n_features: int) -> bool:
+    """Whether the reference would carry the between-level histogram cache
+    (policy ``resolved_hist_reuse()`` plus the ``hist_reuse_budget_mb``
+    capacity gate on the ``4*k*S*F*B*C``-byte cache)."""
+    if config.resolved_hist_reuse() == "off":
+        return False
+    C = 3 if config.regression else config.n_classes
+    cache_bytes = 4 * config.n_trees * config.frontier * n_features * config.n_bins * C
+    return cache_bytes <= config.hist_reuse_budget_mb * (1 << 20)
+
+
+def init_growth_state(
+    base_channels: torch.Tensor,  # [N, C]
+    weights: torch.Tensor,        # [k, N]
+    config: ForestConfig,
+    plane: CollectivePlane,
+) -> GrowthState:
+    """Forest with the root node populated + the level-0 frontier."""
+    k, S = config.n_trees, config.frontier
+    dev = weights.device
+    forest = init_forest(config, dev)
+    # Per-channel sums rather than a matmul, so the root counts never
+    # depend on the TF32 matmul setting.
+    root_counts = plane.reduce_root(torch.stack(
+        [(weights * base_channels[:, c]).sum(dim=1) for c in range(base_channels.shape[1])],
+        dim=1,
+    ))                                                            # [k, C]
+    forest.class_counts[:, 0] = root_counts
+    if config.regression:
+        forest.value[:, 0] = _safe_mean(root_counts)
+    slot_node = torch.full((k, S), -1, dtype=torch.int32, device=dev)
+    slot_node[:, 0] = 0
+    return GrowthState(
+        forest=forest,
+        slot_node=slot_node,
+        sample_slot=torch.zeros((k, weights.shape[1]), dtype=torch.int32, device=dev),
+        level=0,
+    )
+
+
+def level_task_group(
+    x_binned, base_channels, weights, sample_slot, slot_node,
+    config: ForestConfig, plane: CollectivePlane,
+):
+    """One level's T_GR + T_NS task group; trees whose frontier died get
+    zero weight (no work inside their tree chunk)."""
+    tree_live = (slot_node >= 0).any(dim=1)
+    w_level = weights * tree_live[:, None].to(weights.dtype)
+    scores, n_node = chunked_level_scores(
+        x_binned, base_channels, w_level, sample_slot, plane.level_mask, config
+    )
+    return plane.merge_winners(scores, n_node)
+
+
+def plan_level(scores: SplitScores, n_node, slot_node, config: ForestConfig, level: int):
+    """T_NS stage 2: admit splits (gain + support gates, beam rank) and
+    fix this level's child band. Returns (split_rank, is_split, child_base)."""
+    n_max = config.max_splits_per_level
+    valid = (
+        (slot_node >= 0)
+        & (scores.gain_ratio > config.min_gain)
+        & (n_node >= config.min_samples_split)
+    )
+    split_rank = _rank_splits(scores.gain_ratio, valid, n_max)
+    return split_rank, split_rank >= 0, 1 + 2 * n_max * level
+
+
+def write_level(
+    forest: Forest, slot_node, split_rank, is_split, child_base,
+    scores: SplitScores, config: ForestConfig,
+) -> Forest:
+    """Write this level's split descriptors + child nodes into the pool, in
+    place (non-split slots dump into the pad node, sanitized at the end)."""
+    pad = config.max_nodes
+    t_idx = torch.arange(config.n_trees, device=slot_node.device)[:, None]
+    left_id = (child_base + 2 * split_rank).to(torch.int32)
+    node_or_pad = torch.where(is_split, slot_node, pad).long()
+
+    forest.feature[t_idx, node_or_pad] = torch.where(is_split, scores.feature, -1).to(torch.int32)
+    forest.threshold[t_idx, node_or_pad] = scores.threshold.to(torch.int32)
+    forest.left_child[t_idx, node_or_pad] = left_id
+
+    lid = torch.where(is_split, left_id, pad).long()
+    rid = torch.where(is_split, left_id + 1, pad).long()
+    forest.class_counts[t_idx, lid] = scores.left_counts
+    forest.class_counts[t_idx, rid] = scores.right_counts
+    if config.regression:
+        forest.value[t_idx, lid] = _safe_mean(scores.left_counts)
+        forest.value[t_idx, rid] = _safe_mean(scores.right_counts)
+    return forest
+
+
+def route_level(x_binned, sample_slot, split_rank, scores: SplitScores,
+                plane: CollectivePlane) -> torch.Tensor:
+    """Route samples to child slots: ``2 * rank + go_right``, or -1 (parked)."""
+    live = sample_slot >= 0
+    s_safe = torch.where(live, sample_slot, 0).long()
+    rank_i = torch.gather(split_rank, 1, s_safe)
+    f_i = torch.gather(scores.feature, 1, s_safe)
+    thr_i = torch.gather(scores.threshold, 1, s_safe)
+    go_right = plane.broadcast_route(x_binned, f_i, thr_i)
+    routed = 2 * rank_i + go_right
+    return torch.where(live & (rank_i >= 0), routed, -1).to(torch.int32)
+
+
+def next_frontier(is_split, child_base: int, n_slots: int) -> torch.Tensor:
+    """Next level's frontier: this level's children, densely packed."""
+    j = torch.arange(n_slots, device=is_split.device)[None, :]
+    n_children = 2 * is_split.sum(-1, keepdim=True)
+    return torch.where(j < n_children, child_base + j, -1).to(torch.int32)
+
+
+def finalize_forest(forest: Forest) -> Forest:
+    """Reset the pad slot to leaf defaults (its content depends on how many
+    levels ran), so early-exit and fixed-depth forests are identical."""
+    pad = forest.config.max_nodes
+    forest.feature[:, pad] = -1
+    forest.threshold[:, pad] = 0
+    forest.left_child[:, pad] = -1
+    forest.class_counts[:, pad] = 0.0
+    forest.value[:, pad] = 0.0
+    return forest
+
+
+def level_step(x_binned, base_channels, weights, state: GrowthState,
+               config: ForestConfig, plane: CollectivePlane) -> GrowthState:
+    """One level of growth: task group -> plan -> write -> route -> frontier."""
+    scores, n_node = level_task_group(
+        x_binned, base_channels, weights, state.sample_slot, state.slot_node, config, plane
+    )
+    split_rank, is_split, child_base = plan_level(
+        scores, n_node, state.slot_node, config, state.level
+    )
+    forest = write_level(
+        state.forest, state.slot_node, split_rank, is_split, child_base, scores, config
+    )
+    sample_slot = route_level(x_binned, state.sample_slot, split_rank, scores, plane)
+    return GrowthState(
+        forest=forest,
+        slot_node=next_frontier(is_split, child_base, config.frontier),
+        sample_slot=sample_slot,
+        level=state.level + 1,
+    )
+
+
+def grow(
+    x_binned: torch.Tensor,       # [N, F] uint8
+    base_channels: torch.Tensor,  # [N, C]
+    weights: torch.Tensor,        # [k, N] DSI in-bag multiplicities
+    config: ForestConfig,
+    plane: CollectivePlane,
+) -> Forest:
+    """Level-synchronous growth. With ``config.early_exit`` the loop stops as
+    soon as every frontier is empty (one host sync per level)."""
+    state = init_growth_state(base_channels, weights, config, plane)
+    while state.level < config.max_depth:
+        if config.early_exit and not bool((state.slot_node >= 0).any()):
+            break
+        state = level_step(x_binned, base_channels, weights, state, config, plane)
+    return finalize_forest(state.forest)
+
+
+def levels_run(forest: Forest) -> int:
+    """Levels the growth loop ran, read off the pool: one past the deepest
+    level that split, plus the level that found no split (if depth allowed)."""
+    cfg = forest.config
+    band = 2 * cfg.max_splits_per_level
+    lc = forest.left_child[:, : cfg.max_nodes]
+    if not bool((lc >= 0).any()):
+        return 1
+    deepest = int((lc[lc >= 0].max().item() - 1) // band)   # level that allocated it
+    return min(deepest + 2, cfg.max_depth)

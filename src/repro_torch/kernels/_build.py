@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+
+One ``nvcc`` call compiles every source into one shared library with a
+plain C interface, ``build/repro_torch/libprf_kernels.so`` at the root
+of the checkout (listed in ``.gitignore``); ``ctypes`` loads it. The
+build runs at the first kernel launch of a process and is reused while
+it is newer than every source. Nothing here runs at import time, so the
+CPU tests import every module without a toolkit.
+
+Flags: ``-fmad=false`` and no ``--use_fast_math``, so the split-scan
+kernel's ``logf`` and divisions round op for op like the plain PyTorch
+version on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = ROOT / "build" / "repro_torch"
+LIB_NAME = "libprf_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signature of every exported launcher (all return cudaGetLastError()).
+SIGNATURES = {
+    # x, ld, base, w, slot, out, N, W, tc, S, B, C, packed, stream
+    "prf_hist": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # hist, mask, f_base, gain, feat, thr, left, right, tc, S, W, B, C, regression, stream
+    "prf_split_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, N, F, feature, threshold, left_child, payload, carry, out, tc, P, C, depth, stream
+    "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+build_seconds = None      # wall time of this process's nvcc call (None: reused / not built)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into one library; returns its path."""
+    global build_seconds
+    lib = BUILD_DIR / LIB_NAME
+    srcs = sources() + sorted(CSRC.glob("*.cuh"))
+    if (lib.exists()
+            and lib.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C launcher on PyTorch's current stream; raise on a CUDA error."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

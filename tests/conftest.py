@@ -8,6 +8,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one (run with -m cuda on the card)"
+    )
+
+
 @pytest.fixture(scope="session")
 def class_data():
     from repro.data.tabular import make_classification, train_test_split
