@@ -3,16 +3,32 @@
     python3 chip_smoke.py
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``);
-3. holds each kernel against its plain PyTorch version at small shapes;
+2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together, then one link);
+3. holds each kernel against its plain PyTorch version at small shapes:
+   the three PRF kernels, then attention (odd lengths, Lq < Lk, window,
+   GQA, f32 and bf16) and the SSD scan (S in {64, 384}, N in {16, 128}),
+   the LM kernels at ``LM_TOL``;
 4. reduced end to end: the kernel path and the plain path give the same
-   forest and labels;
-5. full size: the README quickstart configuration on 2^20 training rows,
-   F = 128, through ``train_prf`` and ``PRFModel.predict``, with kernel
-   launch counts read around that one run, per-stage times, accuracy,
-   and each kernel timed at the main path's shapes beside its plain
-   version, its bound and (for the histogram) one ``index_add_``;
-6. the launch counts and one JSON line per the smoke contract, then
+   forest and labels, and (f32, TF32 off) the same greedy LM tokens for
+   smollm-135m and mamba2-780m at cut widths;
+5. full size, PRF: the README quickstart configuration on 2^20 training
+   rows, F = 128, through ``train_prf`` and ``PRFModel.predict``, with
+   kernel launch counts read around that one run, per-stage times,
+   accuracy, and each kernel timed at the main path's shapes beside its
+   plain version, its bound and (for the histogram) one ``index_add_``;
+6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
+   (48 layers, d 1536) at their published widths, bf16 compute, f32
+   params from a seed: batch 8, prompt 2048, 32 greedy tokens through
+   ``greedy_generate`` with launch counts read around that run; prefill
+   seconds, decode ms per token, tokens/s, peak memory; full-width
+   kernel-path vs plain-path prefill in f32 (logits and every layer's
+   cache); the card's busy share under the profiler for prefill and one
+   decode step; attention and the SSD scan held per element against
+   their plain versions at the path's shapes (``LM_TOL``) and timed
+   beside them, their bounds and (for attention)
+   ``scaled_dot_product_attention``;
+7. the launch counts and one JSON line per the smoke contract, then
    the device line last. The numbers also go to ``artifacts/chip_smoke.json``.
 
 Every failed check raises, so the exit code is non-zero. Exits non-zero
@@ -33,6 +49,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor cores (NVIDIA data sheet)
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 
 
 def log(*a):
@@ -72,6 +90,269 @@ def max_abs(a, b):
     check(torch.equal(torch.isfinite(a), torch.isfinite(b)), "non-finite patterns differ")
     return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
+
+def rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+# The LM kernels' tolerance, per element: |got - want| <= rtol |want| +
+# atol rms(want). f32: sums taken in another order. bf16 output: one
+# rounding may land one bf16 ulp (at most 2^-7 |want|) away; the rms term
+# covers elements near zero, and at 1e-2 rms it stays well below a typical one.
+LM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-2)}
+
+
+def lm_close(got, want, dtype, what):
+    """Checks ``got`` against ``want`` at LM_TOL[dtype]; returns (max |d|,
+    the largest share of its allowance any element used, at most 1)."""
+    rtol, atol = LM_TOL[dtype]
+    got, want = got.double(), want.double()
+    d = (got - want).abs()
+    share = d / (rtol * want.abs() + atol * rms(want))
+    share = float(torch.where(d == 0, 0.0, share).max())
+    check(share <= 1.0, f"{what}: kernel != plain, max |d| {float(d.max()):.3g} is "
+          f"{share:.3g} x the allowance (rtol {rtol}, atol {atol} x rms)")
+    return float(d.max()), share
+
+
+def drift(got, want):
+    """max |got - want| over max |want|: a whole model's drift, the
+    measure of the CPU parity tests."""
+    want = want.double()
+    return float((got.double() - want).abs().max()) / float(want.abs().max())
+
+
+def device_busy_share(fn):
+    """Share of ``fn``'s wall time during which the card ran a kernel: the
+    profiler's device time of every kernel (one stream, no overlap) over
+    the host clock around ``fn`` and a sync. The profiler slows the host
+    side, so this is a lower bound. None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(fn)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return busy_us / 1e6 / wall if busy_us > 0 else None
+
+
+def _randn(gen, shape, dev, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _ssd_inputs(gen, B, S, H, P, N, dev, dtype):
+    x = _randn(gen, (B, S, H, P), dev, dtype)
+    loga = -_randn(gen, (B, S, H), dev).abs() * 0.4
+    b = _randn(gen, (B, S, N), dev, dtype, 0.3)
+    c = _randn(gen, (B, S, N), dev, dtype, 0.3)
+    return x, loga, b, c
+
+
+def lm_kernel_checks(dev):
+    """Attention and the SSD scan against their plain versions, small
+    shapes, at LM_TOL (the f32 state h at f32's tolerance in both dtypes)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    worst = {}
+    for B, H, KV, Lq, Lk, D, causal, window in (
+            (2, 9, 3, 200, 200, 64, True, 0), (1, 4, 2, 77, 301, 64, True, 0),
+            (1, 4, 4, 257, 257, 32, True, 100), (1, 2, 1, 130, 250, 128, False, 0),
+            (1, 2, 2, 65, 190, 256, True, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(gen, (B, Lq, H, D), dev, dtype)
+            k = _randn(gen, (B, Lk, KV, D), dev, dtype)
+            v = _randn(gen, (B, Lk, KV, D), dev, dtype)
+            _, share = lm_close(flash_ops.flash_attention(q, k, v, causal=causal, window=window),
+                                gqa_attend(q, k, v, mask_spec=MaskSpec(causal, window, Lk - Lq)), dtype,
+                                f"attention at {(B, H, KV, Lq, Lk, D, causal, window, dtype)}")
+            worst[f"attention {dtype}"] = max(worst.get(f"attention {dtype}", 0.0), share)
+    for B, S, H, P, N in ((2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 384, 4, 32, 16), (1, 64, 2, 64, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, loga, b, c = _ssd_inputs(gen, B, S, H, P, N, dev, dtype)
+            y, h = ssd_ops.ssd_scan(x, loga, b, c)
+            yp, hp = ssd_chunked(x, loga, b, c, None, min(128, S))
+            what = f"ssd at {(B, S, H, P, N, dtype)}"
+            share = max(lm_close(y, yp, dtype, what)[1], lm_close(h, hp, torch.float32, what + " h")[1])
+            worst[f"ssd {dtype}"] = max(worst.get(f"ssd {dtype}", 0.0), share)
+    torch.cuda.synchronize()
+    log("LM kernels vs plain (largest share of the allowance used): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return worst
+
+
+def lm_reduced_end_to_end(dev):
+    """Cut widths, f32, TF32 off: kernel and plain paths give the same greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.serve_step import greedy_generate
+
+    for arch in ("smollm-135m", "mamba2-780m"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
+                                  d_ff=512 if arch == "smollm-135m" else 0, vocab_size=4096,
+                                  head_dim=64, compute_dtype="float32")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen, device=dev)
+        n0 = flash_ops.launches + ssd_ops.launches
+        a = greedy_generate(build_model(cfg, dev, use_kernels=True, seed=1), toks, steps=8, s_max=264)
+        check(flash_ops.launches + ssd_ops.launches == n0 + 4, f"{arch}: kernels not launched 4 times")
+        b = greedy_generate(build_model(cfg, dev, use_kernels=False, seed=1), toks, steps=8, s_max=264)
+        check(torch.equal(a, b), f"reduced LM end to end ({arch}): tokens differ between kernel and plain paths")
+    log("reduced LM end to end (4 layers, d 256, f32, batch 4, prompt 256, 8 tokens): "
+        "greedy tokens identical on the kernel and plain paths for smollm-135m and mamba2-780m")
+
+
+def lm_full(dev, arch):
+    """One published-width LM through ``greedy_generate``: counts, times, checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving.serve_step import greedy_generate
+
+    cfg = get_config(arch)
+    B, L, T = LM_BATCH, LM_PROMPT, LM_GEN
+    s_max = L + T
+    model, t_init = sync_time(lambda: build_model(cfg, dev, seed=0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=dev)
+    greedy_generate(model, prompts[:, :128], steps=2, s_max=130)      # warm-up: first-call costs
+
+    flash_ops.launches = ssd_ops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    toks, t_gen = sync_time(lambda: greedy_generate(model, prompts, steps=T, s_max=s_max))
+    counts = {"flash_attention": flash_ops.launches, "ssd_scan": ssd_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(toks.shape == (B, T) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{arch}: generated tokens out of range")
+    want = {"smollm-135m": "flash_attention", "mamba2-780m": "ssd_scan"}[arch]
+    check(counts[want] == cfg.n_layers, f"{arch}: {want} launched {counts[want]} times, want {cfg.n_layers}")
+
+    # the same run in two timed parts: prefill, then the decode steps
+    (logits, cache), t_pre = sync_time(lambda: model.prefill(prompts, s_max=s_max))
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
+    out = [logits.argmax(-1)]
+
+    def decode():
+        nonlocal cache
+        for i in range(T - 1):
+            lg, cache = model.decode_step(cache, out[-1], L + i)
+            out.append(lg.argmax(-1))
+        return lg
+
+    lg, t_dec = sync_time(decode)
+    check(bool(torch.isfinite(lg).all()), f"{arch}: non-finite decode logits")
+    check(torch.equal(torch.stack(out, 1).to(torch.int32), toks), f"{arch}: the timed rerun gave other tokens")
+    busy = {"prefill": device_busy_share(lambda: model.prefill(prompts, s_max=s_max)),
+            "decode_step": device_busy_share(lambda: model.decode_step(cache, out[-1], L + T - 1))}
+
+    # Full width and depth, kernel path vs plain path in f32 compute (TF32
+    # off): the last token's logits and every layer's cache, which each
+    # layer computes from all rows of the layer below. The kernels' own
+    # outputs at these shapes are held per element in lm_kernel_rows. In
+    # bf16 one-ulp differences grow through the depth of a random-weight
+    # model, so the bf16 numbers are only reported.
+    model.use_kernels = False
+    (lp, _), t_plain = sync_time(lambda: model.prefill(prompts, s_max=s_max))
+    model.compute_dtype = torch.float32
+    lp32, cp32 = model.prefill(prompts, s_max=s_max)
+    model.use_kernels = True
+    lk32, ck32 = model.prefill(prompts, s_max=s_max)
+    model.compute_dtype = torch.bfloat16
+    drift32 = {"logits": drift(lk32, lp32)}
+    for ck, cp in zip(ck32, cp32):
+        for n in cp:
+            drift32[n] = max(drift32.get(n, 0.0), drift(ck[n], cp[n]))
+    err32 = max(drift32.values())
+    check(err32 <= 1e-2, f"{arch}: full-width f32 kernel vs plain prefill drift {drift32}")
+    del cp32, ck32
+    err = drift(logits, lp)
+    noise = drift(lp, lp32)
+    agree = float((logits.argmax(-1) == lp.argmax(-1)).float().mean())
+    res = {"arch": arch, "params": sum(p.numel() for p in model.parameters()), "init_s": t_init,
+           "generate_s": t_gen, "prefill_s": t_pre, "plain_prefill_s": t_plain,
+           "decode_ms_per_token": t_dec / (T - 1) * 1e3, "tokens_per_s": B * T / t_gen,
+           "peak_bytes": peak, "launches": counts, "kernel_vs_plain_f32": drift32,
+           "kernel_vs_plain_logits_bf16": err, "bf16_vs_f32_plain_logits": noise,
+           "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy}
+    log(f"{arch} (batch {B}, prompt {L}, {T} tokens, bf16): generate {t_gen:.3f} s "
+        f"({res['tokens_per_s']:.1f} tok/s), prefill {t_pre:.3f} s (plain path {t_plain:.3f} s), "
+        f"decode {res['decode_ms_per_token']:.2f} ms/token, peak {peak / 2**30:.2f} GiB, "
+        f"launches {counts}; prefill kernel vs plain, max |d| / max |plain|: f32 "
+        + ", ".join(f"{k} {v:.3g}" for k, v in drift32.items()) + f"; bf16 logits {err:.3g} "
+        f"(top-1 agree {agree:.3f}; bf16 vs f32 on the plain path {noise:.3g}); "
+        f"device busy share under the profiler {busy}")
+    del model, cache, logits, lp, lp32, lk32
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_kernel_rows(dev, counts, kernel_row):
+    """Attention at smollm-135m's prefill shapes and the SSD scan at
+    mamba2-780m's, each beside its plain version and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models.mamba import _dims
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    B, L = LM_BATCH, LM_PROMPT
+    sm = get_config("smollm-135m")
+    H, KV, D = sm.n_heads, sm.n_kv_heads, sm.hd
+    q = _randn(gen, (B, L, H, D), dev, torch.bfloat16)
+    k = _randn(gen, (B, L, KV, D), dev, torch.bfloat16)
+    v = _randn(gen, (B, L, KV, D), dev, torch.bfloat16)
+    plain = lambda: gqa_attend(q, k, v, mask_spec=MaskSpec())
+    out = flash_ops.flash_attention(q, k, v)
+    err, share = lm_close(out, plain(), torch.bfloat16, "attention at the path's shapes")
+    ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v))
+    p_ms = cuda_ms(plain, reps=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).double() - out.double()).abs().max())
+    lib_ms = cuda_ms(sdpa)
+    log(f"attention at the path's shapes: kernel vs plain max |d| {err:.3g} ({share:.3g} of the "
+        f"allowance), SDPA vs kernel max |d| {lib_err:.3g}")
+    kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:73", counts["flash_attention"], err, ms, p_ms,
+               2 * (2 * B * L * H * D + 2 * B * L * KV * D), 4 * D * B * H * L * (L + 1) // 2, lib_ms,
+               BF16_OPS_PER_S)
+    del q, k, v, out, qt, kt, vt
+
+    mc = get_config("mamba2-780m")
+    _, Hs, P, N = _dims(mc, mc.d_model)
+    x, loga, b, c = _ssd_inputs(gen, B, L, Hs, P, N, dev, torch.bfloat16)
+    y, h = ssd_ops.ssd_scan(x, loga, b, c)
+    yp, hp = ssd_chunked(x, loga, b, c, None, 128)
+    (err, share), (err_h, share_h) = (lm_close(y, yp, torch.bfloat16, "ssd at the path's shapes"),
+                                      lm_close(h, hp, torch.float32, "ssd h at the path's shapes"))
+    log(f"ssd scan at the path's shapes: kernel vs plain max |d| y {err:.3g} ({share:.3g} of the "
+        f"allowance), h {err_h:.3g} ({share_h:.3g})")
+    del yp, hp
+    ms = cuda_ms(lambda: ssd_ops.ssd_scan(x, loga, b, c))
+    p_ms = cuda_ms(lambda: ssd_chunked(x, loga, b, c, None, 128), reps=2, warmup=1)
+    Q = 128
+    tri = Q * (Q + 1) // 2
+    per_chunk = 2 * tri * N + 2 * tri * P + 4 * Q * N * P
+    kernel_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:69",
+               counts["ssd_scan"], max(err, err_h), ms, p_ms,
+               2 * B * L * Hs * P * 2 + B * L * Hs * 4 + 2 * B * L * N * 2 + B * Hs * N * P * 4,
+               B * Hs * (L // Q) * per_chunk, None, BF16_OPS_PER_S)
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -162,6 +443,7 @@ def main() -> int:
     torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-6)
     check(torch.equal(sk.argmax(-1), sp.argmax(-1)), "traversal labels differ")
     log(f"traverse: 32 trees in chunks of 12, labels identical, max|d| {max_abs(sk, sp):.3g}")
+    lm_small = lm_kernel_checks(dev)
 
     # 4. reduced end to end: kernel path == plain path --------------------------
     xr, yr_ = make_classification(n_samples=65_536, n_features=32, n_classes=4, seed=2)
@@ -175,6 +457,7 @@ def main() -> int:
               f"reduced end to end: {name} differs between kernel and plain paths")
     check(np.array_equal(mk.predict(xr), mp.predict(xr)), "reduced end to end: labels differ")
     log("reduced end to end (N=65536, F=32, k=8, depth 6): forests and labels identical")
+    lm_reduced_end_to_end(dev)
 
     # 5. full size --------------------------------------------------------------
     cfg = ForestConfig(n_trees=32, max_depth=8, n_bins=64, n_classes=4)
@@ -235,9 +518,10 @@ def main() -> int:
     fmask_s = fmask[:, :W].contiguous()
     rows = []
 
-    def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nbytes, nops, library_ms):
+    def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nbytes, nops, library_ms,
+                   ops_per_s=F32_OPS_PER_S):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_OPS_PER_S * 1e3
+        t_ops = nops / ops_per_s * 1e3
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -309,9 +593,17 @@ def main() -> int:
                Nte * Fall + k * P * (3 * 4 + C * 4) + 2 * Nte * C * 4,
                2 * steps + Nte * k * C, None)
 
-    # 6. results ------------------------------------------------------------------
+    # 6. full size, LM serving ----------------------------------------------------
+    lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
+    lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
+                 "ssd_scan": lm[1]["launches"]["ssd_scan"]}
+    counts.update(lm_counts)
+    lm_kernel_rows(dev, lm_counts, kernel_row)
+
+    # 7. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
-              "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds}
+              "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
+              "lm": lm, "lm_small_checks": lm_small}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -1,10 +1,13 @@
-"""Carry a trained forest across frameworks as numpy arrays.
+"""Carry a trained forest, or LM parameters, across frameworks as numpy arrays.
 
 A forest is six arrays (``Forest.FIELDS``) plus its config, and a model
 adds the ``[F, B-1]`` bin edges; both packages use the same layout, so a
 model trained by the JAX reference loads here unchanged:
 ``model_from_numpy({n: np.asarray(getattr(jax_model.forest, n)) ...},
 jax_model.bin_edges, ForestConfig(**dataclasses.asdict(jax_cfg)), "cuda")``.
+
+LM parameters: ``lm_params_from_numpy(jax.tree.map(np.asarray, params), cfg)``
+gives a state dict for ``repro_torch.models.Model(cfg)``.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.api import PRFModel
+from .configs.base import ArchConfig
 from .core.types import Forest, ForestConfig
 from .device import resolve_device
 
@@ -45,3 +49,61 @@ def model_from_numpy(forest_arrays: dict, bin_edges, config: ForestConfig, devic
         forest=forest_from_numpy(forest_arrays, config, device),
         bin_edges=np.asarray(bin_edges, np.float64),
     )
+
+
+def _leaves(tree, path=""):
+    """(dotted path, leaf) of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from _leaves(val, f"{path}.{key}" if path else key)
+    else:
+        yield path, tree
+
+
+def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
+    """The reference's LM param pytree -> the port's ``Model`` state dict.
+
+    ``params`` is ``repro.models.Model(cfg).init(key)`` with numpy leaves:
+    ``embed`` / ``unembed`` / ``final_norm`` and ``stages``, a list with one
+    dict per stage whose leaves are stacked ``[n_groups, ...]`` over the
+    stage's cycle ``l0, l1, ...``. Stage s, group g, cycle slot j becomes
+    layer ``layers.{i}``, i counting in that order. Raises ``KeyError`` on
+    a missing or unexpected leaf and ``ValueError`` on a shape mismatch,
+    naming the leaf's path in the reference's pytree.
+    """
+    from .models.model import Model
+
+    want = Model(cfg, "meta").state_dict()
+    flat, source = {}, {}
+    for top, tree in params.items():
+        if top == "stages":
+            continue
+        for path, leaf in _leaves(tree):
+            name = f"{top}.{path}" if path else top
+            flat[name], source[name] = leaf, name
+    i = 0
+    for si, stage in enumerate(params.get("stages", [])):
+        slots = [stage[f"l{j}"] for j in range(len(stage))]
+        n_groups = np.shape(next(_leaves(stage))[1])[0]
+        for g in range(n_groups):
+            for j, tree in enumerate(slots):
+                for path, leaf in _leaves(tree):
+                    where = f"stages[{si}].l{j}.{path}"
+                    if np.shape(leaf)[:1] != (n_groups,):
+                        raise ValueError(f"{where}: shape {np.shape(leaf)} lacks the group axis {n_groups}")
+                    name = f"layers.{i}.{path}"
+                    flat[name], source[name] = np.asarray(leaf)[g], f"{where}[{g}]"
+                i += 1
+    for name in want:
+        if name not in flat:
+            raise KeyError(f"missing leaf for {name} (config {cfg.name} wants {tuple(want[name].shape)})")
+    for name in flat:
+        if name not in want:
+            raise KeyError(f"unexpected leaf {source[name]} (no {name} in the port's model)")
+    out = {}
+    for name, t in want.items():
+        a = np.asarray(flat[name], dtype=np.float32)
+        if a.shape != tuple(t.shape):
+            raise ValueError(f"{source[name]}: shape {a.shape}, the port's {name} wants {tuple(t.shape)}")
+        out[name] = torch.from_numpy(np.array(a, copy=True)).to(t.dtype)
+    return out

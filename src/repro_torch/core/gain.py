@@ -13,10 +13,12 @@ multiply-add its compiler fuses in Eq. (3) is fused here too
 and every pool id — match the reference bitwise on the CPU, and the
 plain version and the kernel on the card.
 
-Every ``maximum(x, 1e-38)`` guard of the reference stays: 1e-38 is a
-subnormal float32 that XLA on the CPU flushes to zero while PyTorch and
-CUDA keep it, and results agree only because the ``where`` guards mask
-those rows.
+1e-38 is a subnormal float32 that XLA on the CPU flushes to zero while
+PyTorch and CUDA keep it. Where a ``where`` guard masks the rows it
+protects, the reference's ``maximum(x, 1e-38)`` stays. The two guards
+that reach a result unmasked (``multiway_gain_ratio``'s sample count
+and ``variable_importance``'s sum) are ``maximum(x, 0)`` here, the
+reference as it runs: a zero-mass row is 0/0 = NaN in both.
 """
 from __future__ import annotations
 
@@ -278,7 +280,7 @@ def level_scores(
 def multiway_gain_ratio(hist: torch.Tensor) -> torch.Tensor:
     """Faithful multiway Eq. (2)-(6) over the bin values. [..., F, B, C] -> [..., F]."""
     total = hist.sum(dim=-2)                          # [..., F, C]
-    n = torch.clamp_min(_csum(total), _TINY)          # [..., F]
+    n = _csum(total)                                  # [..., F]; 0/0 = NaN, as in the reference
     h_node = entropy_from_counts(total)
     n_b = _csum(hist)                                 # [..., F, B]
     p_b = n_b / n[..., None]
@@ -291,4 +293,4 @@ def multiway_gain_ratio(hist: torch.Tensor) -> torch.Tensor:
 def variable_importance(gr: torch.Tensor) -> torch.Tensor:
     """Eq. (7): VI = GR / sum_a GR, per tree. [k, F] -> [k, F]."""
     g = torch.clamp_min(gr, 0.0)
-    return g / torch.clamp_min(g.sum(dim=-1, keepdim=True), _TINY)
+    return g / g.sum(dim=-1, keepdim=True)            # 0/0 = NaN, as in the reference

@@ -1,15 +1,20 @@
 """Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
 
-One ``nvcc`` call compiles every source into one shared library with a
-plain C interface, ``build/repro_torch/libprf_kernels.so`` at the root
-of the checkout (listed in ``.gitignore``); ``ctypes`` loads it. The
-build runs at the first kernel launch of a process and is reused while
-it is newer than every source. Nothing here runs at import time, so the
-CPU tests import every module without a toolkit.
+Each source is compiled to an object by its own ``nvcc``, all started
+together, and one more ``nvcc`` links the objects into one shared
+library with a plain C interface, ``build/repro_torch/libprf_kernels.so``
+at the root of the checkout (listed in ``.gitignore``); ``ctypes`` loads
+it. The build runs at the first kernel launch of a process and is reused
+while it is newer than every source. Nothing here runs at import time,
+so the CPU tests import every module without a toolkit. ``ptxas``
+reports each kernel's registers, shared memory and spills into
+``build/repro_torch/nvcc.log``.
 
-Flags: ``-fmad=false`` and no ``--use_fast_math``, so the split-scan
-kernel's ``logf`` and divisions round op for op like the plain PyTorch
-version on the card.
+Flags: the PRF sources build with ``-fmad=false`` and no
+``--use_fast_math``, so the split-scan kernel's ``logf`` and divisions
+round op for op like the plain PyTorch version on the card. The LM
+sources (``FMAD_SOURCES``) let the compiler contract multiply-adds:
+they are held to their plain versions by a tolerance.
 """
 from __future__ import annotations
 
@@ -27,10 +32,11 @@ BUILD_DIR = ROOT / "build" / "repro_torch"
 LIB_NAME = "libprf_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+FMAD_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every exported launcher (all return cudaGetLastError()).
 SIGNATURES = {
     # x, ld, base, w, slot, out, N, W, tc, S, B, C, packed, stream
@@ -39,10 +45,14 @@ SIGNATURES = {
     "prf_split_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, N, F, feature, threshold, left_child, payload, carry, out, tc, P, C, depth, stream
     "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, bf16, stream
+    "lm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, loga, b, c, y, h, B, L, H, P, N, chunk, bf16, stream
+    "lm_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
-build_seconds = None      # wall time of this process's nvcc call (None: reused / not built)
+build_seconds = None      # wall time of this process's nvcc calls (None: reused / not built)
 
 
 def _nvcc() -> str:
@@ -59,6 +69,17 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _run(cmds: list) -> list:
+    """Run the commands concurrently; raise with the log of the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return logs
+
+
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one library; returns its path."""
     global build_seconds
@@ -68,17 +89,25 @@ def build() -> Path:
             and lib.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        logs = _run([
+            [nvcc, *NVCC_FLAGS, *([] if src.name in FMAD_SOURCES else ["-fmad=false"]),
+             "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)
+        ])
+        fd, out = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", out,
+                   *map(str, objs)]])
+        except RuntimeError:
+            os.unlink(out)
+            raise
+        os.replace(out, lib)
+    (BUILD_DIR / "nvcc.log").write_text("".join(logs))
     build_seconds = time.perf_counter() - t0
     return lib
 

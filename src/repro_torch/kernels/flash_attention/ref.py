@@ -1,0 +1,78 @@
+"""Plain PyTorch versions of the attention kernel (``csrc/flash_attention.cu``).
+
+``attention_ref`` is the reference's oracle (``repro/kernels/flash_attention/
+ref.py``) on ``[BH, L, D]`` with ``-inf`` masks. ``gqa_attend`` with a
+``MaskSpec`` is the plain version of the kernel in the model's layout
+(``repro/models/layers.py``): the kernel's CPU path, the model's
+``use_kernels=False`` path and the yardstick the kernel is held to.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+MASKED = -1e30   # the logit of a masked key
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskSpec:
+    """Parametric attention mask, built per query block, never at [Sq, Sk]."""
+    causal: bool = True
+    window: int = 0
+    offset: int = 0      # qpos = q_index + offset (ends-aligned: Sk - Sq)
+
+    def block(self, q0: int, qc: int, sk: int, device=None) -> torch.Tensor:
+        qpos = (torch.arange(qc, device=device) + q0 + self.offset)[:, None]
+        kpos = torch.arange(sk, device=device)[None, :]
+        m = torch.ones((qc, sk), dtype=torch.bool, device=device)
+        if self.causal:
+            m &= kpos <= qpos
+        if self.window > 0:
+            m &= kpos > qpos - self.window
+        return m[None]
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q [BH, Lq, D], k/v [BH, Lk, D] -> [BH, Lq, D] in q's dtype."""
+    lq, lk = q.shape[1], k.shape[1]
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    mask = MaskSpec(causal=causal, window=window, offset=lk - lq).block(0, lq, lk, q.device)
+    logits = torch.where(mask, logits, -torch.inf)
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+
+
+def gqa_attend(
+    q: torch.Tensor,     # [B, Sq, H, hd]
+    k: torch.Tensor,     # [B, Sk, KV, hd]
+    v: torch.Tensor,     # [B, Sk, KV, hd]
+    *,
+    mask_spec: Optional[MaskSpec] = None,       # parametric mask (None: all keys)
+    q_chunk: int = 0,
+) -> torch.Tensor:
+    """Plain GQA attention: KV heads repeated to H, f32 logits, masked
+    logits -1e30, f32 softmax. ``q_chunk`` loops over query blocks so the
+    [Sq, Sk] logits never exist at full size (exact)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    if KV != H:
+        G = H // KV
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    Sk = k.shape[1]
+    kf, vf = k.float(), v.float()
+
+    def attend_block(qb, q0):
+        logits = torch.einsum("bqhd,bshd->bhqs", qb.float(), kf) * (hd ** -0.5)
+        if mask_spec is not None:
+            m = mask_spec.block(q0, qb.shape[1], Sk, q.device)
+            logits = torch.where(m[:, None], logits, MASKED)
+        probs = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", probs, vf).to(q.dtype)
+
+    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+        return torch.cat([attend_block(q[:, i:i + q_chunk], i) for i in range(0, Sq, q_chunk)], dim=1)
+    return attend_block(q, 0)

@@ -1,0 +1,287 @@
+"""Model primitives: norms, rotary embeddings, MLPs, GQA attention.
+
+Counterpart of ``repro/models/layers.py``. ``init_*`` builds nested
+dicts of tensors (the reference's param pytree, one layer at a time);
+``ParamTree`` registers such a dict as an ``nn.Module`` so that the
+state dict keys are the pytree paths (``attn.wq``, ``ln1.scale``) and
+the ``*_apply`` functions read ``p["wq"]`` as the reference does.
+
+Prefill attention runs the hand-written CUDA kernel
+(``kernels/flash_attention``) where the reference keeps an einsum;
+``gqa_attend`` (in the kernel's ``ref.py``) is the plain version, used
+by ``use_kernels=False`` and on the CPU. Decode attends one query
+against the cache in plain torch (``grouped_attend_one``), as the
+reference does. The mesh-only helpers
+(``seq_shard_qkv``, ``_pin_cache_layout``) do nothing on one device and
+are left out.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import MASKED, MaskSpec, gqa_attend
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: dict keys become submodules
+    and parameters, and ``p["name"]`` / ``"name" in p`` read them."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(name, ParamTree(val))
+            else:
+                self.register_parameter(name, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _dense_init(gen, shape, device, scale=None) -> torch.Tensor:
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    return torch.randn(shape, generator=gen, device=device) * scale
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, hd] (hd even), positions broadcastable to [..., S].
+    Rotate-half convention: the two halves of hd, not interleaved pairs."""
+    if theta <= 0:
+        return x
+    hd = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd)
+    ang = positions[..., :, None].float() * freqs                      # [..., S, hd/2]
+    cos = torch.cos(ang)[..., None, :]                                 # [..., S, 1, hd/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, d: int, f: int, act: str, device) -> dict:
+    p = {"w1": _dense_init(gen, (d, f), device), "w2": _dense_init(gen, (f, d), device)}
+    if act in ("swiglu", "geglu"):
+        p["w3"] = _dense_init(gen, (d, f), device)
+    return p
+
+
+def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ p["w1"].to(x.dtype)
+    if act == "swiglu":
+        h = F.silu(h) * (x @ p["w3"].to(x.dtype))
+    elif act == "geglu":
+        h = F.gelu(h, approximate="tanh") * (x @ p["w3"].to(x.dtype))
+    else:
+        h = F.gelu(h, approximate="tanh")           # jax.nn.gelu is the tanh form
+    return h @ p["w2"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional bias / qk-norm / window)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: ArchConfig, device) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {
+        "wq": _dense_init(gen, (D, H, hd), device),
+        "wk": _dense_init(gen, (D, KV, hd), device),
+        "wv": _dense_init(gen, (D, KV, hd), device),
+        "wo": _dense_init(gen, (H, hd, D), device, scale=(H * hd) ** -0.5),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), device=device)
+        p["bk"] = torch.zeros((KV, hd), device=device)
+        p["bv"] = torch.zeros((KV, hd), device=device)
+    if cfg.qk_norm:
+        p["qnorm"] = init_rmsnorm(hd, device)
+        p["knorm"] = init_rmsnorm(hd, device)
+    return p
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul; contiguous [B, S, heads, hd]."""
+    D, nh, hd = w.shape
+    return (x @ w.reshape(D, nh * hd).to(x.dtype)).view(*x.shape[:-1], nh, hd)
+
+
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
+    q, k, v = _proj_heads(x, p["wq"]), _proj_heads(x, p["wk"]), _proj_heads(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if "qnorm" in p:
+        q = rmsnorm(p["qnorm"], q)
+        k = rmsnorm(p["knorm"], k)
+    return q, k, v
+
+
+def decode_mask(pos: int, s_max: int, window: int = 0, device=None) -> torch.Tensor:
+    """[1, 1, S_max] bool for a single new token at position ``pos``."""
+    kpos = torch.arange(s_max, device=device)[None, None, :]
+    m = kpos <= pos
+    if window > 0:
+        m &= kpos > pos - window
+    return m
+
+
+def attn_out(p, o: torch.Tensor) -> torch.Tensor:
+    H, hd, D = p["wo"].shape
+    return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, D).to(o.dtype)
+
+
+def _auto_q_chunk(sq: int) -> int:
+    """Chunk queries once [Sq, Sk] logits would dominate memory."""
+    return 512 if sq > 8192 else 0
+
+
+def roll_to_window(k: torch.Tensor, window: int) -> torch.Tensor:
+    """Compress a full prefill KV [B, S, ...] into a rolling buffer
+    [B, W, ...] where position p lives at slot p % W."""
+    S = k.shape[1]
+    if S < window:
+        pad = [0, 0] * (k.dim() - 2) + [0, window - S]
+        return F.pad(k, pad)
+    last = k[:, S - window:]
+    return torch.roll(last, shifts=(S - window) % window, dims=1)
+
+
+def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
+                      theta: Optional[float] = None, s_max: Optional[int] = None,
+                      use_kernels: bool = True):
+    """Full-sequence causal attention; also returns the KV cache.
+
+    Full-attention layers pad the cache to ``s_max``; windowed layers
+    return a rolling buffer of length ``window`` (position p at slot p % W).
+    """
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = _qkv(p, x, cfg)
+    q = rope_apply(q, positions, theta)
+    k = rope_apply(k, positions, theta)
+    if use_kernels:
+        o = flash_attention(q, k, v, causal=True, window=window)
+    else:
+        o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window),
+                       q_chunk=_auto_q_chunk(x.shape[1]))
+    if window > 0:
+        k = roll_to_window(k, window)
+        v = roll_to_window(v, window)
+    else:
+        pad = (s_max or x.shape[1]) - x.shape[1]
+        if pad:
+            k = F.pad(k, (0, 0, 0, 0, 0, pad))
+            v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return attn_out(p, o), {"k": k, "v": v}
+
+
+def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: int = 0,
+                     theta: Optional[float] = None):
+    """One-token step. x [B, 1, D]; ``pos`` a Python int.
+
+    Full-attention cache: k/v [B, S_max, KV, hd], written at ``pos``.
+    Windowed cache:       k/v [B, W, KV, hd] rolling, written at pos % W.
+    The cache is updated in place (the reference returns a new array; an
+    in-place write saves a copy of the whole cache per layer and token)
+    and returned.
+    """
+    theta = cfg.rope_theta if theta is None else theta
+    q, k_new, v_new = _qkv(p, x, cfg)
+    at = torch.tensor([[pos]], device=x.device)
+    q = rope_apply(q, at, theta)
+    k_new = rope_apply(k_new, at, theta)
+    L = cache["k"].shape[1]
+    if window > 0:
+        # rolling buffer: every resident slot is inside the window; mask
+        # only the slots not filled yet
+        slot = pos % window
+        mask = torch.arange(L, device=x.device)[None, None, :] <= pos
+    else:
+        slot = pos
+        mask = decode_mask(pos, L, 0, x.device)
+    k = cache_write(cache["k"], k_new, slot, cfg.decode_cache_update)
+    v = cache_write(cache["v"], v_new, slot, cfg.decode_cache_update)
+    o = grouped_attend_one(q, k, v, mask=mask)
+    return attn_out(p, o), {"k": k, "v": v}
+
+
+def grouped_attend_one(q, k, v, *, mask):
+    """Single-token GQA without repeating KV heads (grouped einsums)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * (hd ** -0.5)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, MASKED)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int, mode: str) -> torch.Tensor:
+    """Write ``new`` [B, 1, ...] into ``cache`` [B, L, ...] at ``slot``, in place.
+
+    "dus" writes the slice; "where" rewrites the cache through a mask, the
+    reference's sharding-friendly form. On one device both are one write.
+    """
+    new = new.to(cache.dtype)
+    if mode == "where":
+        L = cache.shape[1]
+        sel = (torch.arange(L, device=cache.device) == slot).reshape((1, L) + (1,) * (cache.dim() - 2))
+        return cache.copy_(torch.where(sel, new, cache))
+    cache[:, slot:slot + 1] = new
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen, vocab: int, d: int, device) -> dict:
+    return {"table": _dense_init(gen, (vocab, d), device, scale=0.02)}
+
+
+def embed(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["table"][tokens].to(dtype)
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["table"].to(x.dtype).T

@@ -1,0 +1,109 @@
+"""Mamba-2 block (SSD, state-space duality, arXiv:2405.21060).
+
+Counterpart of ``repro/models/mamba.py``. Prefill runs the chunked SSD
+through the hand-written CUDA kernel (``kernels/ssd_scan``); the plain
+chunked form (``_ssd_chunked``) runs with ``use_kernels=False`` and on
+the CPU. Decode carries (conv window, SSD state): O(1) per token.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.ssd_scan.ops import ssd_scan
+from ..kernels.ssd_scan.ref import ssd_chunked as _ssd_chunked
+from .layers import _dense_init, init_rmsnorm, rmsnorm
+
+
+def _dims(cfg: ArchConfig, d_in: int):
+    d_inner = cfg.ssm_expand * d_in
+    H = max(d_inner // cfg.ssm_head_dim, 1)
+    P = cfg.ssm_head_dim
+    N = cfg.ssm_state
+    return d_inner, H, P, N
+
+
+def init_mamba(gen, cfg: ArchConfig, device, d_in: Optional[int] = None) -> dict:
+    d_in = d_in or cfg.d_model
+    d_inner, H, P, N = _dims(cfg, d_in)
+    conv_ch = d_inner + 2 * N
+    return {
+        "in_proj": _dense_init(gen, (d_in, 2 * d_inner + 2 * N + H), device),
+        "conv_w": _dense_init(gen, (cfg.conv_width, conv_ch), device, scale=cfg.conv_width ** -0.5),
+        "conv_b": torch.zeros((conv_ch,), device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "dt_bias": torch.zeros((H,), device=device),
+        "d_skip": torch.ones((H,), device=device),
+        "norm": init_rmsnorm(d_inner, device),
+        "out_proj": _dense_init(gen, (d_inner, d_in), device),
+    }
+
+
+def _split_proj(p, x, cfg, d_in):
+    d_inner, H, P, N = _dims(cfg, d_in)
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
+    dt = zxbcdt[..., 2 * d_inner + 2 * N:]
+    return z, xbc, dt
+
+
+def _causal_conv(p, xbc):
+    """Depthwise causal conv, width W. xbc [B, S, C]."""
+    W = p["conv_w"].shape[0]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i].to(xbc.dtype) for i in range(W))
+    return F.silu(out + p["conv_b"].to(xbc.dtype))
+
+
+def mamba_prefill(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_kernels: bool = True):
+    """Full-sequence pass that also returns (conv_state, ssd_state)."""
+    d_in = d_in or cfg.d_model
+    d_inner, H, P, N = _dims(cfg, d_in)
+    B, S, _ = x.shape
+    z, xbc_raw, dt = _split_proj(p, x, cfg, d_in)
+    xbc = _causal_conv(p, xbc_raw)
+    xs = xbc[..., :d_inner].reshape(B, S, H, P)
+    b = xbc[..., d_inner:d_inner + N]
+    c = xbc[..., d_inner + N:]
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    loga = dtf * a
+    xdt = xs * dtf[..., None].to(xs.dtype)
+    if use_kernels:
+        y, h_fin = ssd_scan(xdt, loga, b, c, chunk=min(chunk, S))
+    else:
+        y, h_fin = _ssd_chunked(xdt, loga, b, c, None, min(chunk, S))
+    y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
+    y = rmsnorm(p["norm"], y.reshape(B, S, d_inner) * F.silu(z))
+    out = y @ p["out_proj"].to(y.dtype)
+    # last raw inputs; a copy, so the cache does not hold the whole projection
+    conv_state = xbc_raw[:, -(cfg.conv_width - 1):, :].clone()
+    return out, {"conv": conv_state, "h": h_fin}
+
+
+def mamba_decode(p, x, cache: dict, cfg: ArchConfig, *, d_in=None):
+    """One token. x [B, 1, D]; cache conv [B, W-1, C], h [B, H, N, P]."""
+    d_in = d_in or cfg.d_model
+    d_inner, H, P, N = _dims(cfg, d_in)
+    B = x.shape[0]
+    z, xbc_raw, dt = _split_proj(p, x, cfg, d_in)                 # [B,1,...]
+    window = torch.cat([cache["conv"], xbc_raw], dim=1)            # [B, W, C]
+    conv = sum(window[:, i, :] * p["conv_w"][i].to(x.dtype) for i in range(cfg.conv_width))
+    xbc = F.silu(conv + p["conv_b"].to(x.dtype))                  # [B, C]
+    xs = xbc[..., :d_inner].reshape(B, H, P)
+    b = xbc[..., d_inner:d_inner + N]
+    c = xbc[..., d_inner + N:]
+    dtf = F.softplus(dt[:, 0].float() + p["dt_bias"])             # [B,H]
+    a = -torch.exp(p["a_log"])
+    decay = torch.exp(dtf * a)                                    # [B,H]
+    h = decay[..., None, None] * cache["h"] + torch.einsum(
+        "bn,bhp->bhnp", b.float(), (xs * dtf[..., None].to(xs.dtype)).float())
+    y = torch.einsum("bn,bhnp->bhp", c.float(), h).to(x.dtype)
+    y = y + xs * p["d_skip"][None, :, None].to(xs.dtype)
+    y = rmsnorm(p["norm"], y.reshape(B, 1, d_inner) * F.silu(z))
+    out = y @ p["out_proj"].to(y.dtype)
+    return out, {"conv": window[:, 1:], "h": h}

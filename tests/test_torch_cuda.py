@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
 from repro_torch.kernels.gain_ratio import ops as hist_ops
 from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
 from repro_torch.kernels.split_scan import ops as scan_ops
 from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.kernels.tree_traverse import ops as trav_ops
 from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
 
@@ -117,3 +121,75 @@ def test_train_prf_kernel_path_equals_plain_path(cuda_device):
     for name in ("feature", "threshold", "left_child", "class_counts", "tree_weight"):
         assert torch.equal(getattr(a.forest, name), getattr(b.forest, name)), name
     np.testing.assert_array_equal(a.predict(xte), b.predict(xte))
+
+
+# The LM kernels' tolerance, per element: |got - want| <= rtol |want| +
+# atol rms(want). f32: sums taken in another order. bf16 output: one
+# rounding may land one bf16 ulp (at most 2^-7 |want|) away.
+LM_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-2)}
+
+
+def _scaled_close(got, want, dtype):
+    rtol, atol = LM_TOL[dtype]
+    want = want.double()
+    rms = float(want.square().mean().sqrt())
+    torch.testing.assert_close(got.double(), want, rtol=rtol, atol=atol * rms)
+
+
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,D,causal,window", [
+    (2, 9, 3, 200, 200, 64, True, 0),      # GQA 3:1, ragged tiles
+    (1, 4, 2, 77, 301, 64, True, 0),       # Lq < Lk, odd lengths
+    (1, 4, 4, 257, 257, 32, True, 100),    # window
+    (1, 2, 1, 130, 250, 128, False, 0),    # unmasked
+    (1, 2, 2, 65, 190, 256, True, 33),     # widest head dim
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk, D, causal, window, dtype):
+    q = torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
+    k = torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+    v = torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+    n0 = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=causal, window=window, offset=Lk - Lq))
+    torch.cuda.synchronize()
+    assert flash_ops.launches == n0 + 1 and got.dtype == dtype
+    _scaled_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [(2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 256, 4, 32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(cuda_device, B, S, H, P, N, dtype):
+    x = torch.from_numpy(RNG.standard_normal((B, S, H, P)).astype(np.float32)).to(cuda_device, dtype)
+    loga = torch.from_numpy((-np.abs(RNG.standard_normal((B, S, H))) * 0.4).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy((RNG.standard_normal((B, S, N)) * 0.3).astype(np.float32)).to(cuda_device, dtype)
+    c = torch.from_numpy((RNG.standard_normal((B, S, N)) * 0.3).astype(np.float32)).to(cuda_device, dtype)
+    n0 = ssd_ops.launches
+    y, h = ssd_ops.ssd_scan(x, loga, b, c)
+    yp, hp = ssd_chunked(x, loga, b, c, None, min(128, S))
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == n0 + 1 and y.dtype == dtype and h.dtype == torch.float32
+    _scaled_close(y, yp, dtype)
+    _scaled_close(h, hp, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m"])
+def test_lm_kernel_path_equals_plain_path(cuda_device, arch):
+    """Reduced widths, f32, TF32 off: the kernel path and the plain path
+    generate the same greedy tokens, and the kernels were launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving.serve_step import greedy_generate
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
+                              d_ff=512 if arch == "smollm-135m" else 0, vocab_size=4096, head_dim=64,
+                              compute_dtype="float32")
+    kern = Model(cfg, cuda_device, use_kernels=True, seed=1)
+    plain = Model(cfg, cuda_device, use_kernels=False, seed=1)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 256))).to(cuda_device)
+    n0 = flash_ops.launches + ssd_ops.launches
+    a = greedy_generate(kern, toks, steps=8, s_max=272)
+    assert flash_ops.launches + ssd_ops.launches == n0 + 4
+    b = greedy_generate(plain, toks, steps=8, s_max=272)
+    assert torch.equal(a, b)

@@ -127,3 +127,24 @@ def test_grow_forest_regression_close(case):
     for name in ("feature", "threshold", "left_child"):
         np.testing.assert_array_equal(np.asarray(getattr(fj, name)), getattr(ft, name).numpy())
     np.testing.assert_allclose(np.asarray(fj.value), ft.value.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_dimension_reduction_mask_bitwise_over_seeds(seed):
+    """Root gain ratios match the reference to rounding only (the bin-axis
+    sum order differs), yet given the reference's draws the selected
+    feature mask is bitwise the reference's on every seed."""
+    from repro_torch.core.dimred import dimension_reduction as tdimred
+
+    x, y = make_classification(n_samples=500 + 37 * seed, n_features=24, n_classes=3,
+                               n_informative=6, seed=seed)
+    xb = np.array(bin_dataset(x, 16)[0])
+    w = np.array(bootstrap_counts(jax.random.PRNGKey(seed), 8, xb.shape[0]))
+    cfg = JConfig(n_trees=8, max_depth=4, n_bins=16, n_classes=3,
+                  feature_mode="importance").resolved(xb.shape[1])
+    key = jax.random.PRNGKey(1000 + seed)
+    want = np.asarray(dimension_reduction(jnp.asarray(xb), jnp.asarray(y), jnp.asarray(w), cfg, key))
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (8, xb.shape[1]))))
+    got = tdimred(torch.from_numpy(xb), torch.from_numpy(y), torch.from_numpy(w),
+                  TConfig(**dataclasses.asdict(cfg)), u)
+    np.testing.assert_array_equal(want, got.numpy())
