@@ -4,7 +4,9 @@
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all started together, then one link);
+   per source, all started together, then one link), and checks with
+   ``cuobjdump -sass`` that the bf16 attention kernel runs ``HGMMA``
+   (wgmma) instructions;
 3. holds each kernel against its plain PyTorch version at small shapes:
    the three PRF kernels, then attention (odd lengths, Lq < Lk, window,
    GQA, f32 and bf16) and the SSD scan (S in {64, 384}, N in {16, 128}),
@@ -17,17 +19,21 @@
    kernel launch counts read around that one run, per-stage times,
    accuracy, and each kernel timed at the main path's shapes beside its
    plain version, its bound and (for the histogram) one ``index_add_``;
+   the histogram also at a deep level's shape (128 slots, ~8% parked),
+   each beside the time of its per-level slot ordering;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
    ``greedy_generate`` with launch counts read around that run; prefill
-   seconds, decode ms per token, tokens/s, peak memory; full-width
+   seconds, decode ms per token, tokens/s, peak memory, attention
+   launches per route (all of smollm's on the bf16 tensor-core kernel); full-width
    kernel-path vs plain-path prefill in f32 (logits and every layer's
    cache); the card's busy share under the profiler for prefill and one
    decode step; attention and the SSD scan held per element against
    their plain versions at the path's shapes (``LM_TOL``) and timed
    beside them, their bounds and (for attention)
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``, attention also at head dims 128
+   and 256 (same batch, heads and length);
 7. the launch counts and one JSON line per the smoke contract, then
    the device line last. The numbers also go to ``artifacts/chip_smoke.json``.
 
@@ -169,9 +175,12 @@ def lm_kernel_checks(dev):
             q = _randn(gen, (B, Lq, H, D), dev, dtype)
             k = _randn(gen, (B, Lk, KV, D), dev, dtype)
             v = _randn(gen, (B, Lk, KV, D), dev, dtype)
+            n_bf16 = flash_ops.launches_bf16
             _, share = lm_close(flash_ops.flash_attention(q, k, v, causal=causal, window=window),
                                 gqa_attend(q, k, v, mask_spec=MaskSpec(causal, window, Lk - Lq)), dtype,
                                 f"attention at {(B, H, KV, Lq, Lk, D, causal, window, dtype)}")
+            check(flash_ops.launches_bf16 == n_bf16 + (dtype == torch.bfloat16),
+                  f"attention in {dtype} went to the wrong kernel")
             worst[f"attention {dtype}"] = max(worst.get(f"attention {dtype}", 0.0), share)
     for B, S, H, P, N in ((2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 384, 4, 32, 16), (1, 64, 2, 64, 128)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -228,10 +237,15 @@ def lm_full(dev, arch):
     prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=dev)
     greedy_generate(model, prompts[:, :128], steps=2, s_max=130)      # warm-up: first-call costs
 
-    flash_ops.launches = ssd_ops.launches = 0
+    flash_ops.launches = flash_ops.launches_bf16 = flash_ops.launches_f32 = ssd_ops.launches = 0
     torch.cuda.reset_peak_memory_stats()
     toks, t_gen = sync_time(lambda: greedy_generate(model, prompts, steps=T, s_max=s_max))
     counts = {"flash_attention": flash_ops.launches, "ssd_scan": ssd_ops.launches}
+    routes = {"bf16_tensor_core": flash_ops.launches_bf16, "f32_cuda_core": flash_ops.launches_f32}
+    log(f"{arch}: attention launches per route on the main path {routes}")
+    if arch == "smollm-135m":
+        check(routes == {"bf16_tensor_core": cfg.n_layers, "f32_cuda_core": 0},
+              f"{arch}: attention launches per route {routes}, want all {cfg.n_layers} on bf16 tensor cores")
     peak = torch.cuda.max_memory_allocated()
     check(toks.shape == (B, T) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{arch}: generated tokens out of range")
@@ -282,7 +296,8 @@ def lm_full(dev, arch):
     res = {"arch": arch, "params": sum(p.numel() for p in model.parameters()), "init_s": t_init,
            "generate_s": t_gen, "prefill_s": t_pre, "plain_prefill_s": t_plain,
            "decode_ms_per_token": t_dec / (T - 1) * 1e3, "tokens_per_s": B * T / t_gen,
-           "peak_bytes": peak, "launches": counts, "kernel_vs_plain_f32": drift32,
+           "peak_bytes": peak, "launches": counts, "attention_routes": routes,
+           "kernel_vs_plain_f32": drift32,
            "kernel_vs_plain_logits_bf16": err, "bf16_vs_f32_plain_logits": noise,
            "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy}
     log(f"{arch} (batch {B}, prompt {L}, {T} tokens, bf16): generate {t_gen:.3f} s "
@@ -332,7 +347,28 @@ def lm_kernel_rows(dev, counts, kernel_row):
                "src/repro/kernels/flash_attention/kernel.py:73", counts["flash_attention"], err, ms, p_ms,
                2 * (2 * B * L * H * D + 2 * B * L * KV * D), 4 * D * B * H * L * (L + 1) // 2, lib_ms,
                BF16_OPS_PER_S)
+    log(f"attention D {D}: kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, kernel / SDPA {ms / lib_ms:.3f}")
     del q, k, v, out, qt, kt, vt
+
+    # the tensor-core kernel at the wider head dims, same batch, heads and length
+    wide = {}
+    for Dw in (128, 256):
+        q = _randn(gen, (B, L, H, Dw), dev, torch.bfloat16)
+        k = _randn(gen, (B, L, KV, Dw), dev, torch.bfloat16)
+        v = _randn(gen, (B, L, KV, Dw), dev, torch.bfloat16)
+        err_w, share_w = lm_close(flash_ops.flash_attention(q, k, v), gqa_attend(q, k, v, mask_spec=MaskSpec()),
+                                  torch.bfloat16, f"attention at D {Dw}")
+        ms_w = cuda_ms(lambda: flash_ops.flash_attention(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_w = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+        bound_w = 4 * Dw * B * H * L * (L + 1) // 2 / BF16_OPS_PER_S * 1e3
+        wide[Dw] = {"ms": ms_w, "sdpa_ms": lib_w, "bound_ms": bound_w, "max_abs_err": err_w,
+                    "allowance_share": share_w}
+        log(f"attention D {Dw} [{B}, {H} H / {KV} KV, {L}, {L}] causal bf16: kernel {ms_w:.4f} ms, "
+            f"SDPA {lib_w:.4f} ms, kernel / SDPA {ms_w / lib_w:.3f}, bound {bound_w:.4f} ms by operations, "
+            f"max |d| vs plain {err_w:.3g} ({share_w:.3g} of the allowance)")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
 
     mc = get_config("mamba2-780m")
     _, Hs, P, N = _dims(mc, mc.d_model)
@@ -353,6 +389,33 @@ def lm_kernel_rows(dev, counts, kernel_row):
                counts["ssd_scan"], max(err, err_h), ms, p_ms,
                2 * B * L * Hs * P * 2 + B * L * Hs * 4 + 2 * B * L * N * 2 + B * Hs * N * P * 4,
                B * Hs * (L // Q) * per_chunk, None, BF16_OPS_PER_S)
+    return wide
+
+
+def attention_sass():
+    """The bf16 attention kernel's SASS holds HGMMA (wgmma) instructions;
+    the listing goes to ``artifacts/flash_tc_kernel.sass``."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
+             if "flash_tc_kernel" in blk.split("\n", 1)[0]}
+    check(len(funcs) == 4, f"want 4 instantiations of flash_tc_kernel in the SASS, found {list(funcs)}")
+    out_dir = ROOT / "artifacts"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "flash_tc_kernel.sass").write_text("".join(f"Function : {b}" for b in funcs.values()))
+    hgmma = {}
+    for name, blk in funcs.items():
+        lines = [ln.strip() for ln in blk.splitlines() if "HGMMA" in ln]
+        check(lines, f"{name}: no HGMMA in its SASS")
+        hgmma[name] = len(lines)
+    d64 = next(blk for name, blk in funcs.items() if "ILi64E" in name)
+    log("cuobjdump -sass, flash_tc_kernel<64>, its HGMMA lines:\n" +
+        "\n".join(ln.strip() for ln in d64.splitlines() if "HGMMA" in ln))
+    log(f"HGMMA instructions per instantiation: {hgmma}")
+    return hgmma
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -365,7 +428,7 @@ def main() -> int:
     from repro_torch.core.dimred import dimension_reduction
     from repro_torch.core.dsi import bootstrap_counts
     from repro_torch.core.forest import fused_vote_scores, grow_forest
-    from repro_torch.core.histograms import class_channels, hist_feature_slab
+    from repro_torch.core.histograms import class_channels, hist_feature_slab, slot_order
     from repro_torch.core.voting import build_payload, oob_accuracy, predict
     from repro_torch.data.pipeline import screen_blocks
     from repro_torch.data.tabular import make_classification, train_test_split
@@ -394,6 +457,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
+    hgmma = attention_sass()
 
     rng = np.random.default_rng(0)
 
@@ -481,7 +545,7 @@ def main() -> int:
     acc = float(np.mean(pred == yte))
     levels = engine.levels_run(model.forest)
     log(f"main path: train_prf + predict {t_main:.3f} s, levels run {levels}, "
-        f"peak device memory {peak / 2**30:.2f} GiB, test accuracy {acc:.4f}")
+        f"peak device memory {peak / 2**30:.2f} GiB, test accuracy {acc:.7f}")
     check(acc >= 0.90, f"full-size test accuracy {acc} < 0.90")
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched on the main path")
@@ -530,10 +594,20 @@ def main() -> int:
         log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
             f"{row['bound_by']}, share {row['bound_ms'] / ms:.3f}, library {library_ms}) max|d| {err:.3g}")
 
-    hk = hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B)
-    hp = multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B)
-    check(torch.equal(hk, hp), "full-size histogram kernel != plain")
-    ms = cuda_ms(lambda: hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B))
+    # The kernel's time excludes the per-level slot ordering, timed beside it.
+    hist_shapes = {}
+    deep_np = rng.integers(0, 128, (k, Ntr)).astype(np.int32)
+    deep_np[rng.random((k, Ntr)) < 0.08] = -1
+    for shape, slots in (("deep level: 128 slots, 8% parked", torch.from_numpy(deep_np).to(dev)),
+                         ("level 0: all in slot 0", slot0)):
+        order, order_ms = slot_order(slots, wt, S), cuda_ms(lambda: slot_order(slots, wt, S))
+        hk = hist_ops.multi_tree_hist(xs, base, wt, slots, n_slots=S, n_bins=B, order=order)
+        hp = multi_tree_hist_ref(xs, base, wt, slots, n_slots=S, n_bins=B)
+        check(torch.equal(hk, hp), f"full-size histogram kernel != plain ({shape})")
+        ms = cuda_ms(lambda: hist_ops.multi_tree_hist(xs, base, wt, slots, n_slots=S, n_bins=B, order=order))
+        hist_shapes[shape] = {"kernel_ms": ms, "slot_order_ms": order_ms}
+        log(f"histogram at [{k}, {Ntr}, {W}], S {S}, {shape}: kernel {ms:.4f} ms, slot ordering "
+            f"{order_ms:.4f} ms per level, bitwise equal to the plain version")
     p_ms = cuda_ms(lambda: multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B), reps=2, warmup=1)
     live = int(((wt > 0) & (slot0 >= 0)).sum())
     cls = base.argmax(-1)
@@ -598,12 +672,13 @@ def main() -> int:
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
                  "ssd_scan": lm[1]["launches"]["ssd_scan"]}
     counts.update(lm_counts)
-    lm_kernel_rows(dev, lm_counts, kernel_row)
+    attention_wide = lm_kernel_rows(dev, lm_counts, kernel_row)
 
     # 7. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
               "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
-              "lm": lm, "lm_small_checks": lm_small}
+              "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
+              "attention_hgmma": hgmma, "hist_shapes": hist_shapes}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

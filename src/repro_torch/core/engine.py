@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from .gain import SplitScores, level_scores, node_counts, resolve_split_backend
-from .histograms import hist_feature_slab, level_histograms
+from .histograms import SlotOrder, hist_feature_slab, level_histograms, slot_order
 from .types import Forest, ForestConfig, GrowthState
 
 
@@ -111,13 +111,14 @@ class LocalPlane(CollectivePlane):
         self.level_mask = feature_mask
 
 
-def _level_hists(x_binned, base_channels, w_c, slot_c, config: ForestConfig):
+def _level_hists(x_binned, base_channels, w_c, slot_c, config: ForestConfig,
+                 order: Optional[SlotOrder] = None):
     """One chunk's level histogram (all frontier slots)."""
     return level_histograms(
         x_binned, base_channels, w_c, slot_c,
         n_slots=config.frontier, n_bins=config.n_bins,
         packed=config.packed_hist and not config.regression,
-        backend=config.hist_backend,
+        backend=config.hist_backend, order=order,
     )
 
 
@@ -131,8 +132,9 @@ def fused_level_scores(
 ):
     """T_GR -> T_NS per feature slab: histogram of one slab, then the
     split scan folds it into the running-best carry. Peak histogram
-    footprint is one ``[tc, S, W, B, C]`` slab. Returns (SplitScores,
-    n_node [tc, S])."""
+    footprint is one ``[tc, S, W, B, C]`` slab. The histogram kernel's
+    grouping of samples by slot is made once here, for the level, and
+    shared by every slab. Returns (SplitScores, n_node [tc, S])."""
     from ..kernels.split_scan.ops import split_scan_block
     from ..kernels.split_scan.ref import init_carry
 
@@ -145,10 +147,11 @@ def fused_level_scores(
         feature_mask if feature_mask is not None
         else torch.ones((tc, F), dtype=torch.bool, device=x_binned.device)
     )
+    order = slot_order(sample_slot, weights, S)
     carry = init_carry(tc, S, C, x_binned.device)
     for f0 in range(0, F, W):
         f1 = min(f0 + W, F)
-        hist = _level_hists(x_binned[:, f0:f1], base_channels, weights, sample_slot, config)
+        hist = _level_hists(x_binned[:, f0:f1], base_channels, weights, sample_slot, config, order)
         carry = split_scan_block(
             hist, mask[:, f0:f1], carry, f0, regression=config.regression
         )

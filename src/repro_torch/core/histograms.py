@@ -12,10 +12,17 @@ The per-tree DSI weight multiply is applied inside the per-tree step, so
 the ``[k, N, C]`` weighted-channel tensor never exists. A feature slab is
 a column slice view of the ``[N, F]`` bins (no copy); its histogram
 equals the slice of the full one, since every feature is independent.
+The kernel walks each tree's live samples grouped by slot
+(``slot_order``); a caller that builds several slabs from one level
+makes the grouping once and passes it to each.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..kernels.gain_ratio.ops import SlotOrder, slot_order  # slot_order: re-exported
 
 BACKENDS = ("auto", "pallas", "segment_sum")
 
@@ -53,10 +60,12 @@ def level_histograms(
     n_bins: int,
     packed: bool = False,
     backend: str = "auto",
+    order: Optional[SlotOrder] = None,   # slot_order(sample_slot, weights, n_slots)
 ) -> torch.Tensor:
     """hist[t,s,f,b,c] = sum_i w[t,i] * base[i,c] * [slot_i = s] * [x_if = b].
 
-    Returns [k, S, F, B, C] float32.
+    Returns [k, S, F, B, C] float32. ``order`` only steers the kernel;
+    the plain version gives the same histogram without it.
     """
     backend = resolve_backend(backend, x_binned.device)
     if backend == "pallas":
@@ -64,7 +73,7 @@ def level_histograms(
 
         return multi_tree_hist(
             x_binned, base_channels, weights, sample_slot,
-            n_slots=n_slots, n_bins=n_bins, packed=packed,
+            n_slots=n_slots, n_bins=n_bins, packed=packed, order=order,
         )
     from ..kernels.gain_ratio.ref import multi_tree_hist_ref
 

@@ -9,49 +9,69 @@
 //
 // Layout is the model's: q/out [B, Lq, H, D], k/v [B, Lk, KV, D], so the
 // caller transposes nothing. Query head h reads KV head h / (H / KV): the
-// reference's jnp.repeat of the KV heads, never materialised.
+// reference's jnp.repeat of the KV heads, never materialised. Key tiles
+// that are masked for every query of a query tile are skipped (past the
+// causal diagonal, before the window); every query keeps a visible key
+// (Lq <= Lk for a masked call, checked by the wrapper), so skipping and
+// weighing masked entries exactly 0 change nothing.
 //
 // What bounds it on an H100: at prefill shapes (L = 2048, D = 64) the
-// work is 4 * L^2 * D / 2 flops per (batch, head) against 2 * L * D
-// bytes of K/V per head: far above the card's ~295 flops/byte, so
-// operations bound it. This first version does its products in f32 on the
-// CUDA cores (no wgmma): it cannot reach the bf16 tensor-core bound, and
-// its time is recorded beside that bound (PERF.md). Design: one block of
-// 256 threads per (batch * head, 64-query tile); 64-key K/V tiles staged
-// in shared memory as f32; each thread owns a 4 x 4 block of the 64 x 64
-// score tile and a 4 x (D/16) block of the output. Masked entries weigh
-// exactly 0 (the TPU kernel's -1e30 entries are wiped the same way once a
-// real logit raises the running max), and key tiles that are masked for
-// every query of the tile are skipped: past the causal diagonal and before
-// the window. Every query has at least one visible key (Lq <= Lk, checked
-// by the wrapper), so skipping changes nothing.
+// work is 4 * L^2 * D / 2 flops per (batch, head) against 2 * L * D bytes
+// of K/V per head, far above the card's ~295 bf16 flops per byte, so the
+// tensor cores' operations bound it. Two routes, chosen by dtype:
+//
+// * bf16 (flash_tc_kernel), the model's path: both products on the tensor
+//   cores with wgmma, bf16 operands and f32 accumulators. One warpgroup of
+//   128 threads owns 64 query rows; the Q tile and a two-stage ring of
+//   64-key K/V tiles come in by TMA (one 3-D tensor map per operand over
+//   the model's layout, [B][L][heads * D], boxes of 64 rows by one 128-byte
+//   (D = 32: 64-byte) swizzle span), completion on mbarriers. The swizzle
+//   puts each tile in the layout the wgmma shared-memory descriptors read,
+//   and TMA fills rows past L with zeros. S = Q K^T reads Q and K from
+//   shared memory (both K-major); O += P V takes P from registers: S's
+//   accumulator fragment, converted to bf16, is the register-A layout of
+//   the next wgmma. V is read MN-major through the transpose bit, never
+//   transposed in memory. The online softmax stays in registers (row
+//   reductions by quad shuffles). The reference multiplies V by f32
+//   probabilities; one rounding of P to bf16 put the path's full-shape
+//   outputs outside the bf16 tolerance the kernel is held to, so P goes in
+//   as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi), two wgmmas on
+//   the same V tile: P keeps ~16 bits, at 1.5x the tensor-core work.
+//   Takes D in {32, 64, 128, 256}.
+// * f32 (flash_kernel): products on the CUDA cores, exact f32 products,
+//   so a full-width f32 comparison with the plain version needs no TF32.
+//   One block of 256 threads per (batch * head, 64-query tile); 64-key K/V
+//   tiles staged in shared memory as f32; each thread owns a 4 x 4 block of
+//   the score tile and a 4 x (D/16) block of the output. This was also the
+//   bf16 route first: 2.520 ms at [8, 9 H / 3 KV, 2048, 2048, 64] causal
+//   bf16 on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), 1.6% of the
+//   tensor cores' bound.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 constexpr int kBQ = 64;      // queries per block
 constexpr int kBK = 64;      // keys per tile
-constexpr int kThreads = 256;
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// ---------------------------------------------------------------------------
+// f32 route: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
 
 size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)kBQ * D + (size_t)kBK * (D + 1) + (size_t)kBK * D +
                           (size_t)kBQ * (kBK + 1) + 3 * kBQ);
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int Lq, int Lk, int H, int KV, int D, int causal,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ out, int Lq, int Lk, int H, int KV, int D, int causal,
              int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kBQ][D]
@@ -69,15 +89,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int kvh = h / (H / KV);
   const long long q_step = (long long)H * D;    // elements between positions
   const long long kv_step = (long long)KV * D;
-  const T* qb = q + (long long)b * Lq * q_step + (long long)h * D;
-  const T* kb = k + (long long)b * Lk * kv_step + (long long)kvh * D;
-  const T* vb = v + (long long)b * Lk * kv_step + (long long)kvh * D;
-  T* ob = out + (long long)b * Lq * q_step + (long long)h * D;
+  const float* qb = q + (long long)b * Lq * q_step + (long long)h * D;
+  const float* kb = k + (long long)b * Lk * kv_step + (long long)kvh * D;
+  const float* vb = v + (long long)b * Lk * kv_step + (long long)kvh * D;
+  float* ob = out + (long long)b * Lq * q_step + (long long)h * D;
   const int off = Lk - Lq;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
-    qs[e] = q0 + r < Lq ? to_f(qb[(long long)(q0 + r) * q_step + d]) : 0.0f;
+    qs[e] = q0 + r < Lq ? qb[(long long)(q0 + r) * q_step + d] : 0.0f;
   }
   if (tid < kBQ) {
     row_m[tid] = kMasked;
@@ -105,8 +125,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       const int r = e / D, d = e - r * D;
       const bool in = k0 + r < Lk;
       const long long g = (long long)(k0 + r) * kv_step + d;
-      ks[r * (D + 1) + d] = in ? to_f(kb[g]) : 0.0f;
-      vs[e] = in ? to_f(vb[g]) : 0.0f;
+      ks[r * (D + 1) + d] = in ? kb[g] : 0.0f;
+      vs[e] = in ? vb[g] : 0.0f;
     }
     __syncthreads();
 
@@ -201,40 +221,403 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
     for (int c = 0; c < kDC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) ob[(long long)(q0 + i) * q_step + d] = from_f<T>(acc[r][c] / l);
+      if (d < D) ob[(long long)(q0 + i) * q_step + d] = acc[r][c] / l;
     }
   }
 }
 
-template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
-           int H, int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
+template <int DMAX>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
+               int H, int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DMAX>,
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<DMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
-  flash_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Lq, Lk, H, KV, D, causal, window, scale);
+  flash_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Lq, Lk, H, KV, D, causal,
+      window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
-             int H, int KV, int D, int causal, int window, float scale, cudaStream_t s) {
-  if (D <= 64) return launch<T, 64>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
-  if (D <= 128) return launch<T, 128>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
-  return launch<T, 256>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
+// ---------------------------------------------------------------------------
+// bf16 route: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;               // one warpgroup: 64 query rows
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// The one arrival of this phase, announcing the bytes TMA will deliver.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the SW-byte swizzled layout
+// TMA writes: rows of SW bytes, 8-row groups SW * 8 bytes apart (the
+// stride byte offset). The leading byte offset is unused: every operand
+// here spans one swizzle atom along its contiguous dimension.
+template <int SW>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t layout = SW == 128 ? 1 : 2;     // 128-byte or 64-byte swizzle
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * SW) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accum) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accum));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], as wgmma_rs.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+template <int D>
+struct TcShape {
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle span: bytes of one row chunk
+  static constexpr int CW = SW / 2;               // bf16 columns per chunk
+  static constexpr int DC = D / CW;               // chunks per row
+  static constexpr int TILE = kBQ * SW;           // bytes of one 64-row chunk
+  static constexpr int NV = CW;                   // n of one P V wgmma (one chunk of V)
+  static constexpr size_t SMEM = 1024 + 5 * (size_t)DC * TILE + 64;  // align, Q, 2 x (K, V), barriers
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Lq,
+                int Lk, int H, int KV, int causal, int window, float scale_log2) {
+  using Sh = TcShape<D>;
+  constexpr int SW = Sh::SW, CW = Sh::CW, DC = Sh::DC, TILE = Sh::TILE, NV = Sh::NV;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled tiles must start on a 1024-byte boundary.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;                              // [DC][64 rows][SW]
+  uint8_t* ks = qs + DC * TILE;                    // [2 stages][DC][64 keys][SW]
+  uint8_t* vs = ks + 2 * DC * TILE;                // [2 stages][DC][64 keys][SW]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + 2 * DC * TILE);   // Q, K/V stage 0, 1
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the longest causal rows first
+  const int off = Lk - Lq;
+
+  const int q_last = min(q0 + kBQ, Lq) - 1;
+  const int k_end = causal ? min(Lk, q_last + off + 1) : Lk;
+  const int k_beg = window > 0 ? (max(0, q0 + off - window + 1) / kBK) * kBK : 0;
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + kBK - 1) / kBK : 0;
+
+  auto load_kv = [&](int stage, int k0) {
+    mbar_expect_tx(&bars[1 + stage], 2 * DC * TILE);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      tma_load(ks + (stage * DC + c) * TILE, &tk, &bars[1 + stage], kvh * D + c * CW, k0, b);
+      tma_load(vs + (stage * DC + c) * TILE, &tv, &bars[1 + stage], kvh * D + c * CW, k0, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], DC * TILE);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) tma_load(qs + c * TILE, &tq, &bars[0], h * D + c * CW, q0, b);
+    if (ntiles > 0) load_kv(0, k_beg);
+  }
+
+  // Accumulator fragment of a 64-row wgmma: register 4j + 2 half + e holds
+  // row r0 + 8 half, column 8j + cq + e of the tile.
+  const int r0 = warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const int pos0 = q0 + r0 + off;                  // positions of this thread's two rows
+  float o[DC][NV / 2];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) o[c][i] = 0.0f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.0f, 0.0f};
+
+  mbar_wait(&bars[0], 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int stage = it & 1;
+    const int k0 = k_beg + it * kBK;
+    // The other stage was released by the barrier that ended the last tile.
+    if (tid == 0 && it + 1 < ntiles) load_kv(stage ^ 1, k0 + kBK);
+    mbar_wait(&bars[1 + stage], (it >> 1) & 1);
+
+    // S = Q K^T over D in steps of 16
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / (CW / 16), j = kk % (CW / 16);
+      wgmma_ss_n64(s, smem_desc<SW>(smem_u32(qs + c * TILE) + j * 32),
+                   smem_desc<SW>(smem_u32(ks + (stage * DC + c) * TILE) + j * 32), kk > 0);
+    }
+    wg_commit();
+    wg_wait();
+    reg_fence(s);
+
+    // mask (only tiles that cross an edge), scale to log2 units, row max
+    const bool edge = k0 + kBK > Lk || (causal && k0 + kBK - 1 > q0 + off) ||
+                      (window > 0 && k0 < q_last + off - window + 1);
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hf + e];
+          x *= scale_log2;
+          if (edge) {
+            const int kpos = k0 + 8 * j + cq + e, qpos = pos0 + 8 * hf;
+            const bool ok = kpos < Lk && (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            if (!ok) x = kMasked;
+          }
+          mx[hf] = fmaxf(mx[hf], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      const float m_new = fmaxf(m[hf], mx[hf]);
+      alpha[hf] = exp2f(m[hf] - m_new);
+      m[hf] = m_new;
+      l[hf] *= alpha[hf];
+    }
+    // P = exp2(s - m), masked entries exactly 0, as the A fragments of two
+    // bf16 parts: hi = bf16(P), lo = bf16(P - hi)
+    uint32_t pa_hi[kBK / 16][4], pa_lo[kBK / 16][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[4 * j + 2 * hf + e];
+          p[e] = x == kMasked ? 0.0f : exp2f(x - m[hf]);
+          l[hf] += p[e];
+        }
+        // k16 step j / 2: registers {row r0, cols 0-7}, {r0 + 8, 0-7}, {r0, 8-15}, {r0 + 8, 8-15}
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p[0], p[1]);
+        pa_hi[j / 2][2 * (j % 2) + hf] = bits(hi);
+        pa_lo[j / 2][2 * (j % 2) + hf] =
+            bits(__floats2bfloat162_rn(p[0] - __low2float(hi), p[1] - __high2float(hi)));
+      }
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int i = 0; i < NV / 2; ++i) o[c][i] *= alpha[(i / 2) % 2];
+
+    // O += P V = hi V + lo V over the tile's keys in steps of 16
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const uint64_t dv = smem_desc<SW>(smem_u32(vs + (stage * DC + c) * TILE) + kk * 16 * SW);
+        wgmma_rs(o[c], pa_hi[kk], dv);
+        wgmma_rs(o[c], pa_lo[kk], dv);
+      }
+    wg_commit();
+    wg_wait();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) reg_fence(o[c]);
+    __syncthreads();                               // this stage's K/V are free
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    l[hf] = fmaxf(l[hf], 1e-38f);
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + r0 + 8 * hf;
+    if (row >= Lq) continue;
+    __nv_bfloat16* orow = out + (((long long)b * Lq + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int j = 0; j < NV / 8; ++j) {
+        const int col = c * NV + 8 * j + cq;
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+            o[c][4 * j + 2 * hf] / l[hf], o[c][4 * j + 2 * hf + 1] / l[hf]);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// [B][L][heads * D] bf16 as a 3-D map, boxes of 64 rows by one swizzle span.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int L, int heads,
+              int D, int sw) {
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)heads * D * 2, (cuuint64_t)L * heads * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)sw / 2, (cuuint32_t)kBQ, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
+              int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
+  using Sh = TcShape<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, encode, q, B, Lq, H, D, Sh::SW) ||
+      !make_map(&tk, encode, k, B, Lk, KV, D, Sh::SW) ||
+      !make_map(&tv, encode, v, B, Lk, KV, D, Sh::SW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (Lq + kBQ - 1) / kBQ);
+  flash_tc_kernel<D><<<grid, kTcThreads, Sh::SMEM, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, Lq, Lk, H, KV, causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/out [B, Lq, H, D], k/v [B, Lk, KV, D]; bf16 != 0: all four are bf16, else f32.
+// q/out [B, Lq, H, D], k/v [B, Lk, KV, D]; bf16 != 0: all four are bf16
+// (tensor cores; D in {32, 64, 128, 256}, 16-byte aligned), else f32 (CUDA cores; D <= 256).
 extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
                                   int Lq, int Lk, int H, int KV, int D, int causal, int window,
                                   float scale, int bf16, void* stream) {
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return dispatch<__nv_bfloat16>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
-  return dispatch<float>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
+  if (bf16) {
+    if (Lk < 1) return (int)cudaErrorInvalidValue;
+    switch (D) {
+      case 32: return launch_tc<32>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
+      case 64: return launch_tc<64>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
+      case 128: return launch_tc<128>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
+      case 256: return launch_tc<256>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (D <= 64) return launch_f32<64>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
+  if (D <= 128) return launch_f32<128>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
+  return launch_f32<256>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
 }

@@ -2,10 +2,13 @@
 
 Replaces ``repro/kernels/flash_attention/kernel.py:attention_pallas_call``
 (``_attn_kernel``) on the model's prefill path. On CUDA tensors it
-launches the kernel (counted in ``launches``); on CPU tensors it runs
-``ref.gqa_attend``, ends aligned through ``MaskSpec.offset``. What
-bounds the kernel and how its design answers that is in the source's
-note.
+launches one of the source's two kernels, by dtype: bfloat16 goes to the
+tensor-core kernel (wgmma + TMA; head dims ``TC_HEAD_DIMS`` only, any
+other raises), float32 to the CUDA-core kernel (exact f32 products).
+Each launch counts in ``launches`` and in its route's own count. On CPU
+tensors it runs ``ref.gqa_attend``, ends aligned through
+``MaskSpec.offset``. What bounds the kernels and how their design
+answers that is in the source's note.
 """
 from __future__ import annotations
 
@@ -15,8 +18,11 @@ import torch
 
 from .ref import MaskSpec, gqa_attend
 
-launches = 0   # kernel launches in this process (the CPU path does not count)
+launches = 0        # kernel launches in this process (the CPU path does not count)
+launches_bf16 = 0   # of which the bf16 tensor-core kernel
+launches_f32 = 0    # of which the f32 CUDA-core kernel
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (32, 64, 128, 256)   # head dims the tensor-core kernel takes
 
 
 def flash_attention(
@@ -30,7 +36,7 @@ def flash_attention(
     """Blocked attention with ends aligned (query i at position i + Lk - Lq);
     returns [B, Lq, H, D] in q's dtype. Query head h reads KV head
     h // (H / KV)."""
-    global launches
+    global launches, launches_bf16, launches_f32
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,Lq,H,D], k = v [B,Lk,KV,D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -49,13 +55,23 @@ def flash_attention(
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype, float32 or bfloat16; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
+    bf16 = q.dtype == torch.bfloat16
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    if bf16 and D not in TC_HEAD_DIMS:
+        raise ValueError(f"the bf16 tensor-core kernel takes head dims {TC_HEAD_DIMS}, got {D}")
+    if bf16 and Lk == 0:
+        raise ValueError("the bf16 tensor-core kernel needs at least one key")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 tensor-core kernel reads q, k, v by TMA: 16-byte aligned bases")
     out = torch.empty_like(q)
     if out.numel():
         launch("lm_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               B, Lq, Lk, H, KV, D, int(causal), int(window), ctypes.c_float(D ** -0.5),
-               int(q.dtype == torch.bfloat16))
+               B, Lq, Lk, H, KV, D, int(causal), int(window), ctypes.c_float(D ** -0.5), int(bf16))
         launches += 1
+        if bf16:
+            launches_bf16 += 1
+        else:
+            launches_f32 += 1
     return out

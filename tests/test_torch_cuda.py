@@ -58,6 +58,48 @@ def test_hist_kernel_bitwise(cuda_device, packed):
     assert torch.equal(sl, got[:, :, 3:9])
 
 
+def _spread(slot_np, S, how):
+    if how == "one slot":
+        return np.where(slot_np >= 0, 0, -1).astype(np.int32)
+    return slot_np % S if how == "spread" else slot_np
+
+
+@pytest.mark.parametrize("how,S,parked,B,C", [("spread", 6, 0.1, 16, 4), ("one slot", 6, 0.0, 16, 4),
+                                              ("one slot", 1, 0.1, 16, 4), ("spread", 40, 0.0, 16, 4),
+                                              ("spread", 9, 0.1, 7, 3)])   # B * C odd: scalar flush
+@pytest.mark.parametrize("packed", [False, True])
+def test_hist_kernel_ordered_bitwise(cuda_device, how, S, parked, B, C, packed):
+    """The privatised kernel against the plain version, bitwise: slots
+    spread over S or all in one, 10% parked or none, a strided slab
+    (ld != W), the grouping made by the wrapper or handed in."""
+    from repro_torch.kernels.gain_ratio.ops import slot_order
+
+    tc, N, F = 3, 5003, 40
+    xb = torch.from_numpy(RNG.integers(0, B, (N, F)).astype(np.uint8)).to(cuda_device)
+    base = torch.eye(C, device=cuda_device)[torch.from_numpy(RNG.integers(0, C, N)).to(cuda_device)]
+    w = torch.from_numpy(RNG.integers(0, 4, (tc, N)).astype(np.float32)).to(cuda_device)
+    slot_np = _spread(RNG.integers(0, S, (tc, N)).astype(np.int32), S, how)
+    slot_np[RNG.random((tc, N)) < parked] = -1
+    slot = torch.from_numpy(slot_np).to(cuda_device)
+    order = slot_order(slot, w, S)
+    for xs in (xb, xb[:, 3:38]):                  # full width, then a strided slab (ld 40, W 35)
+        want = multi_tree_hist_ref(xs, base, w, slot, n_slots=S, n_bins=B, packed=packed)
+        n0 = hist_ops.launches
+        got = hist_ops.multi_tree_hist(xs, base, w, slot, n_slots=S, n_bins=B, packed=packed)
+        given = hist_ops.multi_tree_hist(xs, base, w, slot, n_slots=S, n_bins=B, packed=packed,
+                                         order=order)
+        torch.cuda.synchronize()
+        assert hist_ops.launches == n0 + 2
+        assert torch.equal(got, want) and torch.equal(given, want)
+
+
+def test_hist_kernel_ordered_regression_close(cuda_device):
+    xb, base, w, slot = _hist_inputs(cuda_device, N=7001, S=20, C=3, regression=True)
+    got = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=20, n_bins=16)
+    want = multi_tree_hist_ref(xb, base, w, slot, n_slots=20, n_bins=16)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 def test_hist_kernel_regression_close(cuda_device):
     xb, base, w, slot = _hist_inputs(cuda_device, C=3, regression=True)
     got = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=6, n_bins=16)
@@ -148,12 +190,23 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk, D, 
     q = torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
     k = torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
     v = torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
-    n0 = flash_ops.launches
+    n0, n_bf16, n_f32 = flash_ops.launches, flash_ops.launches_bf16, flash_ops.launches_f32
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     want = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=causal, window=window, offset=Lk - Lq))
     torch.cuda.synchronize()
     assert flash_ops.launches == n0 + 1 and got.dtype == dtype
+    # bf16 runs on the tensor-core kernel, f32 on the CUDA-core kernel
+    bf16 = dtype == torch.bfloat16
+    assert (flash_ops.launches_bf16, flash_ops.launches_f32) == (n_bf16 + bf16, n_f32 + (not bf16))
     _scaled_close(got, want, dtype)
+
+
+def test_flash_attention_bf16_takes_only_its_head_dims(cuda_device):
+    q = torch.zeros((1, 64, 2, 48), device=cuda_device, dtype=torch.bfloat16)
+    n0 = flash_ops.launches
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, q)
+    assert flash_ops.launches == n0
 
 
 @pytest.mark.parametrize("B,S,H,P,N", [(2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 256, 4, 32, 64)])
