@@ -5,12 +5,13 @@
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together, then one link), and checks with
-   ``cuobjdump -sass`` that the bf16 attention kernel runs ``HGMMA``
-   (wgmma) instructions;
+   ``cuobjdump -sass`` that the bf16 attention and SSD kernels run
+   ``HGMMA`` (wgmma) instructions in every instantiation;
 3. holds each kernel against its plain PyTorch version at small shapes:
    the three PRF kernels, then attention (odd lengths, Lq < Lk, window,
-   GQA, f32 and bf16) and the SSD scan (S in {64, 384}, N in {16, 128}),
-   the LM kernels at ``LM_TOL``;
+   GQA, f32 and bf16) and the SSD scan (S in {64, 200, 320, 384}, P in
+   {32, 64}, N in {16, 32, 64, 128}, chunk 8, 64 or 128, f32 and bf16),
+   the LM kernels at ``LM_TOL``, each dtype on its own kernel;
 4. reduced end to end: the kernel path and the plain path give the same
    forest and labels, and (f32, TF32 off) the same greedy LM tokens for
    smollm-135m and mamba2-780m at cut widths;
@@ -19,14 +20,16 @@
    kernel launch counts read around that one run, per-stage times,
    accuracy, and each kernel timed at the main path's shapes beside its
    plain version, its bound and (for the histogram) one ``index_add_``;
-   the histogram also at a deep level's shape (128 slots, ~8% parked),
-   each beside the time of its per-level slot ordering;
+   the histogram and the split scan also at a deep level's shape (128
+   slots, ~8% parked), the histogram beside the time of its per-level
+   slot ordering;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
    ``greedy_generate`` with launch counts read around that run; prefill
-   seconds, decode ms per token, tokens/s, peak memory, attention
-   launches per route (all of smollm's on the bf16 tensor-core kernel); full-width
+   seconds, decode ms per token, tokens/s, peak memory, launches per
+   route (all of smollm's attention and all of mamba2's SSD scans on the
+   bf16 tensor-core kernels); full-width
    kernel-path vs plain-path prefill in f32 (logits and every layer's
    cache); the card's busy share under the profiler for prefill and one
    decode step; attention and the SSD scan held per element against
@@ -35,7 +38,11 @@
    ``scaled_dot_product_attention``, attention also at head dims 128
    and 256 (same batch, heads and length);
 7. the launch counts and one JSON line per the smoke contract, then
-   the device line last. The numbers also go to ``artifacts/chip_smoke.json``.
+   the device line last. Each row's ``ms`` is CUDA events around the
+   wrapper's whole call; ``kernel_ms`` is the kernel's own device time
+   from the profiler, over ``launches_traced`` launches (None, "not
+   measured", when no trace kept them all: it is no check). The numbers
+   also go to ``artifacts/chip_smoke.json``.
 
 Every failed check raises, so the exit code is non-zero. Exits non-zero
 without a result when no CUDA device is present. Imports nothing of JAX.
@@ -83,6 +90,68 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+TRACE_MARGIN_S = 0.05     # host time the profiler's window runs before and after the traced calls
+
+
+def device_ms(fn, match, reps=10, warmup=2, sessions=3):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``match``, from the profiler's trace of ``reps`` calls: the kernel's own
+    time, without the wrapper's host work and small copies. The profiler
+    keeps only device activity that falls inside its window on the host's
+    clock, so the window opens ``TRACE_MARGIN_S`` before the first call
+    and closes as long after the last one has finished. A trace that holds
+    other than ``reps`` launches is discarded and taken again, at most
+    ``sessions`` times in all; no partial trace is ever averaged. Returns
+    (ms or None when every trace was short, the sessions taken, the
+    launches each trace held)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    held = []
+    for taken in range(1, sessions + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+        mine = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and match in e.key]
+        n = sum(e.count for e in mine)
+        held.append(n)
+        if n == reps:
+            return sum(e.self_device_time_total for e in mine) / n / 1e3, taken, held
+        log(f"the profiler's trace holds {n} launches of {match}, want {reps}: trace discarded")
+    return None, sessions, held
+
+
+def timed(what, fn, match, record, reps=10):
+    """The rows' times: ``ms``, CUDA events around ``reps`` whole calls
+    (the wrapper's host work included), and ``kernel_ms``, the kernel's
+    own device time from the profiler over as many launches
+    (``launches_traced``), or None ("not measured", ``launches_traced``
+    0) when no trace held them all. Both go to ``record[what]`` and the log."""
+    ms = cuda_ms(fn, reps=reps)
+    kern, sessions, held = device_ms(fn, match, reps=reps)
+    t = {"ms": ms, "kernel_ms": kern, "launches_traced": reps if kern is not None else 0,
+         "trace_sessions": sessions, "launches_per_trace": held}
+    record[what] = t
+    log(f"{what}: CUDA events around the call {ms:.4f} ms, kernel device time "
+        + (f"{kern:.4f} ms (mean of {reps} traced launches, trace {sessions} of at most 3)" if kern is not None
+           else f"not measured (traces of {reps} calls held {held} launches)"))
+    return t
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def bound_share(bound, ms):
+    return "not measured" if ms is None else f"{bound / ms:.3f}"
 
 
 def check(cond, what):
@@ -182,12 +251,16 @@ def lm_kernel_checks(dev):
             check(flash_ops.launches_bf16 == n_bf16 + (dtype == torch.bfloat16),
                   f"attention in {dtype} went to the wrong kernel")
             worst[f"attention {dtype}"] = max(worst.get(f"attention {dtype}", 0.0), share)
-    for B, S, H, P, N in ((2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 384, 4, 32, 16), (1, 64, 2, 64, 128)):
+    for B, S, H, P, N, chunk in ((2, 64, 3, 64, 16, 128), (1, 384, 2, 64, 128, 128), (2, 384, 4, 32, 16, 128),
+                                 (1, 64, 2, 64, 128, 128), (2, 320, 3, 32, 64, 64), (1, 200, 2, 64, 32, 8)):
         for dtype in (torch.float32, torch.bfloat16):
             x, loga, b, c = _ssd_inputs(gen, B, S, H, P, N, dev, dtype)
-            y, h = ssd_ops.ssd_scan(x, loga, b, c)
-            yp, hp = ssd_chunked(x, loga, b, c, None, min(128, S))
-            what = f"ssd at {(B, S, H, P, N, dtype)}"
+            n_bf16 = ssd_ops.launches_bf16
+            y, h = ssd_ops.ssd_scan(x, loga, b, c, chunk=chunk)
+            check(ssd_ops.launches_bf16 == n_bf16 + (dtype == torch.bfloat16),
+                  f"ssd scan in {dtype} went to the wrong kernel")
+            yp, hp = ssd_chunked(x, loga, b, c, None, min(chunk, S))
+            what = f"ssd at {(B, S, H, P, N, chunk, dtype)}"
             share = max(lm_close(y, yp, dtype, what)[1], lm_close(h, hp, torch.float32, what + " h")[1])
             worst[f"ssd {dtype}"] = max(worst.get(f"ssd {dtype}", 0.0), share)
     torch.cuda.synchronize()
@@ -237,15 +310,16 @@ def lm_full(dev, arch):
     prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=dev)
     greedy_generate(model, prompts[:, :128], steps=2, s_max=130)      # warm-up: first-call costs
 
-    flash_ops.launches = flash_ops.launches_bf16 = flash_ops.launches_f32 = ssd_ops.launches = 0
+    flash_ops.launches = flash_ops.launches_bf16 = flash_ops.launches_f32 = 0
+    ssd_ops.launches = ssd_ops.launches_bf16 = ssd_ops.launches_f32 = 0
     torch.cuda.reset_peak_memory_stats()
     toks, t_gen = sync_time(lambda: greedy_generate(model, prompts, steps=T, s_max=s_max))
     counts = {"flash_attention": flash_ops.launches, "ssd_scan": ssd_ops.launches}
-    routes = {"bf16_tensor_core": flash_ops.launches_bf16, "f32_cuda_core": flash_ops.launches_f32}
-    log(f"{arch}: attention launches per route on the main path {routes}")
-    if arch == "smollm-135m":
-        check(routes == {"bf16_tensor_core": cfg.n_layers, "f32_cuda_core": 0},
-              f"{arch}: attention launches per route {routes}, want all {cfg.n_layers} on bf16 tensor cores")
+    kernel, ops = {"smollm-135m": ("attention", flash_ops), "mamba2-780m": ("ssd scan", ssd_ops)}[arch]
+    routes = {"bf16_tensor_core": ops.launches_bf16, "f32_cuda_core": ops.launches_f32}
+    log(f"{arch}: {kernel} launches per route on the main path {routes}")
+    check(routes == {"bf16_tensor_core": cfg.n_layers, "f32_cuda_core": 0},
+          f"{arch}: {kernel} launches per route {routes}, want all {cfg.n_layers} on bf16 tensor cores")
     peak = torch.cuda.max_memory_allocated()
     check(toks.shape == (B, T) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{arch}: generated tokens out of range")
@@ -296,7 +370,7 @@ def lm_full(dev, arch):
     res = {"arch": arch, "params": sum(p.numel() for p in model.parameters()), "init_s": t_init,
            "generate_s": t_gen, "prefill_s": t_pre, "plain_prefill_s": t_plain,
            "decode_ms_per_token": t_dec / (T - 1) * 1e3, "tokens_per_s": B * T / t_gen,
-           "peak_bytes": peak, "launches": counts, "attention_routes": routes,
+           "peak_bytes": peak, "launches": counts, "routes": routes,
            "kernel_vs_plain_f32": drift32,
            "kernel_vs_plain_logits_bf16": err, "bf16_vs_f32_plain_logits": noise,
            "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy}
@@ -312,7 +386,7 @@ def lm_full(dev, arch):
     return res
 
 
-def lm_kernel_rows(dev, counts, kernel_row):
+def lm_kernel_rows(dev, counts, kernel_row, timings):
     """Attention at smollm-135m's prefill shapes and the SSD scan at
     mamba2-780m's, each beside its plain version and its bound."""
     import torch.nn.functional as F
@@ -335,19 +409,19 @@ def lm_kernel_rows(dev, counts, kernel_row):
     plain = lambda: gqa_attend(q, k, v, mask_spec=MaskSpec())
     out = flash_ops.flash_attention(q, k, v)
     err, share = lm_close(out, plain(), torch.bfloat16, "attention at the path's shapes")
-    ms = cuda_ms(lambda: flash_ops.flash_attention(q, k, v))
+    t = timed("attention D 64", lambda: flash_ops.flash_attention(q, k, v), "flash_tc_kernel", timings)
     p_ms = cuda_ms(plain, reps=3, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_err = float((sdpa().transpose(1, 2).double() - out.double()).abs().max())
     lib_ms = cuda_ms(sdpa)
     log(f"attention at the path's shapes: kernel vs plain max |d| {err:.3g} ({share:.3g} of the "
         f"allowance), SDPA vs kernel max |d| {lib_err:.3g}")
     kernel_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:73", counts["flash_attention"], err, ms, p_ms,
+               "src/repro/kernels/flash_attention/kernel.py:73", counts["flash_attention"], err, t, p_ms,
                2 * (2 * B * L * H * D + 2 * B * L * KV * D), 4 * D * B * H * L * (L + 1) // 2, lib_ms,
                BF16_OPS_PER_S)
-    log(f"attention D {D}: kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, kernel / SDPA {ms / lib_ms:.3f}")
+    log(f"attention D {D}: call {t['ms']:.4f} ms, SDPA {lib_ms:.4f} ms, call / SDPA {t['ms'] / lib_ms:.3f}")
     del q, k, v, out, qt, kt, vt
 
     # the tensor-core kernel at the wider head dims, same batch, heads and length
@@ -358,14 +432,15 @@ def lm_kernel_rows(dev, counts, kernel_row):
         v = _randn(gen, (B, L, KV, Dw), dev, torch.bfloat16)
         err_w, share_w = lm_close(flash_ops.flash_attention(q, k, v), gqa_attend(q, k, v, mask_spec=MaskSpec()),
                                   torch.bfloat16, f"attention at D {Dw}")
-        ms_w = cuda_ms(lambda: flash_ops.flash_attention(q, k, v))
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_w = timed(f"attention D {Dw}", lambda: flash_ops.flash_attention(q, k, v), "flash_tc_kernel", timings)
+        ms_w = t_w["ms"]
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         lib_w = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
         bound_w = 4 * Dw * B * H * L * (L + 1) // 2 / BF16_OPS_PER_S * 1e3
-        wide[Dw] = {"ms": ms_w, "sdpa_ms": lib_w, "bound_ms": bound_w, "max_abs_err": err_w,
-                    "allowance_share": share_w}
-        log(f"attention D {Dw} [{B}, {H} H / {KV} KV, {L}, {L}] causal bf16: kernel {ms_w:.4f} ms, "
-            f"SDPA {lib_w:.4f} ms, kernel / SDPA {ms_w / lib_w:.3f}, bound {bound_w:.4f} ms by operations, "
+        wide[Dw] = {"ms": ms_w, "kernel_ms": t_w["kernel_ms"], "sdpa_ms": lib_w, "bound_ms": bound_w,
+                    "max_abs_err": err_w, "allowance_share": share_w}
+        log(f"attention D {Dw} [{B}, {H} H / {KV} KV, {L}, {L}] causal bf16: call {ms_w:.4f} ms "
+            f"(kernel alone {fmt_ms(t_w['kernel_ms'])}), SDPA {lib_w:.4f} ms, call / SDPA {ms_w / lib_w:.3f}, bound {bound_w:.4f} ms by operations, "
             f"max |d| vs plain {err_w:.3g} ({share_w:.3g} of the allowance)")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -380,42 +455,48 @@ def lm_kernel_rows(dev, counts, kernel_row):
     log(f"ssd scan at the path's shapes: kernel vs plain max |d| y {err:.3g} ({share:.3g} of the "
         f"allowance), h {err_h:.3g} ({share_h:.3g})")
     del yp, hp
-    ms = cuda_ms(lambda: ssd_ops.ssd_scan(x, loga, b, c))
+    t = timed("ssd scan", lambda: ssd_ops.ssd_scan(x, loga, b, c), "ssd_tc_kernel", timings)
     p_ms = cuda_ms(lambda: ssd_chunked(x, loga, b, c, None, 128), reps=2, warmup=1)
     Q = 128
     tri = Q * (Q + 1) // 2
     per_chunk = 2 * tri * N + 2 * tri * P + 4 * Q * N * P
     kernel_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:69",
-               counts["ssd_scan"], max(err, err_h), ms, p_ms,
+               counts["ssd_scan"], max(err, err_h), t, p_ms,
                2 * B * L * Hs * P * 2 + B * L * Hs * 4 + 2 * B * L * N * 2 + B * Hs * N * P * 4,
                B * Hs * (L // Q) * per_chunk, None, BF16_OPS_PER_S)
     return wide
 
 
-def attention_sass():
-    """The bf16 attention kernel's SASS holds HGMMA (wgmma) instructions;
-    the listing goes to ``artifacts/flash_tc_kernel.sass``."""
+def tensor_core_sass():
+    """The bf16 tensor-core kernels' SASS holds HGMMA (wgmma) instructions:
+    every instantiation of flash_tc_kernel (4) and ssd_tc_kernel (8); the
+    listings go to ``artifacts/{name}.sass``. Returns HGMMA lines per
+    instantiation, per kernel."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
-             if "flash_tc_kernel" in blk.split("\n", 1)[0]}
-    check(len(funcs) == 4, f"want 4 instantiations of flash_tc_kernel in the SASS, found {list(funcs)}")
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "flash_tc_kernel.sass").write_text("".join(f"Function : {b}" for b in funcs.values()))
-    hgmma = {}
-    for name, blk in funcs.items():
-        lines = [ln.strip() for ln in blk.splitlines() if "HGMMA" in ln]
-        check(lines, f"{name}: no HGMMA in its SASS")
-        hgmma[name] = len(lines)
-    d64 = next(blk for name, blk in funcs.items() if "ILi64E" in name)
-    log("cuobjdump -sass, flash_tc_kernel<64>, its HGMMA lines:\n" +
-        "\n".join(ln.strip() for ln in d64.splitlines() if "HGMMA" in ln))
-    log(f"HGMMA instructions per instantiation: {hgmma}")
-    return hgmma
+    counts = {}
+    for kernel, n_inst, show in (("flash_tc_kernel", 4, "ILi64E"), ("ssd_tc_kernel", 8, "ILi64ELi128E")):
+        funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
+                 if kernel in blk.split("\n", 1)[0]}
+        check(len(funcs) == n_inst, f"want {n_inst} instantiations of {kernel} in the SASS, found {list(funcs)}")
+        (out_dir / f"{kernel}.sass").write_text("".join(f"Function : {b}" for b in funcs.values()))
+        hgmma = {}
+        for name, blk in funcs.items():
+            lines = [ln.strip() for ln in blk.splitlines() if "HGMMA" in ln]
+            check(lines, f"{name}: no HGMMA in its SASS")
+            hgmma[name] = len(lines)
+        main = next(blk for name, blk in funcs.items() if show in name)
+        log(f"cuobjdump -sass, {kernel} ({show}), its HGMMA lines:\n" +
+            "\n".join(ln.strip() for ln in main.splitlines() if "HGMMA" in ln))
+        log(f"{kernel}: HGMMA instructions per instantiation: {hgmma}")
+        counts[kernel] = hgmma
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -457,7 +538,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
-    hgmma = attention_sass()
+    hgmma = tensor_core_sass()
 
     rng = np.random.default_rng(0)
 
@@ -580,22 +661,24 @@ def main() -> int:
     base = class_channels(yt, C)
     slot0 = torch.zeros((k, Ntr), dtype=torch.int32, device=dev)
     fmask_s = fmask[:, :W].contiguous()
-    rows = []
+    rows, timings = [], {}
 
-    def kernel_row(name, src, replaces, launches, err, ms, plain_ms, nbytes, nops, library_ms,
+    def kernel_row(name, src, replaces, launches, err, t, plain_ms, nbytes, nops, library_ms,
                    ops_per_s=F32_OPS_PER_S):
+        """One row of the kernels line; ``t`` from ``timed``."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / ops_per_s * 1e3
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms}
+               "library_ms": library_ms, "kernel_ms": t["kernel_ms"], "launches_traced": t["launches_traced"]}
         rows.append(row)
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
-            f"{row['bound_by']}, share {row['bound_ms'] / ms:.3f}, library {library_ms}) max|d| {err:.3g}")
+        log(f"{name}: {row['ms']:.4f} ms (kernel alone {fmt_ms(row['kernel_ms'])}; plain {plain_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}, of the "
+            f"kernel alone {bound_share(row['bound_ms'], row['kernel_ms'])}, library {library_ms}) max|d| {err:.3g}")
 
     # The kernel's time excludes the per-level slot ordering, timed beside it.
-    hist_shapes = {}
+    hist_shapes, level_hists = {}, {}
     deep_np = rng.integers(0, 128, (k, Ntr)).astype(np.int32)
     deep_np[rng.random((k, Ntr)) < 0.08] = -1
     for shape, slots in (("deep level: 128 slots, 8% parked", torch.from_numpy(deep_np).to(dev)),
@@ -604,9 +687,11 @@ def main() -> int:
         hk = hist_ops.multi_tree_hist(xs, base, wt, slots, n_slots=S, n_bins=B, order=order)
         hp = multi_tree_hist_ref(xs, base, wt, slots, n_slots=S, n_bins=B)
         check(torch.equal(hk, hp), f"full-size histogram kernel != plain ({shape})")
-        ms = cuda_ms(lambda: hist_ops.multi_tree_hist(xs, base, wt, slots, n_slots=S, n_bins=B, order=order))
-        hist_shapes[shape] = {"kernel_ms": ms, "slot_order_ms": order_ms}
-        log(f"histogram at [{k}, {Ntr}, {W}], S {S}, {shape}: kernel {ms:.4f} ms, slot ordering "
+        t = timed(f"histogram, {shape}", lambda: hist_ops.multi_tree_hist(
+            xs, base, wt, slots, n_slots=S, n_bins=B, order=order), "hist_kernel", timings)
+        hist_shapes[shape] = {**t, "slot_order_ms": order_ms}
+        level_hists[shape] = hk
+        log(f"histogram at [{k}, {Ntr}, {W}], S {S}, {shape}: call {t['ms']:.4f} ms, slot ordering "
             f"{order_ms:.4f} ms per level, bitwise equal to the plain version")
     p_ms = cuda_ms(lambda: multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B), reps=2, warmup=1)
     live = int(((wt > 0) & (slot0 >= 0)).sum())
@@ -625,24 +710,42 @@ def main() -> int:
     del flat, vals, lib_out
     kernel_row("gain_ratio_hist", "src/repro_torch/csrc/gain_ratio_hist.cu",
                "src/repro/kernels/gain_ratio/kernel.py:156", counts["gain_ratio_hist"],
-               max_abs(hk, hp), ms, p_ms,
+               max_abs(hk, hp), t, p_ms,
                Ntr * W + Ntr * C * 4 + 2 * k * Ntr * 4 + hk.numel() * 4, 2 * live * W, lib_ms)
     del hp
 
+    # The split scan at both levels' histograms. It never reads a masked
+    # feature's histogram and skips the scoring of an all-zero one, so its
+    # bound counts the admitted features' bytes and the scoring of the
+    # admitted features with any count.
     carry0 = init_carry(k, S, C, dev)
-    sk = scan_ops.split_scan_block(hk, fmask_s, carry0, 0)
-    sp = split_scan_block_ref(hk, fmask_s, carry0, 0)
-    for i in (1, 2, 3, 4):
-        check(torch.equal(sk[i], sp[i]), f"full-size split scan field {i} differs")
-    ms = cuda_ms(lambda: scan_ops.split_scan_block(hk, fmask_s, carry0, 0))
-    p_ms = cuda_ms(lambda: split_scan_block_ref(hk, fmask_s, carry0, 0), reps=1, warmup=1)
     ops_per_candidate = 57 * C + 60      # sums, divisions, 6 logs of 22 float ops each
-    kernel_row("split_scan", "src/repro_torch/csrc/split_scan.cu",
-               "src/repro/kernels/split_scan/kernel.py:147", counts["split_scan"],
-               max_abs(sk[0], sp[0]), ms, p_ms,
-               hk.numel() * 4 + fmask_s.numel() + 2 * k * S * (3 * 4 + 2 * C * 4),
-               k * S * W * ((B - 1) * ops_per_candidate + B * C), None)
-    del hk, sk, sp
+    scan_shapes = {}
+    for shape, hs in level_hists.items():
+        sk = scan_ops.split_scan_block(hs, fmask_s, carry0, 0)
+        sp = split_scan_block_ref(hs, fmask_s, carry0, 0)
+        for i in range(5):
+            check(torch.equal(sk[i], sp[i]), f"full-size split scan field {i} differs ({shape})")
+        t = timed(f"split scan, {shape}", lambda: scan_ops.split_scan_block(hs, fmask_s, carry0, 0),
+                  "split_scan_kernel", timings)
+        p_ms = cuda_ms(lambda: split_scan_block_ref(hs, fmask_s, carry0, 0), reps=1, warmup=1)
+        admitted = int(fmask_s.sum())
+        scored = int(((hs != 0).flatten(3).any(-1) & fmask_s[:, None, :]).sum())
+        nbytes = admitted * S * B * C * 4 + fmask_s.numel() + 2 * k * S * (3 * 4 + 2 * C * 4)
+        nops = scored * ((B - 1) * ops_per_candidate + B * C)
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
+        scan_shapes[shape] = {**t, "plain_ms": p_ms, "bound_ms": bound, "admitted_features": admitted,
+                              "scored_features": scored, "bytes": nbytes, "ops": nops}
+        log(f"split scan at [{k}, {S}, {W}, {B}, {C}], {shape}: call {t['ms']:.4f} ms, kernel "
+            f"{fmt_ms(t['kernel_ms'])} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms ({admitted} admitted "
+            f"(tree, feature) pairs of {k * W}, {scored} (tree, slot, feature) scored), share "
+            f"{bound / t['ms']:.3f} (kernel alone {bound_share(bound, t['kernel_ms'])}); carry bitwise equal to "
+            f"the plain version")
+        if shape.startswith("level 0"):
+            kernel_row("split_scan", "src/repro_torch/csrc/split_scan.cu",
+                       "src/repro/kernels/split_scan/kernel.py:147", counts["split_scan"],
+                       max_abs(sk[0], sp[0]), t, p_ms, nbytes, nops, None)
+    del hk, sk, sp, level_hists, hs
 
     fo = model.forest
     pay = build_payload(fo).contiguous()
@@ -651,8 +754,8 @@ def main() -> int:
     tk = trav_ops.traverse_block(xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth)
     tp = traverse_block_ref(xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth)
     check(torch.equal(tk.argmax(-1), tp.argmax(-1)), "full-size traversal labels differ")
-    ms = cuda_ms(lambda: trav_ops.traverse_block(xbe, fo.feature, fo.threshold, fo.left_child, pay,
-                                                 zeros, depth=cfg.max_depth))
+    t = timed("traversal", lambda: trav_ops.traverse_block(
+        xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth), "traverse_kernel", timings)
     p_ms = cuda_ms(lambda: traverse_block_ref(xbe, fo.feature, fo.threshold, fo.left_child, pay,
                                               zeros, depth=cfg.max_depth), reps=3, warmup=1)
     from repro_torch.core.forest import route_to_leaves
@@ -663,7 +766,7 @@ def main() -> int:
     Nte = xbe.shape[0]
     kernel_row("tree_traverse", "src/repro_torch/csrc/tree_traverse.cu",
                "src/repro/kernels/tree_traverse/kernel.py:124", counts["tree_traverse"],
-               max_abs(tk, tp), ms, p_ms,
+               max_abs(tk, tp), t, p_ms,
                Nte * Fall + k * P * (3 * 4 + C * 4) + 2 * Nte * C * 4,
                2 * steps + Nte * k * C, None)
 
@@ -672,13 +775,14 @@ def main() -> int:
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
                  "ssd_scan": lm[1]["launches"]["ssd_scan"]}
     counts.update(lm_counts)
-    attention_wide = lm_kernel_rows(dev, lm_counts, kernel_row)
+    attention_wide = lm_kernel_rows(dev, lm_counts, kernel_row, timings)
 
     # 7. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
               "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
-              "attention_hgmma": hgmma, "hist_shapes": hist_shapes}
+              "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
+              "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

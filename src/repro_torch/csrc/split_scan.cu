@@ -8,24 +8,42 @@
 // f*(B-1)+thr, the winner's left/right counts, folded into the carry with
 // "strictly greater, or carry feature < 0" (force-accept of the first slab).
 //
-// What bounds it on an H100: reading the [tc, S, W, B, C] histogram slab
-// once from device memory (bytes); the arithmetic per candidate (a few
-// logs and divisions) is small beside the card's float32 rate.
+// What bounds it on an H100: reading the admitted features' [B, C]
+// histograms once from device memory (bytes); a masked feature is never
+// read (its candidates are -inf whatever it holds), and the arithmetic per
+// candidate (a few logs and divisions) is small beside the card's float32
+// rate.
 //
-// Design: one block per (tree, slot), 256 threads. For each feature of the
-// slab the block stages its [B, C] histogram in shared memory, C threads
-// take the prefix sum per channel left to right (the order torch.cumsum
-// uses on the CPU; on integer counts every order is exact), and thread thr
-// scores threshold thr. Sums over the C channels run left to right and
-// every operation follows core/gain.py in the port one for one: the log is
-// the reference CPU backend's polynomial (ref_logf) and the only fused
-// multiply-adds are the explicit fmaf calls that the reference's compiler
-// forms too; built with -fmad=false, so nvcc contracts nothing else and
-// the gains are bitwise the plain PyTorch version's. Each
-// thread keeps its best (gain, index); the block reduces pairs, ties going
-// to the lower index. The winner's counts are summed again from the
-// histogram in the same order as the prefix sum, so they are bitwise the
-// cumsum's values. The carry tensors are read and written in place.
+// Design: one warp per (tree, slot), 8 slots to a block, no __syncthreads
+// at all. The warp reads its tree's mask 32 features at a time into one
+// ballot and visits the admitted features only: a masked feature's
+// histogram is never read. It loads an admitted one (float4 loads when
+// B * C is a multiple of 4) into its own shared-memory buffer (rows padded
+// to an odd stride: no bank conflicts), and skips it after the load if
+// every count is 0 (every split has an empty side: -inf; at level 0 all
+// slots but one are empty). Lane l owns bins l, l + 32, ... For
+// classification the prefix over bins is a warp shuffle scan per channel:
+// the counts are integers below 2^24, so every order of summation gives
+// the cumsum's values exactly. Regression channels (y, y^2) are summed
+// left to right by one lane each, the order torch.cumsum takes on the
+// CPU, so their winners stay those of the plain version. Each lane then
+// scores its thresholds (two at B = 64) with the node's entropy hoisted
+// out of the threshold loop. Sums over the C channels run left to right
+// and every operation follows core/gain.py in the port one for one: the
+// log is the reference CPU backend's polynomial (ref_logf) and the only
+// fused multiply-adds are the explicit fmaf calls that the reference's
+// compiler forms too; built with -fmad=false, so nvcc contracts nothing
+// else and the gains are bitwise the plain PyTorch version's. (gain,
+// index) pairs are reduced in the warp, ties to the lower index; a best of
+// -inf takes index 0, the first-occurrence argmax over a slab whose every
+// candidate is -inf (which is what makes skipping sound). The carry is
+// folded once per slot; the winner's counts are summed again from the
+// histogram (classification by a warp reduction, exact on integer counts;
+// regression left to right). The carry tensors are read and written in
+// place. The first design (one block of 256 threads per (tree, slot),
+// features in sequence, three __syncthreads each, every feature read) took
+// 2.635 ms at the PRF main path's level-0 slab on an NVIDIA H100 80GB HBM3
+// at 700 W (chip_smoke.py).
 #include <cfloat>
 #include <climits>
 #include <cmath>
@@ -34,7 +52,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxWarps = 8;
+constexpr size_t kMaxSmem = 200 * 1024;   // dynamic shared memory a block may take
 constexpr float kTiny = 1e-38f;          // subnormal on purpose: matches the reference
 constexpr float kSplitInfoFloor = 1e-12f;
 
@@ -89,120 +108,195 @@ __device__ __forceinline__ bool better(float g, int i, float bg, int bi) {
   return g > bg || (g == bg && i < bi);
 }
 
-__global__ void split_scan_kernel(const float* __restrict__ hist,
-                                  const uint8_t* __restrict__ mask, int f_base,
-                                  float* gain, int* feat, int* thr_out,
-                                  float* left_out, float* right_out,
-                                  int S, int W, int B, int C, int regression) {
-  extern __shared__ float sh[];
-  float* cum = sh;                 // [B * C]
-  __shared__ float red_g[kThreads / 32];
-  __shared__ int red_i[kThreads / 32];
+// Reduces (gain, index) over the warp; every lane ends with the best.
+__device__ __forceinline__ void warp_best(float& g, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float og = __shfl_xor_sync(0xffffffffu, g, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (better(og, oi, g, i)) { g = og; i = oi; }
+  }
+}
 
-  const int ts = blockIdx.x;       // t * S + s
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+split_scan_kernel(const float* __restrict__ hist, const uint8_t* __restrict__ mask, int f_base,
+                  float* gain, int* feat, int* thr_out, float* left_out, float* right_out, int TS,
+                  int S, int W, int B, int C, int regression) {
+  extern __shared__ float sh[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int ts = blockIdx.x * (blockDim.x / 32) + warp;   // t * S + s: this warp's slot
+  if (ts >= TS) return;
+  const int Cp = C | 1;            // padded row stride of the warp's [B, C] buffer
+  float* cum = sh + warp * B * Cp;
   const int t = ts / S;
-  const float* h = hist + (long long)ts * W * B * C;
+  const int BC = B * C;
+  const float* h = hist + (long long)ts * W * BC;
   const int nthr = B - 1;
   float best_g = -INFINITY;
   int best_i = INT_MAX;
 
-  for (int f = 0; f < W; ++f) {
-    __syncthreads();
-    const float* hf = h + (long long)f * B * C;
-    for (int j = threadIdx.x; j < B * C; j += blockDim.x) cum[j] = hf[j];
-    __syncthreads();
-    if (threadIdx.x < C) {
-      const int c = threadIdx.x;
-      float acc = cum[c];
-      for (int b = 1; b < B; ++b) {
-        acc = acc + cum[b * C + c];
-        cum[b * C + c] = acc;
-      }
-    }
-    __syncthreads();
-    const int thr = threadIdx.x;
-    if (thr < nthr) {
-      const float* tot = cum + (B - 1) * C;
-      const float* l = cum + thr * C;
-      float g;
-      if (regression) {
-        const float r0 = tot[0] - l[0], r1 = tot[1] - l[1], r2 = tot[2] - l[2];
-        g = sse(tot[0], tot[1], tot[2]) - sse(l[0], l[1], l[2]) - sse(r0, r1, r2);
-        if (!(l[0] > 0.0f && r0 > 0.0f)) g = -INFINITY;
-      } else {
-        float n = tot[0];
-        for (int c = 1; c < C; ++c) n = n + tot[c];
-        const float h_node = entropy(tot, tot, C, false);
-        float n_l = l[0], n_r = tot[0] - l[0];
-        for (int c = 1; c < C; ++c) {
-          n_l = n_l + l[c];
-          n_r = n_r + (tot[c] - l[c]);
+  for (int f0 = 0; f0 < W; f0 += 32) {
+    // the admitted features of these 32, one bit each: a masked one is never read
+    unsigned todo = __ballot_sync(0xffffffffu, f0 + lane < W && mask[(long long)t * W + f0 + lane]);
+    while (todo) {
+      const int f = f0 + __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float* hf = h + (long long)f * BC;
+      bool nonzero = false;
+      __syncwarp();                // the last feature's readers are done
+      if (BC % 4 == 0) {
+        for (int e = lane; e < BC / 4; e += 32) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(hf) + e);
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int j = 4 * e + k, b = j / C;
+            cum[b * Cp + j - b * C] = vs[k];
+            nonzero |= vs[k] != 0.0f;
+          }
         }
-        const float n_tot = fmaxf(n, kTiny);
-        // Eq. 3 with the one fused multiply-add the reference's compiler forms
-        const float h_cond = fmaf(n_r / n_tot, entropy(l, tot, C, true),
-                                  (n_l / n_tot) * entropy(l, tot, C, false));
-        const float gn = h_node - h_cond;
-        const float p_l = n_l / n_tot;
-        const float p_r = n_r / n_tot;
-        const float split_info = -(xlogx(p_l) + xlogx(p_r));
-        g = gn / fmaxf(split_info, kSplitInfoFloor);
-        if (!(n_l > 0.0f && n_r > 0.0f)) g = -INFINITY;
+      } else {
+        for (int j = lane; j < BC; j += 32) {
+          const float v = __ldg(hf + j);
+          const int b = j / C;
+          cum[b * Cp + j - b * C] = v;
+          nonzero |= v != 0.0f;
+        }
       }
-      if (mask[(long long)t * W + f] == 0) g = -INFINITY;
-      const int idx = f * nthr + thr;
-      if (better(g, idx, best_g, best_i)) { best_g = g; best_i = idx; }
+      if (!__any_sync(0xffffffffu, nonzero)) continue;  // empty: every split has an empty side
+      __syncwarp();
+      if (regression) {
+        if (lane < C) {
+          float acc = cum[lane];
+          for (int b = 1; b < B; ++b) {
+            acc = acc + cum[b * Cp + lane];
+            cum[b * Cp + lane] = acc;
+          }
+        }
+      } else {
+        for (int c = 0; c < C; ++c) {
+          float carry = 0.0f;
+          for (int b0 = 0; b0 < B; b0 += 32) {
+            const int b = b0 + lane;
+            float incl = b < B ? cum[b * Cp + c] : 0.0f;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+              const float n = __shfl_up_sync(0xffffffffu, incl, o);
+              if (lane >= o) incl += n;
+            }
+            if (b < B) cum[b * Cp + c] = carry + incl;
+            carry += __shfl_sync(0xffffffffu, incl, 31);
+          }
+        }
+      }
+      __syncwarp();
+      const float* tot = cum + (B - 1) * Cp;
+      float n = tot[0];
+      for (int c = 1; c < C; ++c) n = n + tot[c];
+      const float n_tot = fmaxf(n, kTiny);
+      const float h_node = regression ? sse(tot[0], tot[1], tot[2]) : entropy(tot, tot, C, false);
+      for (int thr = lane; thr < nthr; thr += 32) {
+        const float* l = cum + thr * Cp;
+        float g;
+        if (regression) {
+          const float r0 = tot[0] - l[0], r1 = tot[1] - l[1], r2 = tot[2] - l[2];
+          g = h_node - sse(l[0], l[1], l[2]) - sse(r0, r1, r2);
+          if (!(l[0] > 0.0f && r0 > 0.0f)) g = -INFINITY;
+        } else {
+          float n_l = l[0], n_r = tot[0] - l[0];
+          for (int c = 1; c < C; ++c) {
+            n_l = n_l + l[c];
+            n_r = n_r + (tot[c] - l[c]);
+          }
+          // Eq. 3 with the one fused multiply-add the reference's compiler forms
+          const float h_cond = fmaf(n_r / n_tot, entropy(l, tot, C, true),
+                                    (n_l / n_tot) * entropy(l, tot, C, false));
+          const float gn = h_node - h_cond;
+          const float p_l = n_l / n_tot;
+          const float p_r = n_r / n_tot;
+          const float split_info = -(xlogx(p_l) + xlogx(p_r));
+          g = gn / fmaxf(split_info, kSplitInfoFloor);
+          if (!(n_l > 0.0f && n_r > 0.0f)) g = -INFINITY;
+        }
+        const int idx = f * nthr + thr;
+        if (better(g, idx, best_g, best_i)) { best_g = g; best_i = idx; }
+      }
     }
   }
 
-  // block argmax over (gain, index), ties to the lower index
-  for (int off = 16; off > 0; off >>= 1) {
-    const float og = __shfl_down_sync(0xffffffffu, best_g, off);
-    const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-    if (better(og, oi, best_g, best_i)) { best_g = og; best_i = oi; }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) { red_g[warp] = best_g; red_i[warp] = best_i; }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int k = 1; k < (int)(blockDim.x / 32); ++k) {
-    if (better(red_g[k], red_i[k], best_g, best_i)) { best_g = red_g[k]; best_i = red_i[k]; }
-  }
-  if (best_i == INT_MAX) best_i = 0;       // no candidate at all (W = 0 or B = 1)
+  // argmax over (gain, index), ties to the lower index
+  warp_best(best_g, best_i);
+  if (best_g == -INFINITY) best_i = 0;     // the argmax of all -inf is the first candidate
+  if (!(best_g > gain[ts] || feat[ts] < 0)) return;
   const int fl = best_i / nthr;
   const int th = best_i - fl * nthr;
-  if (!(best_g > gain[ts] || feat[ts] < 0)) return;
-  gain[ts] = best_g;
-  feat[ts] = f_base + fl;
-  thr_out[ts] = th;
-  const float* hf = h + (long long)fl * B * C;
-  for (int c = 0; c < C; ++c) {
-    float acc = hf[c];
-    float lc = acc;
-    for (int b = 1; b < B; ++b) {
-      acc = acc + hf[b * C + c];
-      if (b == th) lc = acc;
+  if (lane == 0) {
+    gain[ts] = best_g;
+    feat[ts] = f_base + fl;
+    thr_out[ts] = th;
+  }
+  const float* hf = h + (long long)fl * BC;
+  if (regression) {
+    if (lane < C) {
+      float acc = hf[lane];
+      float lc = acc;
+      for (int b = 1; b < B; ++b) {
+        acc = acc + hf[b * C + lane];
+        if (b == th) lc = acc;
+      }
+      left_out[(long long)ts * C + lane] = lc;
+      right_out[(long long)ts * C + lane] = acc - lc;
     }
-    left_out[(long long)ts * C + c] = lc;
-    right_out[(long long)ts * C + c] = acc - lc;
+    return;
+  }
+  for (int c = 0; c < C; ++c) {
+    float lsum = 0.0f, tsum = 0.0f;
+    for (int b = lane; b < B; b += 32) {
+      const float v = hf[b * C + c];
+      tsum += v;
+      if (b <= th) lsum += v;
+    }
+    lsum = warp_sum(lsum);
+    tsum = warp_sum(tsum);
+    if (lane == 0) {
+      left_out[(long long)ts * C + c] = lsum;
+      right_out[(long long)ts * C + c] = tsum - lsum;
+    }
   }
 }
 
 }  // namespace
+
+// Warps (slots) per block for a [B, C] histogram: up to kMaxWarps buffers of B * (C | 1) floats.
+static int split_scan_warps(int B, int C) {
+  const size_t per_warp = (size_t)B * (C | 1) * sizeof(float);
+  const size_t fit = kMaxSmem / per_warp;
+  return fit < (size_t)kMaxWarps ? (int)fit : kMaxWarps;
+}
 
 extern "C" int prf_split_scan(const void* hist, const void* mask, int f_base,
                               void* gain, void* feat, void* thr, void* left,
                               void* right, int tc, int S, int W, int B, int C,
                               int regression, void* stream) {
   if (tc > 0 && S > 0 && W > 0) {
-    const size_t smem = (size_t)B * C * sizeof(float);
+    const int nw = split_scan_warps(B, C);
+    if (nw < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)nw * B * (C | 1) * sizeof(float);
     if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(split_scan_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaError_t err = cudaFuncSetAttribute(split_scan_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
     }
-    split_scan_kernel<<<tc * S, kThreads, smem, (cudaStream_t)stream>>>(
+    const int TS = tc * S;
+    split_scan_kernel<<<(TS + nw - 1) / nw, nw * 32, smem, (cudaStream_t)stream>>>(
         (const float*)hist, (const uint8_t*)mask, f_base, (float*)gain,
-        (int*)feat, (int*)thr, (float*)left, (float*)right, S, W, B, C,
+        (int*)feat, (int*)thr, (float*)left, (float*)right, TS, S, W, B, C,
         regression);
   }
   return (int)cudaGetLastError();

@@ -44,8 +44,9 @@ def split_scan_block(
         return split_scan_block_ref(hist, mask.bool(), carry, f_base, regression=regression)
     from .._build import launch
 
-    if C > 256:
-        raise ValueError(f"the kernel takes at most 256 channels, got {C}")
+    if B * (C | 1) * 4 > 200 * 1024:
+        raise ValueError(f"the kernel holds one [B, C] histogram in shared memory: "
+                         f"B * (C | 1) * 4 <= 200 KiB, got B {B}, C {C}")
     hist = hist.contiguous()
     mask_u8 = mask.to(torch.uint8).contiguous()
     gain, feat, thr, left, right = (c.clone().contiguous() for c in carry)

@@ -6,6 +6,8 @@ Run on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,8 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.kernels.tree_traverse import ops as trav_ops
 from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
+
+from test_torch_split_cases import SPLIT_CASES, split_scan_case
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(53)
@@ -105,6 +109,29 @@ def test_hist_kernel_regression_close(cuda_device):
     got = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=6, n_bins=16)
     want = multi_tree_hist_ref(xb, base, w, slot, n_slots=6, n_bins=16)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_scan_kernel_matrix(cuda_device, name):
+    """The kernel's carry over three chained slabs against the plain
+    version's: bitwise for classification, gain included."""
+    hist, mask, slabs, regression = split_scan_case(name)
+    h, m = torch.from_numpy(hist).to(cuda_device), torch.from_numpy(mask).to(cuda_device)
+    tc, S, _, _, C = hist.shape
+    k_carry = p_carry = init_carry(tc, S, C, cuda_device)
+    n0 = scan_ops.launches
+    for f0, f1 in slabs:
+        k_carry = scan_ops.split_scan_block(h[:, :, f0:f1], m[:, f0:f1], k_carry, f0, regression=regression)
+        p_carry = split_scan_block_ref(h[:, :, f0:f1], m[:, f0:f1], p_carry, f0, regression=regression)
+    torch.cuda.synchronize()
+    assert scan_ops.launches == n0 + 3
+    assert torch.equal(k_carry[1], p_carry[1]) and torch.equal(k_carry[2], p_carry[2])
+    if regression:
+        for i in (0, 3, 4):
+            torch.testing.assert_close(k_carry[i], p_carry[i], rtol=1e-5, atol=1e-5)
+    else:
+        for i in (0, 3, 4):
+            assert torch.equal(k_carry[i], p_carry[i]), i
 
 
 @pytest.mark.parametrize("regression", [False, True])
@@ -209,20 +236,58 @@ def test_flash_attention_bf16_takes_only_its_head_dims(cuda_device):
     assert flash_ops.launches == n0
 
 
+def _ssd_inputs(dev, B, S, H, P, N, dtype):
+    x = torch.from_numpy(RNG.standard_normal((B, S, H, P)).astype(np.float32)).to(dev, dtype)
+    loga = torch.from_numpy((-np.abs(RNG.standard_normal((B, S, H))) * 0.4).astype(np.float32)).to(dev)
+    b = torch.from_numpy((RNG.standard_normal((B, S, N)) * 0.3).astype(np.float32)).to(dev, dtype)
+    c = torch.from_numpy((RNG.standard_normal((B, S, N)) * 0.3).astype(np.float32)).to(dev, dtype)
+    return x, loga, b, c
+
+
+def _ssd_check(dev, B, S, H, P, N, chunk, dtype):
+    x, loga, b, c = _ssd_inputs(dev, B, S, H, P, N, dtype)
+    n0, n_bf16, n_f32 = ssd_ops.launches, ssd_ops.launches_bf16, ssd_ops.launches_f32
+    y, h = ssd_ops.ssd_scan(x, loga, b, c, chunk=chunk)
+    # the plain version walks chunks that divide S; the bf16 kernel ignores ``chunk``
+    yp, hp = ssd_chunked(x, loga, b, c, None, math.gcd(min(chunk, S), S))
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == n0 + 1 and y.dtype == dtype and h.dtype == torch.float32
+    # bf16 runs on the tensor-core kernel, f32 on the CUDA-core kernel
+    bf16 = dtype == torch.bfloat16
+    assert (ssd_ops.launches_bf16, ssd_ops.launches_f32) == (n_bf16 + bf16, n_f32 + (not bf16))
+    _scaled_close(y, yp, dtype)
+    _scaled_close(h, hp, torch.float32)
+
+
 @pytest.mark.parametrize("B,S,H,P,N", [(2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 256, 4, 32, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda_device, B, S, H, P, N, dtype):
-    x = torch.from_numpy(RNG.standard_normal((B, S, H, P)).astype(np.float32)).to(cuda_device, dtype)
-    loga = torch.from_numpy((-np.abs(RNG.standard_normal((B, S, H))) * 0.4).astype(np.float32)).to(cuda_device)
-    b = torch.from_numpy((RNG.standard_normal((B, S, N)) * 0.3).astype(np.float32)).to(cuda_device, dtype)
-    c = torch.from_numpy((RNG.standard_normal((B, S, N)) * 0.3).astype(np.float32)).to(cuda_device, dtype)
+    _ssd_check(cuda_device, B, S, H, P, N, 128, dtype)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("P", [32, 64])
+@pytest.mark.parametrize("N", [16, 64, 128])
+def test_ssd_scan_bf16_tensor_core_shapes(cuda_device, chunk, P, N):
+    """The tensor-core kernel at every chunk, head dim and state size of
+    the small checks; h_final at f32's tolerance."""
+    _ssd_check(cuda_device, 2, 256, 3, P, N, chunk, torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,chunk,N", [(200, 8, 32), (96, 32, 16), (1, 1, 64), (200, 128, 32), (100, 64, 128)])
+def test_ssd_scan_bf16_any_length(cuda_device, S, chunk, N):
+    """Lengths that are no multiple of the kernel's 64-step chunk, and
+    (the last two) none of ``chunk``, which the bf16 route ignores."""
+    _ssd_check(cuda_device, 1, S, 2, 64, N, chunk, torch.bfloat16)
+
+
+@pytest.mark.parametrize("P,N", [(48, 64), (64, 256), (16, 16)])
+def test_ssd_scan_bf16_raises_on_shapes_it_does_not_take(cuda_device, P, N):
+    x, loga, b, c = _ssd_inputs(cuda_device, 1, 64, 2, P, N, torch.bfloat16)
     n0 = ssd_ops.launches
-    y, h = ssd_ops.ssd_scan(x, loga, b, c)
-    yp, hp = ssd_chunked(x, loga, b, c, None, min(128, S))
-    torch.cuda.synchronize()
-    assert ssd_ops.launches == n0 + 1 and y.dtype == dtype and h.dtype == torch.float32
-    _scaled_close(y, yp, dtype)
-    _scaled_close(h, hp, torch.float32)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd_scan(x, loga, b, c)
+    assert ssd_ops.launches == n0
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m"])

@@ -15,6 +15,8 @@ from repro_torch.kernels.split_scan import ops
 from repro_torch.kernels.split_scan.ops import split_scan_block, split_scan_scores
 from repro_torch.kernels.split_scan.ref import init_carry
 
+from test_torch_split_cases import SPLIT_CASES, split_scan_case
+
 RNG = np.random.default_rng(31)
 
 
@@ -96,3 +98,30 @@ def test_scores_entry_and_input_checks():
         split_scan_block(torch.from_numpy(h), torch.ones((2, 4), dtype=torch.bool), None, 0)
     with pytest.raises(ValueError):            # regression needs 3 channels
         split_scan_block(torch.from_numpy(_hist(1, 2, 3, 4, 2)), None, None, 0, regression=True)
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_scan_matrix_matches_reference(name):
+    """The carry over three chained slabs against the reference's kernel in
+    interpret mode, on the cases that reach the CUDA kernel's shortcuts
+    (zero-mass slots, a slab with every feature masked, B = 2, B = 256,
+    C = 3 regression); ``tests/test_torch_cuda.py`` holds the kernel to
+    the plain version on the same cases."""
+    hist, mask, slabs, regression = split_scan_case(name)
+    tc, S, _, _, C = hist.shape
+    carry, pal = init_carry(tc, S, C, torch.device("cpu")), None
+    for f0, f1 in slabs:
+        carry = split_scan_block(torch.from_numpy(hist[:, :, f0:f1]), torch.from_numpy(mask[:, f0:f1]),
+                                 carry, f0, regression=regression)
+        pal = jblock(jnp.asarray(hist[:, :, f0:f1]), jnp.asarray(mask[:, f0:f1]), pal, f0,
+                     regression=regression, interpret=True)
+    if not regression:
+        _assert_carry(carry, pal)
+        return
+    g_t, f_t, thr_t, l_t, r_t = (np.asarray(a) for a in carry)
+    np.testing.assert_array_equal(f_t, np.asarray(pal[1]))
+    np.testing.assert_array_equal(thr_t, np.asarray(pal[2]))
+    np.testing.assert_array_equal(np.isfinite(g_t), np.isfinite(np.asarray(pal[0])))
+    np.testing.assert_allclose(g_t, np.asarray(pal[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l_t, np.asarray(pal[3]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r_t, np.asarray(pal[4]), rtol=1e-5, atol=1e-5)
