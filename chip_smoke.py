@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --traverse-ab [--src OTHER_CHECKOUT/src]
+
+The second form only times the traversal at a 256-row batch under each
+tile plan (``traverse_batch_ab``). The first:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -8,21 +12,31 @@
    ``cuobjdump -sass`` that the bf16 attention and SSD kernels run
    ``HGMMA`` (wgmma) instructions in every instantiation;
 3. holds each kernel against its plain PyTorch version at small shapes:
-   the three PRF kernels, then attention (odd lengths, Lq < Lk, window,
+   the three PRF kernels (the traversal bitwise over the eleven cases of
+   ``tests/test_torch_traverse_cases.py``: N 1 to 70001, trees split over
+   threads, ragged tiles and tree groups, C up to 37, a wide F, chunks
+   through the carry),
+   then attention (odd lengths, Lq < Lk, window,
    GQA, f32 and bf16) and the SSD scan (S in {64, 200, 320, 384}, P in
    {32, 64}, N in {16, 32, 64, 128}, chunk 8, 64 or 128, f32 and bf16),
    the LM kernels at ``LM_TOL``, each dtype on its own kernel;
 4. reduced end to end: the kernel path and the plain path give the same
-   forest and labels, and (f32, TF32 off) the same greedy LM tokens for
+   forest and labels, histogram reuse on gives reuse off's forest on
+   both paths, growth with reuse on (where ``"auto"`` resolves on) and
+   off timed in turns, and (f32, TF32 off) the same greedy LM tokens for
    smollm-135m and mamba2-780m at cut widths;
 5. full size, PRF: the README quickstart configuration on 2^20 training
    rows, F = 128, through ``train_prf`` and ``PRFModel.predict``, with
    kernel launch counts read around that one run, per-stage times,
-   accuracy, and each kernel timed at the main path's shapes beside its
-   plain version, its bound and (for the histogram) one ``index_add_``;
-   the histogram and the split scan also at a deep level's shape (128
-   slots, ~8% parked), the histogram beside the time of its per-level
-   slot ordering;
+   accuracy; then histogram reuse at full size (budget 1024 MiB, the
+   same weights and mask as the staged replay): forests bitwise equal to
+   reuse off, growth timed in turns, its own launch counts and peak
+   memory, the histogram at R = 128 rank segments; each kernel timed at
+   the main path's shapes beside its plain version, its bound and (for
+   the histogram) one ``index_add_``; the histogram and the split scan
+   also at a deep level's shape (128 slots, ~8% parked), the histogram
+   beside the time of its per-level slot ordering; the traversal also
+   at N = 256 (``traverse_shapes``, not a row of the kernels line);
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
@@ -49,6 +63,7 @@ without a result when no CUDA device is present. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -467,6 +482,226 @@ def lm_kernel_rows(dev, counts, kernel_row, timings):
     return wide
 
 
+def traverse_checks(dev):
+    """The traversal kernel against its plain version, bitwise, over the
+    cases of ``tests/test_torch_traverse_cases.py`` (shared with the card
+    tests), the carry threaded through every chunk: near-complete random
+    trees with thresholds past the bin range on both sides."""
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
+    from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
+    from test_torch_traverse_cases import TRAVERSE_CASES, traverse_case
+
+    for name in TRAVERSE_CASES:
+        x, forest, carry, tc, depth = traverse_case(name)
+        xb = torch.from_numpy(x).to(dev)
+        arrays = [torch.from_numpy(a).to(dev) for a in forest]
+        got = want = torch.from_numpy(carry).to(dev)
+        k = arrays[0].shape[0]
+        n0 = trav_ops.launches
+        for c0 in range(0, k, tc):
+            part = [a[c0:c0 + tc] for a in arrays]
+            got = trav_ops.traverse_block(xb, *part, got, depth=depth)
+            want = traverse_block_ref(xb, *part, want, depth=depth)
+        torch.cuda.synchronize()
+        check(trav_ops.launches == n0 + -(-k // tc), f"traversal, {name}: launches")
+        check(torch.equal(got, want), f"traversal kernel != plain: {name} {TRAVERSE_CASES[name]}")
+    log(f"traverse: kernel bitwise equal to the plain version in all {len(TRAVERSE_CASES)} cases "
+        "(N, F, k, chunk, C, depth, P): " + "; ".join(f"{n} {c}" for n, c in TRAVERSE_CASES.items()))
+
+
+def traverse_work(forest, xq, depth):
+    """What a traversal of ``xq`` must touch on this data: the internal
+    nodes and the leaves its walks visit (distinct (tree, node) pairs)
+    and its steps (internal nodes on every walk's path)."""
+    k, P = forest.feature.shape
+    t = torch.arange(k, device=xq.device)[:, None].expand(k, xq.shape[0])
+    r = torch.arange(xq.shape[0], device=xq.device)[None, :]
+    node = torch.zeros((k, xq.shape[0]), dtype=torch.long, device=xq.device)
+    seen = torch.zeros((k, P), dtype=torch.bool, device=xq.device)
+    steps = 0
+    for _ in range(depth + 1):
+        seen[t, node] = True
+        f = forest.feature[t, node]
+        inner = f >= 0
+        steps += int(inner.sum())
+        right = (xq[r, f.clamp(min=0).long()].int() > forest.threshold[t, node]).long()
+        node = torch.where(inner, forest.left_child[t, node].long() + right, node)
+    internal = int((seen & (forest.feature >= 0)).sum())
+    return internal, int(seen.sum()) - internal, steps
+
+
+def growth_turns(dev, xb, yt, wt, fmask, cfg_on, cfg_off, n):
+    """Growth with histogram reuse on and off in turns (on, off, on, off,
+    ...; ``n`` of each), the same weights and mask: the seconds of every
+    turn and each mode's peak device memory."""
+    from repro_torch.core.forest import grow_forest
+
+    secs, peak = {"on": [], "off": []}, {}
+    for i in range(2 * n):
+        mode = ("on", "off")[i % 2]
+        torch.cuda.reset_peak_memory_stats()
+        _, t = sync_time(lambda: grow_forest(xb, yt, wt, cfg_on if mode == "on" else cfg_off, fmask, device=dev))
+        secs[mode].append(t)
+        peak[mode] = max(peak.get(mode, 0), torch.cuda.max_memory_allocated())
+    return secs, peak
+
+
+def reduced_reuse_turns(dev, x, y, cfg):
+    """At the reduced size ``hist_reuse="auto"`` resolves on (its [8, 32,
+    32, 64, 4] cache, 8 MiB, is under the 256 MiB default budget): growth
+    with reuse on (auto) and off in five turns each, the same weights and
+    mask, forests bitwise equal."""
+    from repro_torch.core import engine
+    from repro_torch.core.binning import bin_dataset
+    from repro_torch.core.dimred import dimension_reduction
+    from repro_torch.core.dsi import bootstrap_counts
+    from repro_torch.core.forest import grow_forest
+
+    F = x.shape[1]
+    auto = dataclasses.replace(cfg, hist_reuse="auto").resolved(F)
+    off = dataclasses.replace(auto, hist_reuse="off")
+    check(engine.resolve_hist_reuse(auto, F), "reduced reuse: auto does not resolve on")
+    xb, _ = bin_dataset(x, auto.n_bins, device=dev)
+    yt = torch.from_numpy(y).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    wt = bootstrap_counts(gen, auto.n_trees, x.shape[0], dev)
+    fmask = dimension_reduction(xb, yt, wt, auto, torch.rand((auto.n_trees, F), generator=gen, device=dev))
+    f_on, f_off = (grow_forest(xb, yt, wt, c, fmask, device=dev) for c in (auto, off))
+    for name in type(f_on).FIELDS[:-1]:
+        check(torch.equal(getattr(f_on, name), getattr(f_off, name)), f"reduced reuse: {name} differs")
+    secs, peak = growth_turns(dev, xb, yt, wt, fmask, auto, off, 5)
+    log(f"reduced reuse (N {x.shape[0]}, F {F}, k {auto.n_trees}, depth {auto.max_depth}, auto resolves on): "
+        f"forests bitwise equal; growth s on {secs['on']} / off {secs['off']}; peak device memory "
+        f"{peak['on'] / 2**20:.1f} MiB (off {peak['off'] / 2**20:.1f})")
+    return {"growth_s": secs, "peak_bytes": peak}
+
+
+def reuse_phase(dev, xbt, yt, wt, fmask, rcfg, forest_off, timings):
+    """Full size, histogram reuse on (``hist_reuse_budget_mb=1024``: the
+    [32, 256, 128, 64, 4] cache is exactly 1 GiB), same weights and mask
+    as the reuse-off replay: Forest arrays bitwise equal to it; growth
+    time in turns on, off, on, off; the histogram and split-scan launches
+    of one reuse growth, counted on their own; peak memory; the
+    histogram's call at R = 128 rank segments."""
+    from repro_torch.core import engine
+    from repro_torch.core.forest import grow_forest
+    from repro_torch.core.histograms import class_channels, hist_feature_slab, sibling_segments, slot_order
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+    from repro_torch.kernels.split_scan import ops as scan_ops
+
+    cfg_on = dataclasses.replace(rcfg, hist_reuse="on", hist_reuse_budget_mb=1024)
+    cfg_off = dataclasses.replace(rcfg, hist_reuse="off")
+    check(engine.resolve_hist_reuse(cfg_on, xbt.shape[1]), "reuse phase: the 1 GiB cache does not pass the gate")
+    hist_ops.launches = scan_ops.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f_on, t_on = sync_time(lambda: grow_forest(xbt, yt, wt, cfg_on, fmask, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    counts = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}
+    for name, n in counts.items():
+        check(n > 0, f"reuse phase: {name} was not launched")
+    for name in type(f_on).FIELDS[:-1]:        # tree_weight is set after growth
+        check(torch.equal(getattr(f_on, name), getattr(forest_off, name)),
+              f"full-size reuse: {name} differs from reuse off")
+    del f_on
+    turns, peaks = growth_turns(dev, xbt, yt, wt, fmask, cfg_on, cfg_off, 2)
+    peak_off = peaks["off"]
+
+    # the histogram at a deep level's rank segments: 128 slots (8% parked), small sides at random
+    k, Ntr, F = wt.shape[0], xbt.shape[0], xbt.shape[1]
+    S, B, C, R = rcfg.frontier, rcfg.n_bins, rcfg.n_classes, rcfg.max_splits_per_level
+    W = hist_feature_slab(Ntr, F, S, B, C)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    slots = torch.randint(0, 128, (k, Ntr), generator=gen, device=dev, dtype=torch.int32)
+    slots[torch.rand((k, Ntr), generator=gen, device=dev) < 0.08] = -1
+    seg = sibling_segments(slots, torch.randint(0, 2, (k, R), generator=gen, device=dev, dtype=torch.int32))
+    base = class_channels(yt, C)
+    xs = xbt[:, :W]
+    order, order_ms = slot_order(seg, wt, R), cuda_ms(lambda: slot_order(seg, wt, R))
+    hk = hist_ops.multi_tree_hist(xs, base, wt, seg, n_slots=R, n_bins=B, order=order)
+    check(torch.equal(hk, multi_tree_hist_ref(xs, base, wt, seg, n_slots=R, n_bins=B)),
+          "histogram kernel != plain at R = 128 rank segments")
+    del hk
+    t = timed("histogram, reuse rank segments R 128", lambda: hist_ops.multi_tree_hist(
+        xs, base, wt, seg, n_slots=R, n_bins=B, order=order), "hist_kernel", timings)
+    live = int(((seg >= 0) & (wt > 0)).sum())
+    res = {"growth_s": turns, "growth_s_checked": t_on, "launches": counts, "peak_bytes": peak,
+           "peak_bytes_off": peak_off,
+           "hist_r128": {**t, "slot_order_ms": order_ms, "live_samples": live}}
+    log(f"reuse phase (full size, budget 1024 MiB): forests bitwise equal to reuse off (that growth "
+        f"{t_on:.4f} s); growth s in turns on "
+        f"{turns['on']} / off {turns['off']}; launches {counts}; peak device memory {peak / 2**30:.2f} GiB "
+        f"(off {peak_off / 2**30:.2f}); histogram at [{k}, {Ntr}, {W}], R {R}, {live} live (tree, sample) "
+        f"pairs: call {t['ms']:.4f} ms, kernel {fmt_ms(t['kernel_ms'])} ms, slot ordering {order_ms:.4f} ms")
+    return res
+
+
+def traverse_batch_ab(src: str) -> int:
+    """``--traverse-ab``: the traversal at a 256-row request batch, alone
+    (F 128, 32 trees, depth 8, P 2050, C 4: the smoke forest's shape, a
+    random forest from seed 0), with ``repro_torch`` imported from
+    ``src`` (``--src``: another checkout's, whose kernels build there,
+    e.g. the parent commit's, for a before / after in one call). Times
+    the wrapper under its own tile plan and, where the wrapper plans
+    tiles (``traverse_plan``), at the other block heights of 32, 64 and
+    128 rows; each variant is held bitwise to the plain version. Call
+    times: CUDA events around 10 calls, in five rounds over the variants;
+    kernel alone: three profiler traces. Prints one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(Path(src).resolve()), str(ROOT / "tests")]
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
+    from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
+    from test_torch_traverse_cases import random_forest
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    rng = np.random.default_rng(0)
+    N, F, k, C, depth, P = 256, 128, 32, 4, 8, 2050
+    arrays = [torch.from_numpy(a).to(dev) for a in random_forest(rng, k, depth, F, C, P)]
+    xq = torch.from_numpy(rng.integers(0, 256, (N, F), dtype=np.uint8)).to(dev)
+    zq = torch.zeros((N, C), device=dev)
+    want = traverse_block_ref(xq, *arrays, zq, depth=depth)
+
+    def call():
+        return trav_ops.traverse_block(xq, *arrays, zq, depth=depth)
+
+    planner = getattr(trav_ops, "traverse_plan", None)
+    variants = {"own plan": None}
+    if planner is not None:
+        own = planner(F)
+        variants["own plan"] = own
+        for tn in (32, 64, 128):
+            if tn != own["TN"]:
+                variants[f"TN {tn}"] = {**own, "TN": tn, "smem_bytes": trav_ops._smem(tn, own["Fs"])}
+    res = {name: {"plan": plan, "ms": [], "kernel_ms": []} for name, plan in variants.items()}
+
+    def under(plan, fn):
+        if plan is not None:
+            trav_ops.traverse_plan = lambda *a: plan
+        try:
+            return fn()
+        finally:
+            if planner is not None:
+                trav_ops.traverse_plan = planner
+
+    for name, plan in variants.items():
+        check(torch.equal(under(plan, call), want), f"traversal, {name}: kernel != plain")
+    for _ in range(5):
+        for name, plan in variants.items():
+            res[name]["ms"].append(under(plan, lambda: cuda_ms(call)))
+    for _ in range(3):
+        for name, plan in variants.items():
+            res[name]["kernel_ms"].append(under(plan, lambda: device_ms(call, "traverse_kernel")[0]))
+    log(json.dumps({"traverse_ab": res, "src": src, "card": smi}))
+    return 0
+
+
 def tensor_core_sass():
     """The bf16 tensor-core kernels' SASS holds HGMMA (wgmma) instructions:
     every instantiation of flash_tc_kernel (4) and ssd_tc_kernel (8); the
@@ -502,7 +737,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     from repro_torch import ForestConfig, train_prf
     from repro_torch.core import engine
     from repro_torch.core.binning import apply_bins, bin_dataset
@@ -585,9 +820,9 @@ def main() -> int:
         sp = traverse_block_ref(xbs, fo.feature[c0:c1], fo.threshold[c0:c1], fo.left_child[c0:c1],
                                 payload[c0:c1], sp if sp is not None else torch.zeros_like(sk),
                                 depth=8)
-    torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-6)
-    check(torch.equal(sk.argmax(-1), sp.argmax(-1)), "traversal labels differ")
-    log(f"traverse: 32 trees in chunks of 12, labels identical, max|d| {max_abs(sk, sp):.3g}")
+    check(torch.equal(sk, sp), "traversal of a trained forest (chunks of 12) != plain")
+    log("traverse: a trained forest of 32 trees in chunks of 12, scores bitwise equal to the plain version")
+    traverse_checks(dev)
     lm_small = lm_kernel_checks(dev)
 
     # 4. reduced end to end: kernel path == plain path --------------------------
@@ -602,6 +837,15 @@ def main() -> int:
               f"reduced end to end: {name} differs between kernel and plain paths")
     check(np.array_equal(mk.predict(xr), mp.predict(xr)), "reduced end to end: labels differ")
     log("reduced end to end (N=65536, F=32, k=8, depth 6): forests and labels identical")
+    for path, off_model, c in (("kernel", mk, cfg_k), ("plain", mp, cfg_p)):
+        n0 = hist_ops.launches
+        on_model = train_prf(xr, yr_, dataclasses.replace(c, hist_reuse="on"), 5, device=dev)
+        check((hist_ops.launches > n0) == (path == "kernel"), f"reduced reuse, {path} path: histogram launches")
+        for name in type(on_model.forest).FIELDS:
+            check(torch.equal(getattr(on_model.forest, name), getattr(off_model.forest, name)),
+                  f"reduced end to end, {path} path: reuse on != reuse off ({name})")
+    log("reduced end to end: histogram reuse on gives the reuse-off forests bitwise, kernel and plain paths")
+    reuse_reduced = reduced_reuse_turns(dev, xr, yr_, cfg_k)
     lm_reduced_end_to_end(dev)
 
     # 5. full size --------------------------------------------------------------
@@ -652,6 +896,8 @@ def main() -> int:
     xbe, stages["predict_binning"] = sync_time(lambda: apply_bins(torch.from_numpy(xte).to(dev), edges_t))
     _, stages["predict"] = sync_time(lambda: predict(forest, xbe))
     log("stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    rows, timings = [], {}
+    reuse = reuse_phase(dev, xbt, yt, wt, fmask, rcfg, forest, timings)
 
     # kernels at the main path's shapes: the first growth level's slab
     k, Ntr, Fall = rcfg.n_trees, xtr.shape[0], xtr.shape[1]
@@ -661,7 +907,6 @@ def main() -> int:
     base = class_channels(yt, C)
     slot0 = torch.zeros((k, Ntr), dtype=torch.int32, device=dev)
     fmask_s = fmask[:, :W].contiguous()
-    rows, timings = [], {}
 
     def kernel_row(name, src, replaces, launches, err, t, plain_ms, nbytes, nops, library_ms,
                    ops_per_s=F32_OPS_PER_S):
@@ -751,24 +996,36 @@ def main() -> int:
     pay = build_payload(fo).contiguous()
     P = fo.feature.shape[1]
     zeros = torch.zeros((xbe.shape[0], C), device=dev)
-    tk = trav_ops.traverse_block(xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth)
-    tp = traverse_block_ref(xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth)
-    check(torch.equal(tk.argmax(-1), tp.argmax(-1)), "full-size traversal labels differ")
-    t = timed("traversal", lambda: trav_ops.traverse_block(
-        xbe, fo.feature, fo.threshold, fo.left_child, pay, zeros, depth=cfg.max_depth), "traverse_kernel", timings)
-    p_ms = cuda_ms(lambda: traverse_block_ref(xbe, fo.feature, fo.threshold, fo.left_child, pay,
-                                              zeros, depth=cfg.max_depth), reps=3, warmup=1)
-    from repro_torch.core.forest import route_to_leaves
-
-    leaves = route_to_leaves(fo, xbe)
-    band = 2 * rcfg.max_splits_per_level
-    steps = int(torch.where(leaves > 0, (leaves - 1) // band + 1, 0).sum())
-    Nte = xbe.shape[0]
-    kernel_row("tree_traverse", "src/repro_torch/csrc/tree_traverse.cu",
-               "src/repro/kernels/tree_traverse/kernel.py:124", counts["tree_traverse"],
-               max_abs(tk, tp), t, p_ms,
-               Nte * Fall + k * P * (3 * 4 + C * 4) + 2 * Nte * C * 4,
-               2 * steps + Nte * k * C, None)
+    traverse_shapes = {}
+    for Nt in (xbe.shape[0], 256):          # the smoke shape, then a small request batch
+        xq, zq = xbe[:Nt], zeros[:Nt]
+        tk = trav_ops.traverse_block(xq, fo.feature, fo.threshold, fo.left_child, pay, zq, depth=cfg.max_depth)
+        tp = traverse_block_ref(xq, fo.feature, fo.threshold, fo.left_child, pay, zq, depth=cfg.max_depth)
+        check(torch.equal(tk, tp), f"traversal at N {Nt}: kernel != plain")
+        t = timed(f"traversal N {Nt}", lambda: trav_ops.traverse_block(
+            xq, fo.feature, fo.threshold, fo.left_child, pay, zq, depth=cfg.max_depth), "traverse_kernel", timings)
+        pack_ms = device_ms(lambda: trav_ops.traverse_block(
+            xq, fo.feature, fo.threshold, fo.left_child, pay, zq, depth=cfg.max_depth), "pack_nodes_kernel")[0]
+        p_ms = cuda_ms(lambda: traverse_block_ref(xq, fo.feature, fo.threshold, fo.left_child, pay,
+                                                  zq, depth=cfg.max_depth), reps=3, warmup=1)
+        # bins, carry and output once; of the forest only what this data's
+        # walks reach: the three words of each internal node visited, the
+        # payload row of each leaf reached
+        internal, leaves, steps = traverse_work(fo, xq, cfg.max_depth)
+        nbytes = Nt * Fall + internal * 3 * 4 + leaves * C * 4 + 2 * Nt * C * 4
+        nops = 2 * steps + Nt * k * C
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
+        plan = trav_ops.traverse_plan(Fall)
+        traverse_shapes[Nt] = {**t, "pack_kernel_ms": pack_ms, "plain_ms": p_ms, "bound_ms": bound, "plan": plan,
+                               "internal_nodes_visited": internal, "leaves_reached": leaves, "steps": steps}
+        log(f"traversal at N {Nt} (F {Fall}, {k} trees, depth {cfg.max_depth}, P {P}, plan {plan}): call "
+            f"{t['ms']:.4f} ms, kernel {fmt_ms(t['kernel_ms'])} ms + node packing {fmt_ms(pack_ms)} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound:.5f} ms ({internal} internal nodes visited, {leaves} leaves reached, {steps} "
+            f"steps), share {bound / t['ms']:.3f}; bitwise equal to the plain version")
+        if Nt == xbe.shape[0]:
+            kernel_row("tree_traverse", "src/repro_torch/csrc/tree_traverse.cu",
+                       "src/repro/kernels/tree_traverse/kernel.py:124", counts["tree_traverse"],
+                       max_abs(tk, tp), t, p_ms, nbytes, nops, None)
 
     # 6. full size, LM serving ----------------------------------------------------
     lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
@@ -782,6 +1039,7 @@ def main() -> int:
               "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
+              "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
               "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
@@ -796,4 +1054,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--traverse-ab", action="store_true",
+                    help="only time the traversal at a 256-row batch under each tile plan (see traverse_batch_ab)")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="with --traverse-ab: the src directory to import repro_torch from")
+    args = ap.parse_args()
+    sys.exit(traverse_batch_ab(args.src) if args.traverse_ab else main())

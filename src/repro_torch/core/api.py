@@ -74,7 +74,7 @@ class PRFModel:
         )
 
 
-def _check_resident(config: ForestConfig, n_features: int) -> None:
+def _check_resident(config: ForestConfig) -> None:
     if config.regression:
         raise NotImplementedError(
             "regression=True in train_prf is not ported yet (end-to-end regression: "
@@ -85,7 +85,7 @@ def _check_resident(config: ForestConfig, n_features: int) -> None:
         raise NotImplementedError(
             "multi-process training is not ported yet: ROADMAP.md Queue 1 item 10"
         )
-    check_ported(config, n_features)
+    check_ported(config)
 
 
 def train_prf(
@@ -115,7 +115,7 @@ def train_prf(
     dev = resolve_device(device)
     N, F = np.shape(x)
     config = config.resolved(F)
-    _check_resident(config, F)
+    _check_resident(config)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     weights = bootstrap_counts(gen, config.n_trees, N, dev)          # DSI §4.1.2
@@ -141,7 +141,7 @@ def fit_prf_from_draws(
     x = np.asarray(x)
     y = np.asarray(y)
     config = config.resolved(x.shape[1])
-    _check_resident(config, x.shape[1])
+    _check_resident(config)
     weights = as_tensor(weights, dev, torch.float32)
     u = as_tensor(u, dev, torch.float32)
     k, (N, F) = config.n_trees, x.shape

@@ -14,9 +14,17 @@ feature slab, threading the split scan's running-best carry, so the full
 PyTorch versions build the full histogram and score it in one shot; both
 give the same winners (first-occurrence argmax over the same gains).
 
-Not ported here, and refused with ``NotImplementedError``: histogram
-reuse, the mesh and multi-process planes, sample-block streaming and
-checkpointed growth (ROADMAP.md Queue 1 items 6-10).
+With ``hist_reuse`` on (and the cache within ``hist_reuse_budget_mb``)
+the level step runs the sibling-subtraction task group
+(``reuse_level_task_group``): only the smaller child of every split is
+histogrammed, into R = S/2 rank segments, the sibling is ``parent -
+small`` from the cache of the level before, and all k trees go in one
+task group, as in the reference. On CUDA it runs the same two kernels
+per feature slab (``fused_level_scores`` with the cache).
+
+Not ported here, and refused with ``NotImplementedError``: the mesh and
+multi-process planes, sample-block streaming and checkpointed growth
+(ROADMAP.md Queue 1 items 7-10).
 """
 from __future__ import annotations
 
@@ -24,8 +32,11 @@ from typing import Optional
 
 import torch
 
-from .gain import SplitScores, level_scores, node_counts, resolve_split_backend
-from .histograms import SlotOrder, hist_feature_slab, level_histograms, slot_order
+from .gain import SplitScores, level_scores, node_counts, resolve_split_backend, sibling_plan
+from .histograms import (
+    SlotOrder, hist_feature_slab, level_histograms, sibling_expand, sibling_perm,
+    sibling_segments, slot_order,
+)
 from .types import Forest, ForestConfig, GrowthState
 
 
@@ -71,7 +82,7 @@ def _rank_splits(gain: torch.Tensor, valid: torch.Tensor, n_max: int) -> torch.T
     return torch.where(admitted, pos, torch.full_like(pos, -1))
 
 
-def check_ported(config: ForestConfig, n_features: int) -> None:
+def check_ported(config: ForestConfig) -> None:
     """Refuse, by name, every path this slice of the port does not run."""
     if config.sample_block > 0:
         raise NotImplementedError(
@@ -80,11 +91,6 @@ def check_ported(config: ForestConfig, n_features: int) -> None:
     if config.resolved_bin_fit() == "blocked":
         raise NotImplementedError(
             "bin_fit='blocked' (streaming quantile sketch) is not ported yet: ROADMAP.md Queue 1 item 7"
-        )
-    if resolve_hist_reuse(config, n_features):
-        raise NotImplementedError(
-            "histogram reuse is not ported yet (ROADMAP.md Queue 1 item 6); "
-            "pass hist_reuse='off', or a size whose cache exceeds hist_reuse_budget_mb"
         )
 
 
@@ -112,11 +118,12 @@ class LocalPlane(CollectivePlane):
 
 
 def _level_hists(x_binned, base_channels, w_c, slot_c, config: ForestConfig,
-                 order: Optional[SlotOrder] = None):
-    """One chunk's level histogram (all frontier slots)."""
+                 order: Optional[SlotOrder] = None, n_slots: Optional[int] = None):
+    """One chunk's level histogram. ``n_slots`` overrides the frontier
+    width (the reuse path histograms into R rank segments instead)."""
     return level_histograms(
         x_binned, base_channels, w_c, slot_c,
-        n_slots=config.frontier, n_bins=config.n_bins,
+        n_slots=config.frontier if n_slots is None else n_slots, n_bins=config.n_bins,
         packed=config.packed_hist and not config.regression,
         backend=config.hist_backend, order=order,
     )
@@ -126,15 +133,24 @@ def fused_level_scores(
     x_binned: torch.Tensor,       # [N, F] uint8
     base_channels: torch.Tensor,  # [N, C]
     weights: torch.Tensor,        # [tc, N]
-    sample_slot: torch.Tensor,    # [tc, N]
+    sample_slot: torch.Tensor,    # [tc, N] (with ``cache``: rank segments)
     feature_mask: Optional[torch.Tensor],  # [tc, F] bool or None
     config: ForestConfig,
+    cache: Optional[dict] = None,
 ):
     """T_GR -> T_NS per feature slab: histogram of one slab, then the
     split scan folds it into the running-best carry. Peak histogram
     footprint is one ``[tc, S, W, B, C]`` slab. The histogram kernel's
     grouping of samples by slot is made once here, for the level, and
-    shared by every slab. Returns (SplitScores, n_node [tc, S])."""
+    shared by every slab. Returns (SplitScores, n_node [tc, S]).
+
+    With the reuse ``cache`` (the reference's ``fused_reuse_level_scores``)
+    ``sample_slot`` holds rank segments: each slab is the small-child
+    histogram in R segments, expanded against the cached slab (``parent -
+    small``) before the scan and written into the next cache; the slab
+    width stays the one sized for S rows. Then returns (row-order
+    SplitScores, row-order n_node, hist2 [tc, S, F, B, C] in paired-row
+    order)."""
     from ..kernels.split_scan.ops import split_scan_block
     from ..kernels.split_scan.ref import init_carry
 
@@ -143,21 +159,29 @@ def fused_level_scores(
     S, B = config.frontier, config.n_bins
     C = base_channels.shape[-1]
     W = hist_feature_slab(N, F, S, B, C)
+    n_slots = S if cache is None else config.max_splits_per_level
     mask = (
         feature_mask if feature_mask is not None
         else torch.ones((tc, F), dtype=torch.bool, device=x_binned.device)
     )
-    order = slot_order(sample_slot, weights, S)
+    order = slot_order(sample_slot, weights, n_slots)
     carry = init_carry(tc, S, C, x_binned.device)
+    if cache is not None:
+        hist2 = torch.empty((tc, S, F, B, C), dtype=torch.float32, device=x_binned.device)
     for f0 in range(0, F, W):
         f1 = min(f0 + W, F)
-        hist = _level_hists(x_binned[:, f0:f1], base_channels, weights, sample_slot, config, order)
+        hist = _level_hists(x_binned[:, f0:f1], base_channels, weights, sample_slot, config, order,
+                            n_slots=n_slots)
+        if cache is not None:
+            hist = sibling_expand(hist, cache["hist"][:, :, f0:f1], cache["perm"], cache["parent"], S)
+            hist2[:, :, f0:f1] = hist
         carry = split_scan_block(
             hist, mask[:, f0:f1], carry, f0, regression=config.regression
         )
         del hist
     scores = SplitScores(*carry)
-    return scores, node_counts(scores, regression=config.regression)
+    n_node = node_counts(scores, regression=config.regression)
+    return (scores, n_node) if cache is None else (scores, n_node, hist2)
 
 
 def chunked_level_scores(
@@ -206,9 +230,10 @@ def chunked_level_scores(
 
 
 def resolve_hist_reuse(config: ForestConfig, n_features: int) -> bool:
-    """Whether the reference would carry the between-level histogram cache
-    (policy ``resolved_hist_reuse()`` plus the ``hist_reuse_budget_mb``
-    capacity gate on the ``4*k*S*F*B*C``-byte cache)."""
+    """Whether growth carries the between-level histogram cache: the
+    policy ``resolved_hist_reuse()`` plus the capacity gate — the cache
+    is one ``[k, S, F, B, C]`` float32 tensor held across the growth, so
+    above ``hist_reuse_budget_mb`` growth falls back to reuse off."""
     if config.resolved_hist_reuse() == "off":
         return False
     C = 3 if config.regression else config.n_classes
@@ -216,13 +241,83 @@ def resolve_hist_reuse(config: ForestConfig, n_features: int) -> bool:
     return cache_bytes <= config.hist_reuse_budget_mb * (1 << 20)
 
 
+def init_hist_cache(config: ForestConfig, n_features: int, device) -> dict:
+    """Level-0 reuse cache. ``small_right = 0`` makes slot 0 the "small"
+    child of rank 0, so the root histogram comes out of the same path:
+    every sample lands in rank segment 0, and the all-(-1) ``parent``
+    table zeroes every subtraction row against the zero ``hist``."""
+    k, S, R = config.n_trees, config.frontier, config.max_splits_per_level
+    C = 3 if config.regression else config.n_classes
+    return {
+        "hist": torch.zeros((k, S, n_features, config.n_bins, C), dtype=torch.float32,
+                            device=device),
+        "perm": torch.arange(S, dtype=torch.int32, device=device).repeat(k, 1),
+        "parent": torch.full((k, R), -1, dtype=torch.int32, device=device),
+        "small_right": torch.zeros((k, R), dtype=torch.int32, device=device),
+    }
+
+
+def _permute_rows(perm: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Gather the [k, S, ...] per-row descriptors ``a`` into slot order."""
+    idx = perm.long().reshape(perm.shape + (1,) * (a.dim() - 2)).expand_as(a)
+    return torch.gather(a, 1, idx)
+
+
+def reuse_expand_scores(packed_h, cache, feature_mask, config: ForestConfig):
+    """Expand the packed histogram against the cache, score the paired
+    rows in one shot and permute the descriptors to slot order. Returns
+    (slot-order SplitScores, n_node, hist2, perm)."""
+    S = config.frontier
+    hist2 = sibling_expand(packed_h, cache["hist"], cache["perm"], cache["parent"], S)
+    perm = sibling_perm(cache["small_right"], S)
+    scores_r, n_r = level_scores(
+        hist2, feature_mask, regression=config.regression, backend=config.split_backend
+    )
+    scores = SplitScores(*(_permute_rows(perm, a) for a in scores_r))
+    return scores, _permute_rows(perm, n_r), hist2, perm
+
+
+def reuse_level_task_group(x_binned, base_channels, weights, sample_slot, slot_node, cache,
+                           config: ForestConfig, plane: CollectivePlane):
+    """Reuse-mode T_GR + T_NS task group over all k trees: histogram only
+    the samples routed to small children (R rank segments, everything
+    else parked in the dump segment), rebuild the large children as
+    ``parent - small``, score the paired rows and permute the O(k*S)
+    descriptors back to slot order.
+
+    Returns (slot-order SplitScores, n_node, next cache without its
+    ``parent`` / ``small_right``, which ``level_step`` plans after routing)."""
+    S, R = config.frontier, config.max_splits_per_level
+    tree_live = (slot_node >= 0).any(dim=1)
+    w_level = weights * tree_live[:, None].to(weights.dtype)
+    seg = sibling_segments(sample_slot, cache["small_right"])
+    if resolve_split_backend(config.split_backend, x_binned.device) == "pallas":
+        perm = sibling_perm(cache["small_right"], S)
+        scores_r, n_r, hist2 = fused_level_scores(
+            x_binned, base_channels, w_level, seg, plane.level_mask, config, cache
+        )
+        scores = SplitScores(*(_permute_rows(perm, a) for a in scores_r))
+        n_node = _permute_rows(perm, n_r)
+    else:
+        packed_h = _level_hists(x_binned, base_channels, w_level, seg, config, n_slots=R)
+        scores, n_node, hist2, perm = reuse_expand_scores(
+            packed_h, cache, plane.level_mask, config
+        )
+    scores, n_node = plane.merge_winners(scores, n_node)
+    return scores, n_node, {"hist": hist2, "perm": perm}
+
+
 def init_growth_state(
     base_channels: torch.Tensor,  # [N, C]
     weights: torch.Tensor,        # [k, N]
     config: ForestConfig,
     plane: CollectivePlane,
+    *,
+    n_features: Optional[int] = None,   # F of the bins; enables hist_reuse
 ) -> GrowthState:
-    """Forest with the root node populated + the level-0 frontier."""
+    """Forest with the root node populated + the level-0 frontier, and the
+    reuse cache when ``n_features`` is given and the config and budget
+    allow it."""
     k, S = config.n_trees, config.frontier
     dev = weights.device
     forest = init_forest(config, dev)
@@ -237,11 +332,15 @@ def init_growth_state(
         forest.value[:, 0] = _safe_mean(root_counts)
     slot_node = torch.full((k, S), -1, dtype=torch.int32, device=dev)
     slot_node[:, 0] = 0
+    hist_cache = None
+    if n_features is not None and resolve_hist_reuse(config, n_features):
+        hist_cache = init_hist_cache(config, n_features, dev)
     return GrowthState(
         forest=forest,
         slot_node=slot_node,
         sample_slot=torch.zeros((k, weights.shape[1]), dtype=torch.int32, device=dev),
         level=0,
+        hist_cache=hist_cache,
     )
 
 
@@ -331,10 +430,20 @@ def finalize_forest(forest: Forest) -> Forest:
 
 def level_step(x_binned, base_channels, weights, state: GrowthState,
                config: ForestConfig, plane: CollectivePlane) -> GrowthState:
-    """One level of growth: task group -> plan -> write -> route -> frontier."""
-    scores, n_node = level_task_group(
-        x_binned, base_channels, weights, state.sample_slot, state.slot_node, config, plane
-    )
+    """One level of growth: task group -> plan -> write -> route -> frontier.
+    With ``state.hist_cache`` the task group runs the reuse path, and the
+    cache is refreshed with this level's paired histograms and the next
+    level's small-side plan."""
+    if state.hist_cache is None:
+        scores, n_node = level_task_group(
+            x_binned, base_channels, weights, state.sample_slot, state.slot_node, config, plane
+        )
+        new_cache = None
+    else:
+        scores, n_node, new_cache = reuse_level_task_group(
+            x_binned, base_channels, weights, state.sample_slot, state.slot_node,
+            state.hist_cache, config, plane,
+        )
     split_rank, is_split, child_base = plan_level(
         scores, n_node, state.slot_node, config, state.level
     )
@@ -342,11 +451,18 @@ def level_step(x_binned, base_channels, weights, state: GrowthState,
         state.forest, state.slot_node, split_rank, is_split, child_base, scores, config
     )
     sample_slot = route_level(x_binned, state.sample_slot, split_rank, scores, plane)
+    if new_cache is not None:
+        parent, small_right = sibling_plan(
+            scores, split_rank, is_split,
+            n_ranks=config.max_splits_per_level, regression=config.regression,
+        )
+        new_cache = dict(new_cache, parent=parent, small_right=small_right)
     return GrowthState(
         forest=forest,
         slot_node=next_frontier(is_split, child_base, config.frontier),
         sample_slot=sample_slot,
         level=state.level + 1,
+        hist_cache=new_cache,
     )
 
 
@@ -359,7 +475,8 @@ def grow(
 ) -> Forest:
     """Level-synchronous growth. With ``config.early_exit`` the loop stops as
     soon as every frontier is empty (one host sync per level)."""
-    state = init_growth_state(base_channels, weights, config, plane)
+    state = init_growth_state(base_channels, weights, config, plane,
+                              n_features=x_binned.shape[1])
     while state.level < config.max_depth:
         if config.early_exit and not bool((state.slot_node >= 0).any()):
             break

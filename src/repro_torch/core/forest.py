@@ -30,7 +30,7 @@ def grow_forest(
     runs on ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     xb = as_tensor(x_binned, dev, torch.uint8).contiguous()
-    check_ported(config, xb.shape[1])
+    check_ported(config)
     y_t = as_tensor(y, dev)
     w = as_tensor(weights, dev, torch.float32).contiguous()
     mask = None if feature_mask is None else as_tensor(feature_mask, dev, torch.bool)

@@ -237,6 +237,42 @@ def node_counts(scores: SplitScores, *, regression: bool = False) -> torch.Tenso
     return _csum(scores.left_counts) + _csum(scores.right_counts)
 
 
+def sibling_plan(
+    scores: SplitScores,
+    split_rank: torch.Tensor,   # [k, S] int32 dense rank of admitted splits, -1 else
+    is_split: torch.Tensor,     # [k, S] bool
+    *,
+    n_ranks: int,               # R = ForestConfig.max_splits_per_level
+    regression: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plan next level's sibling-subtraction reuse (``hist_reuse``).
+
+    For every admitted split rank r: its parent frontier slot, and which
+    child is the *smaller* one (fewer weighted samples, read off the
+    winner's child counts; ties go left) — the only child the next level
+    histograms directly; the sibling is ``parent - small``.
+
+    Returns ``(parent [k, R] int32 slot, -1 for unused ranks;
+    small_right [k, R] int32, 1 = the right child is the small one)``.
+    """
+    k, S = split_rank.shape
+    R = n_ranks
+    if regression:
+        n_l, n_r = scores.left_counts[..., 0], scores.right_counts[..., 0]
+    else:
+        n_l, n_r = _csum(scores.left_counts), _csum(scores.right_counts)
+    sr_slot = (n_r < n_l).to(torch.int32)
+    # Rank -> slot scatter: admitted ranks are unique per tree; every other
+    # slot lands in the sliced-off row R.
+    rank = torch.where(is_split, split_rank, R).long()
+    slots = torch.arange(S, dtype=torch.int32, device=rank.device).expand(k, S)
+    parent = torch.full((k, R + 1), -1, dtype=torch.int32, device=rank.device)
+    small_right = torch.zeros((k, R + 1), dtype=torch.int32, device=rank.device)
+    parent.scatter_(1, rank, slots)
+    small_right.scatter_(1, rank, sr_slot)
+    return parent[:, :R], small_right[:, :R]
+
+
 SPLIT_BACKENDS = ("auto", "pallas", "xla")
 
 

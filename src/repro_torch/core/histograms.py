@@ -83,6 +83,70 @@ def level_histograms(
     )
 
 
+# Sibling-subtraction reuse (ForestConfig.hist_reuse). Only the *smaller*
+# child of every split is histogrammed, into R = max_splits_per_level
+# rank segments (samples of large children park in the dump segment);
+# ``sibling_expand`` rebuilds the full S-row tensor in rank-paired row
+# order — rows [0, R) the small children, rows [R, 2R) their siblings as
+# ``parent - small`` — and ``sibling_perm`` maps slots to those rows, so
+# only the O(k*S) split descriptors are reordered, never the histogram.
+# Unoccupied rows are exactly zero, as direct histograms of empty slots
+# are; with integer counts every subtraction is exact, so classification
+# forests grown with reuse equal those grown without it bitwise.
+
+
+def sibling_segments(
+    sample_slot: torch.Tensor,   # [k, N] int32 frontier slots, -1 parked
+    small_right: torch.Tensor,   # [k, R] int32, 1 = right child is smaller
+) -> torch.Tensor:
+    """Rank segment of each sample: ``slot // 2`` when its slot is the
+    *small* child of its pair, -1 (dump) otherwise. At level 0 the init
+    cache (``small_right = 0``) puts every sample in segment 0."""
+    R = small_right.shape[1]
+    live = sample_slot >= 0
+    s = torch.where(live, sample_slot, 0)
+    r = s // 2
+    side = s - 2 * r
+    sr = torch.gather(small_right, 1, torch.clamp_max(r, R - 1).long())
+    keep = live & (side == sr) & (r < R)
+    return torch.where(keep, r, -1).to(torch.int32)
+
+
+def sibling_perm(small_right: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Slot -> paired-row map [k, S]: slot ``2r + side`` reads row ``r``
+    (small) or ``R + r`` (large); slots past ``2R`` read themselves."""
+    k, R = small_right.shape
+    s = torch.arange(n_slots, dtype=torch.int32, device=small_right.device)[None, :]
+    r = torch.clamp_max(s // 2, R - 1)
+    side = s - 2 * r
+    sr = torch.gather(small_right, 1, r.expand(k, n_slots).long())
+    pair = torch.where(side == sr, r, R + r)
+    return torch.where(s < 2 * R, pair, s).to(torch.int32)
+
+
+def sibling_expand(
+    packed: torch.Tensor,       # [k, R, F, B, C] small-child histograms
+    cache_hist: torch.Tensor,   # [k, S, F, B, C] previous level, paired rows
+    cache_perm: torch.Tensor,   # [k, S] previous level's slot -> row map
+    parent: torch.Tensor,       # [k, R] parent *slot* of each rank, -1 invalid
+    n_slots: int,
+) -> torch.Tensor:
+    """The full level histogram [k, S, F, B, C] in rank-paired row order:
+    rows [0, R) = ``packed``, rows [R, 2R) = ``parent - packed``, rows
+    [2R, S) = zero. Plain PyTorch (a gather and a subtraction), as the
+    reference leaves it to XLA."""
+    k, R = parent.shape
+    valid = parent >= 0
+    rows = torch.gather(cache_perm, 1, torch.where(valid, parent, 0).long())
+    parent_h = cache_hist[torch.arange(k, device=rows.device)[:, None], rows.long()]
+    large = torch.where(valid[:, :, None, None, None], parent_h - packed,
+                        torch.zeros((), dtype=packed.dtype, device=packed.device))
+    hist = torch.cat([packed, large], dim=1)
+    if 2 * R < n_slots:
+        hist = torch.nn.functional.pad(hist, (0, 0, 0, 0, 0, 0, 0, n_slots - 2 * R))
+    return hist[:, :n_slots]
+
+
 def class_channels(y: torch.Tensor, n_classes: int) -> torch.Tensor:
     """onehot(y) -> [N, C] float32 (labels outside [0, C) give a zero row)."""
     y = y.long()

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -50,7 +51,7 @@ class ForestConfig:
     regression: bool = False
     packed_hist: bool = False         # class index folded into the histogram index
     hist_reduce: str = "psum"         # mesh plane only (not ported)
-    hist_reuse: str = "auto"          # sibling subtraction (not ported: raises when on)
+    hist_reuse: str = "auto"          # sibling-subtraction histogram reuse: auto | on | off
     hist_reuse_budget_mb: int = 256
     # "pallas" = CUDA kernel, "segment_sum"/"xla" = plain PyTorch,
     # "auto" = kernel on CUDA tensors, plain version on CPU tensors.
@@ -141,12 +142,16 @@ class Forest:
 class GrowthState:
     """The growth engine's level-loop carry (``core/engine.py``).
 
-    The reference's ``rng`` leaf (reserved, unused) and its
-    ``hist_cache`` (histogram reuse, not ported) are left out; ``level``
+    The reference's ``rng`` leaf (reserved, unused) is left out; ``level``
     is a host integer because the port's level loop runs on the host.
+    ``hist_cache`` is None with histogram reuse off; with it on, the dict
+    of ``engine.init_hist_cache``: ``hist`` [k, S, F, B, C] (last level's
+    histograms in paired-row order), ``perm`` [k, S] (its slot -> row
+    map), ``parent`` and ``small_right`` [k, R] (``gain.sibling_plan``).
     """
 
     forest: Forest
     slot_node: torch.Tensor     # [k, S] pool node id of each active frontier slot, -1 idle
     sample_slot: torch.Tensor   # [k, N] frontier slot of each sample, -1 parked
     level: int = 0              # next level to grow
+    hist_cache: Optional[dict] = None

@@ -9,62 +9,164 @@
 //
 // The TPU kernel does each node lookup as a one-hot select-reduce over the
 // whole pool and reads the payload with a one-hot matmul, because a TPU
-// has no fast gather. Hopper gathers directly, so this kernel loads
-// feature/threshold/left_child[t, node] and x[i, f] (uint8) as plain loads.
+// has no fast gather. Hopper gathers directly.
 //
-// What bounds it on an H100: the dependent loads of the walk, not
-// bandwidth. The bytes it must move are the [N, F] bins, the forest
-// (tc * P * (3 + C) words, which stays in L2) and the [N, C] carry and
-// output; the walk's depth * tc loads per sample are latency-bound chains.
+// What bounds it on an H100: the walk's dependent loads, not bandwidth.
+// The bytes it must move are the [N, F] bins, the forest and the [N, C]
+// carry and output (0.013 ms at N 2^18, F 128); the walk is tc * depth
+// dependent steps per sample, each a node load and a bin load, at
+// addresses that differ from lane to lane. So the design makes each step
+// few instructions and keeps many walks in flight:
 //
-// Design: one thread per sample, trees in order t = 0..tc-1, the chunk's
-// votes summed in registers (classes in groups of kMaxC) and added to the
-// carry once: out = carry + (payload_0 + payload_1 + ...), the order the
-// plain PyTorch version uses. Pool padding is a leaf with zero payload.
+// * pack_nodes_kernel folds each node into one int2 {feature | (threshold
+//   + 1) << 16, left_child} (the threshold clamped to [-1, 255], which
+//   keeps `bin > threshold` for every uint8 bin), so a step makes one
+//   8-byte load, not three. A leaf, and every pool row past P, becomes
+//   a node that steps to itself (feature 0, threshold field 256, which
+//   no bin reaches, left_child = its own id): the walk runs `depth`
+//   steps with no branch, and the compiler interleaves the chains.
+// * A block stages its tile of TN samples' bins in shared memory with
+//   coalesced 16-, 4- or 1-byte loads, rows padded to an odd number of
+//   words so that lanes reading one feature of different rows hit
+//   different banks. The packed nodes (L2-resident: 16 KB a tree at P
+//   2050) and the payload rows go through the read-only cache.
+// * Each thread walks kJ = 8 trees of its sample at once: independent
+//   chains, interleaved (a chain past the last tree walks the group's
+//   first tree and is dropped). Neither shorter blocks for a small batch
+//   nor splitting a sample's trees over several threads (leaf ids through
+//   shared memory) moved the call time at N 256 (PERF.md §6), so
+//   neither is done.
+//
+// Order of the sums: each thread sums its sample's classes over the
+// trees in order t = 0..tc-1, then adds the carry once: out = carry +
+// (payload_0 + payload_1 + ...), the order of the plain PyTorch version,
+// so the two agree bitwise. Pool padding is a leaf with zero payload.
+// The tile plan (TN) is made by the wrapper
+// (kernels/tree_traverse/ops.py:traverse_plan).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxC = 8;
+constexpr int kJ = 8;         // trees walked at once by each thread
+constexpr int kMaxC = 8;      // classes summed at once by each thread
 
-__global__ void traverse_kernel(const uint8_t* __restrict__ x, int N, int F,
-                                const int* __restrict__ feature,
-                                const int* __restrict__ threshold,
-                                const int* __restrict__ left_child,
-                                const float* __restrict__ payload,
-                                const float* __restrict__ carry,
-                                float* __restrict__ out, int tc, int P, int C,
-                                int depth) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const uint8_t* xi = x + (long long)i * F;
-  for (int c0 = 0; c0 < C; c0 += kMaxC) {
-    const int nc = C - c0 < kMaxC ? C - c0 : kMaxC;
+// Packed node of tree t, node n (n < Pp; rows past P step to themselves).
+__global__ void pack_nodes_kernel(const int* __restrict__ feature,
+                                  const int* __restrict__ threshold,
+                                  const int* __restrict__ left_child,
+                                  int2* __restrict__ packed, int tc, int P,
+                                  int Pp) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)tc * Pp) return;
+  const int t = (int)(i / Pp), n = (int)(i % Pp);
+  int2 out = make_int2((int)(256u << 16), n);   // a leaf steps to itself
+  if (n < P) {
+    const long long j = (long long)t * P + n;
+    const int f = feature[j];
+    if (f >= 0) {
+      int thr = threshold[j];
+      thr = thr < -1 ? -1 : (thr > 255 ? 255 : thr);
+      out.x = (int)((unsigned)f | ((unsigned)(thr + 1) << 16));
+      out.y = left_child[j];
+    }
+  }
+  packed[i] = out;
+}
+
+// Bins of rows [r0, r0 + rows) into xs (row stride Fs bytes).
+__device__ __forceinline__ void load_tile(uint8_t* xs, const uint8_t* __restrict__ x,
+                                          long long r0, int rows, int F, int Fs, int vec) {
+  const uint8_t* src = x + r0 * F;
+  const int n = rows * F;
+  if (vec == 16) {
+    for (int e = threadIdx.x * 16; e < n; e += blockDim.x * 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(src + e);
+      unsigned* d = reinterpret_cast<unsigned*>(xs + (e / F) * Fs + e % F);
+      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    }
+  } else if (vec == 4) {
+    for (int e = threadIdx.x * 4; e < n; e += blockDim.x * 4) {
+      *reinterpret_cast<unsigned*>(xs + (e / F) * Fs + e % F) =
+          *reinterpret_cast<const unsigned*>(src + e);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) xs[(e / F) * Fs + e % F] = src[e];
+  }
+}
+
+// Block: TN samples, one thread each. Shared memory: the TN rows of
+// bins. One barrier, after the bins.
+__global__ void __launch_bounds__(128) traverse_kernel(
+    const uint8_t* __restrict__ x, int N, int F, int Fs, int vec,
+    const int2* __restrict__ nodes, int Pp, const float* __restrict__ payload, int P,
+    const float* __restrict__ carry, float* __restrict__ out, int tc, int C, int depth,
+    bool vec4) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint8_t* xs = smem;
+
+  const int TN = blockDim.x, s = threadIdx.x;
+  const long long r0 = (long long)blockIdx.x * TN;
+  const int rows = (int)(N - r0 < TN ? N - r0 : TN);
+  const uint8_t* xrow = xs + s * Fs;
+
+  load_tile(xs, x, r0, rows, F, Fs, vec);
+  __syncthreads();
+  if (s >= rows) return;
+
+  for (int j0 = 0; j0 < C; j0 += kMaxC) {      // class passes (one if C <= kMaxC)
     float acc[kMaxC];
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) acc[c] = 0.0f;
-    for (int t = 0; t < tc; ++t) {
-      const int* ft = feature + (long long)t * P;
-      const int* tt = threshold + (long long)t * P;
-      const int* lt = left_child + (long long)t * P;
-      int node = 0;
-      for (int d = 0; d < depth; ++d) {
-        const int f = ft[node];
-        if (f < 0) break;
-        node = lt[node] + (xi[f] > tt[node] ? 1 : 0);
-      }
-      const float* pl = payload + ((long long)t * P + node) * C + c0;
+    for (int j = 0; j < kMaxC; ++j) acc[j] = 0.0f;
+    for (int t0 = 0; t0 < tc; t0 += kJ) {
+      // Walk the group's kJ trees, interleaved, depth steps with no
+      // branch (leaves step to themselves). A chain past the last tree
+      // walks the group's first one and is dropped.
+      int node[kJ];
+      const int2* tree[kJ];
 #pragma unroll
-      for (int c = 0; c < kMaxC; ++c) {
-        if (c < nc) acc[c] = acc[c] + pl[c];
+      for (int j = 0; j < kJ; ++j) {
+        node[j] = 0;
+        tree[j] = nodes + (long long)(t0 + (t0 + j < tc ? j : 0)) * Pp;
+      }
+      for (int d = 0; d < depth; ++d) {
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const int2 nd = __ldg(tree[j] + node[j]);
+          const unsigned w = (unsigned)nd.x;
+          node[j] = nd.y + ((unsigned)xrow[w & 0xFFFFu] >= (w >> 16) ? 1 : 0);
+        }
+      }
+      // The leaves' payloads, in tree order.
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        if (t0 + j < tc) {
+          const float* pl = payload + ((long long)(t0 + j) * P + node[j]) * C + j0;
+          if (vec4) {
+#pragma unroll
+            for (int c = 0; c < kMaxC; c += 4) {
+              if (c < C) {
+                const float4 v = __ldg(reinterpret_cast<const float4*>(pl + c));
+                acc[c] = acc[c] + v.x;
+                acc[c + 1] = acc[c + 1] + v.y;
+                acc[c + 2] = acc[c + 2] + v.z;
+                acc[c + 3] = acc[c + 3] + v.w;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < kMaxC; ++c) {
+              if (j0 + c < C) acc[c] = acc[c] + __ldg(pl + c);
+            }
+          }
+        }
       }
     }
 #pragma unroll
-    for (int c = 0; c < kMaxC; ++c) {
-      if (c < nc) {
-        const long long o = (long long)i * C + c0 + c;
-        out[o] = carry[o] + acc[c];
+    for (int j = 0; j < kMaxC; ++j) {
+      if (j0 + j < C) {
+        const long long o = (r0 + s) * C + j0 + j;
+        out[o] = carry[o] + acc[j];
       }
     }
   }
@@ -72,17 +174,36 @@ __global__ void traverse_kernel(const uint8_t* __restrict__ x, int N, int F,
 
 }  // namespace
 
+// packed: [tc, Pp] int2 scratch (Pp = P rounded up to even). Fs (the
+// bins' row stride in shared memory), TN and smem_bytes come from the
+// wrapper's plan.
 extern "C" int prf_traverse(const void* x, int N, int F, const void* feature,
                             const void* threshold, const void* left_child,
                             const void* payload, const void* carry, void* out,
-                            int tc, int P, int C, int depth, void* stream) {
-  if (N > 0) {
-    const int threads = 256;
-    const int blocks = (N + threads - 1) / threads;
-    traverse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, N, F, (const int*)feature, (const int*)threshold,
-        (const int*)left_child, (const float*)payload, (const float*)carry,
-        (float*)out, tc, P, C, depth);
+                            void* packed, int tc, int P, int C, int depth, int Fs,
+                            int TN, int smem_bytes, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (N <= 0) return (int)cudaGetLastError();
+  const int Pp = P + (P & 1);
+  const long long n_nodes = (long long)tc * Pp;
+  if (n_nodes > 0) {
+    pack_nodes_kernel<<<(unsigned)((n_nodes + 255) / 256), 256, 0, st>>>(
+        (const int*)feature, (const int*)threshold, (const int*)left_child, (int2*)packed, tc,
+        P, Pp);
   }
+  const uintptr_t xa = (uintptr_t)x;
+  const int vec = (F % 16 == 0 && xa % 16 == 0) ? 16 : ((F % 4 == 0 && xa % 4 == 0) ? 4 : 1);
+  // Payload rows as float4 when one pass holds all of a row's classes.
+  const bool vec4 = C <= kMaxC && C % 4 == 0 && (uintptr_t)payload % 16 == 0;
+  static int smem_set = 48 * 1024;     // the largest size allowed so far (48 KiB needs no opt-in)
+  if (smem_bytes > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        traverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem_bytes;
+  }
+  traverse_kernel<<<(N + TN - 1) / TN, TN, smem_bytes, st>>>(
+      (const uint8_t*)x, N, F, Fs, vec, (const int2*)packed, Pp, (const float*)payload, P,
+      (const float*)carry, (float*)out, tc, C, depth, vec4);
   return (int)cudaGetLastError();
 }

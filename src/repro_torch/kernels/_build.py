@@ -43,8 +43,10 @@ SIGNATURES = {
     "prf_hist": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # hist, mask, f_base, gain, feat, thr, left, right, tc, S, W, B, C, regression, stream
     "prf_split_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, N, F, feature, threshold, left_child, payload, carry, out, tc, P, C, depth, stream
-    "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, N, F, feature, threshold, left_child, payload, carry, out, packed, tc, P, C, depth,
+    # Fs, TN, smem_bytes, stream
+    "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _P],
     # q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, bf16, stream
     "lm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, loga, b, c, y, h, B, L, H, P, N, chunk, bf16, stream

@@ -3,15 +3,56 @@
 Replaces ``repro/kernels/tree_traverse/kernel.py:traverse_block``. On
 CUDA tensors it launches the kernel (counted in ``launches``); on CPU
 tensors it runs ``ref.py``. What bounds the kernel and how its design
-answers that is in the source's note.
+answers that is in the source's note; ``traverse_plan`` sizes its tiles.
+
+Order of the sums. The reference has two: its plain version
+(``repro/kernels/tree_traverse/ref.py:traverse_ref``) adds the chunk's
+trees and then the carry, ``carry + (p_0 + p_1 + ...)``; its Pallas
+kernel seeds the output with the carry and adds each tree to it,
+``((carry + p_0) + p_1) + ...``. The two are equal when the carry is
+zero, i.e. for the first chunk, and differ by rounding after it. The
+port follows ``traverse_ref`` on both of its paths (the kernel and
+``ref.py`` agree bitwise), so against the reference's Pallas kernel the
+chunked CPU test holds scores to rtol 1e-6 and argmax exactly.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .ref import traverse_block_ref
 
 launches = 0   # kernel launches in this process (the CPU path does not count)
+
+SMEM_BYTES = 232448     # shared memory one block may use on sm_90 (227 KiB)
+MAX_FEATURES = 65536    # feature ids ride in 16 bits of the packed node
+
+
+def _smem(TN: int, Fs: int) -> int:
+    return -(-TN * Fs // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def traverse_plan(F: int) -> dict:
+    """Tile plan of one launch: TN samples per block (one thread each),
+    the bins' row stride Fs in shared memory (an odd number of words) and
+    the block's shared-memory bytes. TN is 128, halved for a wide F until
+    the bins fit. A small batch gains nothing from shorter blocks: each
+    thread's walk is a chain of dependent loads however many SMs hold the
+    batch (blocks of 32, 64 and 128 rows take the same call time at N
+    256, PERF.md)."""
+    if F > MAX_FEATURES:
+        raise ValueError(
+            f"the traversal kernel packs feature ids into 16 bits: F = {F} > {MAX_FEATURES}"
+        )
+    Fs = -(-F // 4) * 4
+    if (Fs // 4) % 2 == 0:
+        Fs += 4
+    TN = 128
+    while TN > 1 and _smem(TN, Fs) > SMEM_BYTES:
+        TN //= 2
+    return {"TN": TN, "Fs": Fs, "smem_bytes": _smem(TN, Fs)}
 
 
 def traverse_block(
@@ -49,14 +90,17 @@ def traverse_block(
         )
     from .._build import launch
 
+    plan = traverse_plan(F)
     x_binned, feature, threshold, left_child, payload, carry = (
         a.contiguous() for a in (x_binned, feature, threshold, left_child, payload, carry)
     )
     out = torch.empty((N, C), dtype=torch.float32, device=x_binned.device)
+    packed = torch.empty((tc, P + (P & 1), 2), dtype=torch.int32, device=x_binned.device)
     launch(
         "prf_traverse", x_binned.data_ptr(), N, F, feature.data_ptr(),
         threshold.data_ptr(), left_child.data_ptr(), payload.data_ptr(),
-        carry.data_ptr(), out.data_ptr(), tc, P, C, depth,
+        carry.data_ptr(), out.data_ptr(), packed.data_ptr(), tc, P, C, depth,
+        plan["Fs"], plan["TN"], plan["smem_bytes"],
     )
     launches += 1
     return out

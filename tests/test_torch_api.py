@@ -138,7 +138,20 @@ def test_device_rule(class_data, monkeypatch):
         train_prf(xtr, ytr, _tcfg(JCFG), 0, device="cuda")
 
 
-@pytest.mark.parametrize("kw", [dict(hist_reuse="on"), dict(regression=True, hist_reuse="off"),
+def test_reuse_on_matches_reference_labels(class_data, reference):
+    """``hist_reuse="on"`` (the reference's ``auto`` here) through the
+    port's trainer, given the reference's draws: its labels and forest."""
+    xtr, ytr, xte, _ = class_data
+    w, u = _reference_draws(JCFG, *xtr.shape, SEED)
+    cfg = TConfig(**dict(dataclasses.asdict(JCFG), hist_reuse="on"))
+    model = fit_prf_from_draws(xtr, ytr, cfg, w, u, device="cpu")
+    np.testing.assert_array_equal(np.asarray(reference.predict(xte)), model.predict(xte))
+    for name in Forest.FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(reference.forest, name)),
+                                      getattr(model.forest, name).numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("kw", [dict(regression=True, hist_reuse="off"),
                                 dict(sample_block=500, hist_reuse="off")])
 def test_unported_paths_raise(class_data, kw):
     xtr, ytr, _, _ = class_data

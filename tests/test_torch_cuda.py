@@ -24,6 +24,7 @@ from repro_torch.kernels.tree_traverse import ops as trav_ops
 from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
 
 from test_torch_split_cases import SPLIT_CASES, split_scan_case
+from test_torch_traverse_cases import TRAVERSE_CASES, traverse_case
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(53)
@@ -174,6 +175,42 @@ def test_traverse_kernel_matches_plain(cuda_device):
     want = traverse_block_ref(xb, *args, carry, depth=depth)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(TRAVERSE_CASES))
+def test_traverse_kernel_cases_bitwise(cuda_device, name):
+    x, forest, carry, tc, depth = traverse_case(name)
+    xb = torch.from_numpy(x).to(cuda_device)
+    arrays = [torch.from_numpy(a).to(cuda_device) for a in forest]
+    got = want = torch.from_numpy(carry).to(cuda_device)
+    k = arrays[0].shape[0]
+    before = trav_ops.launches
+    for c0 in range(0, k, tc):
+        part = [a[c0:c0 + tc] for a in arrays]
+        got = trav_ops.traverse_block(xb, *part, got, depth=depth)
+        want = traverse_block_ref(xb, *part, want, depth=depth)
+    torch.cuda.synchronize()
+    assert trav_ops.launches == before + -(-k // tc)
+    assert torch.equal(got, want)
+
+
+def test_reuse_kernel_path_equals_plain_path_and_reuse_off(cuda_device):
+    """Histogram reuse on the card: the kernel path (rank-segment
+    histograms, expanded slabs into the split scan) gives the plain
+    path's forest and reuse off's forest, bitwise."""
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.data.tabular import make_classification
+
+    x, y = make_classification(n_samples=6000, n_features=24, n_classes=3, seed=2)
+    cfg = ForestConfig(n_trees=6, max_depth=6, n_bins=32, n_classes=3, hist_reuse="on")
+    plain = ForestConfig(**{**cfg.__dict__, "hist_backend": "segment_sum", "split_backend": "xla"})
+    off = ForestConfig(**{**cfg.__dict__, "hist_reuse": "off"})
+    n0 = hist_ops.launches
+    a = train_prf(x, y, cfg, 0, device=cuda_device)
+    assert hist_ops.launches > n0
+    for other in (train_prf(x, y, plain, 0, device=cuda_device), train_prf(x, y, off, 0, device=cuda_device)):
+        for name in ("feature", "threshold", "left_child", "class_counts", "tree_weight"):
+            assert torch.equal(getattr(a.forest, name), getattr(other.forest, name)), name
 
 
 def test_train_prf_kernel_path_equals_plain_path(cuda_device):

@@ -101,8 +101,7 @@ def test_rank_splits_is_stable_on_ties():
 
 def test_unported_paths_raise(case):
     xb, y, w = case
-    for kw in (dict(hist_reuse="on"), dict(sample_block=64, hist_reuse="off"),
-               dict(bin_fit="blocked", hist_reuse="off")):
+    for kw in (dict(sample_block=64, hist_reuse="off"), dict(bin_fit="blocked", hist_reuse="off")):
         cfg = TConfig(n_trees=8, max_depth=3, n_bins=16, n_classes=3, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tgrow(xb, y, w, cfg, None, device="cpu")

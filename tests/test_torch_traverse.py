@@ -11,6 +11,8 @@ from repro.kernels.tree_traverse.kernel import traverse_block as jtraverse
 from repro_torch.kernels.tree_traverse import ops
 from repro_torch.kernels.tree_traverse.ops import traverse_block
 
+from test_torch_traverse_cases import TRAVERSE_CASES, random_forest, traverse_case
+
 RNG = np.random.default_rng(41)
 
 
@@ -63,3 +65,70 @@ def test_traverse_resumes_from_carry_and_checks_inputs():
         traverse_block(torch.from_numpy(xb.astype(np.int32)), f, t, lc, p, None, depth=3)
     with pytest.raises(TypeError):
         traverse_block(torch.from_numpy(xb), f.long(), t, lc, p, None, depth=3)
+
+
+def test_traverse_wide_classes_and_pool_match_reference():
+    """C > 8 (more classes than one pass of the kernel sums), a pool far
+    past 2^depth + 3 rows, thresholds outside the bin range: the plain
+    path takes them all, as the reference does."""
+    N, F, k, C, depth = 97, 10, 3, 11, 4
+    P = 2 ** (depth + 1) + 40
+    xb = RNG.integers(0, 256, (N, F)).astype(np.uint8)
+    arrays = random_forest(RNG, k, depth, F, C, P)
+    got = traverse_block(torch.from_numpy(xb), *map(torch.from_numpy, arrays), None, depth=depth)
+    want = jtraverse(jnp.asarray(xb), *map(jnp.asarray, arrays), None, depth=depth, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def _kernel_emulation(xb, feature, threshold, left, payload, carry, depth):
+    """The kernel's arithmetic in numpy: nodes packed as pack_nodes_kernel
+    packs them (a leaf steps to itself), walked depth steps by the packed
+    word, then, whatever the tile plan, each (sample, class) summed over
+    the trees in order and added to the carry once."""
+    tc, P = feature.shape
+    thr = np.clip(threshold.astype(np.int64), -1, 255) + 1
+    word = np.where(feature >= 0, feature.astype(np.int64) | (thr << 16), 256 << 16)
+    lc = np.where(feature >= 0, left, np.arange(P)[None, :])
+    rows = np.arange(xb.shape[0])
+    acc = np.zeros_like(carry)
+    for t in range(tc):
+        node = np.zeros(len(rows), np.int64)
+        for _ in range(depth):
+            w = word[t, node]
+            node = lc[t, node] + (xb[rows, w & 0xFFFF].astype(np.int64) >= (w >> 16))
+        acc = acc + payload[t, node]
+    return carry + acc
+
+
+@pytest.mark.parametrize("name", list(TRAVERSE_CASES))
+def test_packed_walk_is_bitwise_the_plain_version(name):
+    """The packing (feature | (threshold + 1) << 16, the threshold clamped
+    to [-1, 255], leaves stepping to themselves) changes no leaf: the
+    kernel's arithmetic, emulated over the card tests' cases (the carry
+    through every chunk), is bitwise the plain version."""
+    x, forest, carry, tc, depth = traverse_case(name)
+    got = want = carry
+    for c0 in range(0, forest[0].shape[0], tc):
+        part = [a[c0:c0 + tc] for a in forest]
+        got = _kernel_emulation(x, *part, got, depth)
+        want = traverse_block(torch.from_numpy(x), *map(torch.from_numpy, part),
+                              torch.from_numpy(want), depth=depth).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("F", [1, 3, 37, 128, 1024, 5000, 20000, 65535])
+def test_traverse_plan_fits_the_card(F):
+    plan = ops.traverse_plan(F)
+    TN = plan["TN"]
+    assert TN * F <= plan["smem_bytes"] <= ops.SMEM_BYTES
+    assert 1 <= TN <= 128 and TN & (TN - 1) == 0
+    assert plan["Fs"] >= F and plan["Fs"] % 4 == 0 and (plan["Fs"] // 4) % 2 == 1
+    if F <= 1024:
+        assert TN == 128                              # the smoke shape's F 128: 128 rows a block
+    else:
+        assert ops._smem(2 * TN, plan["Fs"]) > ops.SMEM_BYTES   # halved only as far as needed
+
+
+def test_traverse_plan_refuses_features_past_16_bits():
+    with pytest.raises(ValueError, match="16 bits"):
+        ops.traverse_plan(ops.MAX_FEATURES + 1)
