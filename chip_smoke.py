@@ -12,10 +12,13 @@ tile plan (``traverse_batch_ab``). The first:
    ``cuobjdump -sass`` that the bf16 attention and SSD kernels run
    ``HGMMA`` (wgmma) instructions in every instantiation;
 3. holds each kernel against its plain PyTorch version at small shapes:
-   the three PRF kernels (the traversal bitwise over the eleven cases of
+   the three PRF kernels (the histogram and the split scan also at
+   B 256, C 300, past their shared memory's class limits, in class
+   tiles; the traversal bitwise over the twelve cases of
    ``tests/test_torch_traverse_cases.py``: N 1 to 70001, trees split over
-   threads, ragged tiles and tree groups, C up to 37, a wide F, chunks
-   through the carry),
+   threads, ragged tiles and tree groups, C up to 37, a wide F, F 70000
+   past 16 bits of feature id (the wide node layout), chunks through the
+   carry),
    then attention (odd lengths, Lq < Lk, window,
    GQA, f32 and bf16) and the SSD scan (S in {64, 200, 320, 384}, P in
    {32, 64}, N in {16, 32, 64, 128}, chunk 8, 64 or 128, f32 and bf16),
@@ -37,6 +40,16 @@ tile plan (``traverse_batch_ab``). The first:
    also at a deep level's shape (128 slots, ~8% parked), the histogram
    beside the time of its per-level slot ordering; the traversal also
    at N = 256 (``traverse_shapes``, not a row of the kernels line);
+5b. full size, streamed (``streamed_phase``): the same configuration
+   with ``sample_block = 131072`` from an ``np.memmap`` of the training
+   rows: with exact bins and the replay's draws the resident model
+   bitwise; then ``train_prf`` on the memmap (sketch bins) and its
+   streamed ``predict``, with its own launch counts, peak memory,
+   accuracy, streamed predict equal to resident; a staged replay's
+   stage times, growth per level and the feed wait, growth from pageable
+   and from pinned host bins in turns; the histogram added into a carry
+   at the block shape, the split scan on the carry (level 0: all 8
+   blocks) and the S = 1 root histogram over the blocks, bitwise;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
@@ -639,6 +652,234 @@ def reuse_phase(dev, xbt, yt, wt, fmask, rcfg, forest_off, timings):
     return res
 
 
+STREAM_BLOCK = 131_072          # rows per block of the streamed phase: 8 training blocks, 2 to predict
+
+
+def streamed_phase(dev, xtr, ytr, xte, yte, wt, u, cfg, model, pred):
+    """5b. Full size, streamed (``config.sample_block = 131072``), the
+    training rows read from an ``np.memmap`` written to ``build/``:
+
+    (a) ``fit_prf_from_draws`` with the replay's weights and ``u`` and
+        ``bin_fit="exact"``: every Forest array and the edges bitwise
+        equal to phase 5's resident model, its streamed prediction equal
+        to the resident one;
+    (b) the slice's main path, ``train_prf`` on the memmap (``"auto"``
+        bins: the sketch) and the model's streamed ``predict`` of the
+        test rows, with the three PRF kernels' launch counts set to 0
+        just before and read just after, peak device memory, accuracy
+        >= 0.90, and the streamed prediction equal to the same model's
+        resident one;
+    (c) a staged replay of (b) with host clocks ending in a sync: sketch,
+        per-block binning (into pinned host tensors, as the trainer keeps
+        them), dimension reduction, growth (per level, and the feed wait
+        the growth sweeps saw), OOB, predict; its forest equals (b)'s
+        bitwise; then growth from pageable numpy bins and from the pinned
+        ones in turns, each with its feed wait;
+    (d) the histogram at the block shape, added into a carry (``out=``),
+        at level 0 and a deep level, beside its plain version and bound;
+        the split scan on the carry at full F (level 0: all 8 blocks
+        added; the deep level: block 0) with every field bitwise equal
+        to the plain version; dimension reduction's S = 1 root histogram
+        added over the 8 blocks, bitwise equal to the plain version.
+    """
+    from repro_torch import PRFModel, fit_prf_from_draws, train_prf
+    from repro_torch.core import api
+    from repro_torch.core.binning import apply_bins, fit_bins_blocked
+    from repro_torch.core.dimred import dimension_reduction_streamed
+    from repro_torch.core.histograms import class_channels, slot_order
+    from repro_torch.core.voting import oob_accuracy_streamed
+    from repro_torch.data.pipeline import sample_blocks, screen_blocks
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
+
+    nb, fields = STREAM_BLOCK, type(model.forest).FIELDS
+    path = ROOT / "build" / "chip_smoke_train.f32"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    mm = np.memmap(path, np.float32, "w+", shape=xtr.shape)
+    mm[:] = xtr
+    mm.flush()
+    del mm
+    t_write = time.perf_counter() - t0
+    x_mm = np.memmap(path, np.float32, "r", shape=xtr.shape)
+    try:
+        # (a) exact bins and the replay's draws: the resident model, bitwise
+        cfg_x = dataclasses.replace(cfg, bin_fit="exact", sample_block=nb)
+        m_x, t_exact = sync_time(lambda: fit_prf_from_draws(x_mm, ytr, cfg_x, wt, u, device=dev))
+        for name in fields:
+            check(torch.equal(getattr(m_x.forest, name), getattr(model.forest, name)),
+                  f"streamed (exact bins) {name} differs from the resident forest")
+        check(np.array_equal(m_x.bin_edges, model.bin_edges), "streamed exact edges differ")
+        check(np.array_equal(m_x.predict(xte), pred), "streamed predict (exact bins) != resident predict")
+        log(f"streamed, exact bins, the replay's draws: every Forest array and the edges bitwise equal to "
+            f"the resident model, streamed predict equal ({t_exact:.3f} s)")
+        del m_x
+
+        # (b) the main path of the streaming plane
+        cfg_s = dataclasses.replace(cfg, sample_block=nb)
+        torch.cuda.empty_cache()
+        base_bytes = torch.cuda.memory_allocated()
+        for m in (hist_ops, scan_ops, trav_ops):
+            m.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model_s = train_prf(x_mm, ytr, cfg_s, 0, device=dev)
+        pred_s = model_s.predict(xte)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+        counts = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches,
+                  "tree_traverse": trav_ops.launches}
+        peak = torch.cuda.max_memory_allocated()
+        for name, n in counts.items():
+            check(n > 0, f"{name} was not launched on the streamed path")
+        acc = float(np.mean(pred_s == yte))
+        check(acc >= 0.90, f"streamed (sketch) test accuracy {acc} < 0.90")
+        resident = PRFModel(dataclasses.replace(model_s.forest, config=dataclasses.replace(
+            model_s.forest.config, sample_block=0)), model_s.bin_edges)
+        check(np.array_equal(resident.predict(xte), pred_s), "streamed predict != resident predict")
+        log(f"streamed main path: train_prf (memmap, sample_block {nb}, sketch bins) + predict "
+            f"{t_main:.3f} s, accuracy {acc:.7f}, launches {counts}, peak device memory "
+            f"{peak / 2**30:.3f} GiB ({(peak - base_bytes) / 2**30:.3f} GiB above the "
+            f"{base_bytes / 2**30:.3f} GiB held from earlier phases); streamed predict equal to resident")
+
+        # (c) staged replay: the same draws as (b)
+        rcfg = cfg_s.resolved(xtr.shape[1])
+        stages = {"memmap_write": t_write}
+        blocks = sample_blocks(x_mm, nb)
+        _, stages["validation"] = sync_time(lambda: screen_blocks(
+            blocks, ytr, policy="raise", n_features=xtr.shape[1], n_classes=rcfg.n_classes))
+        edges, stages["sketch"] = sync_time(lambda: fit_bins_blocked(blocks, rcfg.n_bins))
+        check(np.array_equal(edges, model_s.bin_edges), "staged sketch edges differ")
+        edges_t = torch.from_numpy(edges).to(dev)
+        # the bins in pinned host tensors, as _fit_streamed keeps them
+        xb_blocks, stages["block_binning"] = sync_time(lambda: [
+            torch.empty((b.shape[0], b.shape[1]), dtype=torch.uint8, pin_memory=True).copy_(
+                apply_bins(torch.from_numpy(np.array(b)).to(dev), edges_t)) for b in blocks])
+        fm, stages["dimension_reduction"] = sync_time(lambda: dimension_reduction_streamed(
+            xb_blocks, ytr, wt, rcfg, u, device=dev))
+        gstats = {}
+        forest_s, stages["growth"] = sync_time(lambda: api.grow_forest_streamed(
+            xb_blocks, ytr, wt, rcfg, fm, device=dev, stats=gstats))
+        forest_s.tree_weight, stages["oob_weights"] = sync_time(
+            lambda: oob_accuracy_streamed(forest_s, xb_blocks, ytr, wt))
+        for name in fields:
+            check(torch.equal(getattr(forest_s, name), getattr(model_s.forest, name)),
+                  f"staged streamed replay: {name} differs from train_prf")
+        _, stages["predict"] = sync_time(lambda: model_s.predict(xte))
+        log("streamed stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        log(f"streamed growth per level (s): {[round(t, 4) for t in gstats['levels_s']]}; the growth "
+            f"sweeps' summed wait for the feed {gstats['feed_wait_s']:.4f} s, retries {gstats['retries']}")
+        # the feed from pinned bins against pageable numpy bins (each sweep
+        # staging every block into the ring), growth in turns
+        xb_pageable = [b.numpy().copy() for b in xb_blocks]
+        feed_turns = {"pageable": [], "pinned": []}
+        for turn in ("pageable", "pinned", "pageable", "pinned"):
+            st = {}
+            f_t, g_s = sync_time(lambda: api.grow_forest_streamed(
+                xb_pageable if turn == "pageable" else xb_blocks, ytr, wt, rcfg, fm, device=dev,
+                stats=st))
+            for name in ("feature", "threshold", "left_child", "class_counts"):
+                check(torch.equal(getattr(f_t, name), getattr(forest_s, name)),
+                      f"streamed growth from {turn} bins: {name} differs")
+            feed_turns[turn].append({"growth_s": g_s, "feed_wait_s": st["feed_wait_s"]})
+            del f_t
+        log("streamed growth in turns, pageable / pinned host bins (s, feed wait): " + "; ".join(
+            f"{t} {r['growth_s']:.4f} ({r['feed_wait_s']:.4f})"
+            for i in range(2) for t in ("pageable", "pinned") for r in [feed_turns[t][i]]))
+
+        # (d) the histogram at the block shape, added into the level's carry
+        # (level 0: all 8 blocks; a deep level: block 0), the split scan on
+        # that carry at full F, and dimension reduction's S = 1 root
+        # histogram over all 8 blocks, each against its plain version
+        k, F, S, B, C = rcfg.n_trees, xtr.shape[1], rcfg.frontier, rcfg.n_bins, rcfg.n_classes
+        xb_dev = [b.to(dev) for b in xb_blocks]
+        base_dev = [class_channels(torch.from_numpy(ytr[o:o + nb]).to(dev), C)
+                    for o in range(0, len(ytr), nb)]
+        w_dev = [wt[:, o:o + nb].contiguous() for o in range(0, len(ytr), nb)]
+        xb0, base0, w0 = xb_dev[0], base_dev[0], w_dev[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        deep = torch.randint(0, 128, (k, nb), generator=gen, device=dev, dtype=torch.int32)
+        deep[torch.rand((k, nb), generator=gen, device=dev) < 0.08] = -1
+        block_hist, carry_scan = {}, {}
+        acc_t = torch.zeros((k, S, F, B, C), device=dev)
+        for shape, slots in (("level 0", torch.zeros((k, nb), dtype=torch.int32, device=dev)),
+                             ("deep level: 128 slots, 8% parked", deep)):
+            order = slot_order(slots, w0, S)
+            acc_t.zero_()
+            hist_ops.multi_tree_hist(xb0, base0, w0, slots, n_slots=S, n_bins=B, order=order, out=acc_t)
+            check(torch.equal(acc_t, multi_tree_hist_ref(xb0, base0, w0, slots, n_slots=S, n_bins=B)),
+                  f"histogram into a carry != plain at the block shape ({shape})")
+            ms = cuda_ms(lambda: hist_ops.multi_tree_hist(xb0, base0, w0, slots, n_slots=S, n_bins=B,
+                                                          order=order, out=acc_t))
+            p_ms = cuda_ms(lambda: multi_tree_hist_ref(xb0, base0, w0, slots, n_slots=S, n_bins=B),
+                           reps=2, warmup=1)
+            live = int(((slots >= 0) & (w0 > 0)).sum())
+            occupied = int(torch.unique(slots[slots >= 0]).numel())
+            # bins, channels, weights and slots read once; the carry's cells
+            # this block can reach (its occupied slots) read and written once
+            nbytes = nb * F + nb * C * 4 + 2 * k * nb * 4 + 2 * k * occupied * F * B * C * 4
+            nops = 2 * live * F
+            bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
+            block_hist[shape] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound, "live": live,
+                                 "occupied_slots": occupied}
+            log(f"histogram into the carry at the block shape [{k}, {nb}, {F}], S {S}, {shape}: call "
+                f"{ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}; bitwise "
+                f"equal to the plain version")
+            # the carry the split scan reads: at level 0 every block added in
+            acc_t.zero_()
+            want = torch.zeros_like(acc_t)
+            for xb_b, base_b, w_b in (zip(xb_dev, base_dev, w_dev) if shape == "level 0"
+                                      else [(xb0, base0, w0)]):
+                sl = slots[:, :xb_b.shape[0]]
+                hist_ops.multi_tree_hist(xb_b, base_b, w_b, sl, n_slots=S, n_bins=B, out=acc_t)
+                want += multi_tree_hist_ref(xb_b, base_b, w_b, sl, n_slots=S, n_bins=B)
+            check(torch.equal(acc_t, want), f"carry over the blocks != plain ({shape})")
+            del want
+            ck = scan_ops.split_scan_block(acc_t, fm, init_carry(k, S, C, dev), 0)
+            cp = split_scan_block_ref(acc_t, fm, init_carry(k, S, C, dev), 0)
+            for i, field in enumerate(("gain", "feature", "threshold", "left_counts", "right_counts")):
+                check(torch.equal(ck[i], cp[i]), f"split scan on the streamed carry ({shape}): {field} "
+                                                 f"differs from the plain version")
+            s_ms = cuda_ms(lambda: scan_ops.split_scan_block(acc_t, fm, init_carry(k, S, C, dev), 0))
+            sp_ms = cuda_ms(lambda: split_scan_block_ref(acc_t, fm, init_carry(k, S, C, dev), 0),
+                            reps=2, warmup=1)
+            carry_scan[shape] = {"ms": s_ms, "plain_ms": sp_ms,
+                                 "blocks": len(xb_dev) if shape == "level 0" else 1}
+            log(f"split scan on the carry [{k}, {S}, {F}, {B}, {C}] ({shape}, "
+                f"{carry_scan[shape]['blocks']} block(s) added): all five fields bitwise equal to the "
+                f"plain version; call {s_ms:.4f} ms, plain {sp_ms:.4f} ms")
+            del ck, cp
+        del acc_t
+        # dimension reduction's root histogram: S = 1, samples in index order
+        root = torch.zeros((k, 1, F, B, C), device=dev)
+        root_want = torch.zeros_like(root)
+        for xb_b, base_b, w_b in zip(xb_dev, base_dev, w_dev):
+            slot0 = torch.zeros(w_b.shape, dtype=torch.int32, device=dev)
+            hist_ops.multi_tree_hist(xb_b, base_b, w_b, slot0, n_slots=1, n_bins=B, out=root)
+            root_want += multi_tree_hist_ref(xb_b, base_b, w_b, slot0, n_slots=1, n_bins=B)
+        check(torch.equal(root, root_want), "S = 1 root histogram over the blocks != plain")
+        slot0 = torch.zeros(w0.shape, dtype=torch.int32, device=dev)
+        root_ms = cuda_ms(lambda: hist_ops.multi_tree_hist(xb0, base0, w0, slot0, n_slots=1, n_bins=B,
+                                                           out=root))
+        block_hist["root (S = 1)"] = {"ms": root_ms}
+        log(f"dimension reduction's root histogram (S = 1) added over {len(xb_dev)} blocks: bitwise equal "
+            f"to the plain version; one block {root_ms:.4f} ms")
+        del root, root_want, xb_dev, base_dev, w_dev, deep
+        torch.cuda.empty_cache()
+        return {"launches": counts, "main_path_s": t_main, "exact_replay_s": t_exact, "accuracy": acc,
+                "peak_bytes": peak, "bytes_held_before": base_bytes, "stages_s": stages,
+                "growth_levels_s": gstats["levels_s"], "feed_wait_s": gstats["feed_wait_s"],
+                "feed_retries": gstats["retries"], "feed_turns": feed_turns, "block_hist": block_hist,
+                "carry_split_scan": carry_scan, "sample_block": nb}
+    finally:
+        del x_mm
+        path.unlink(missing_ok=True)
+
+
 def traverse_batch_ab(src: str) -> int:
     """``--traverse-ab``: the traversal at a 256-row request batch, alone
     (F 128, 32 trees, depth 8, P 2050, C 4: the smoke forest's shape, a
@@ -806,6 +1047,25 @@ def main() -> int:
         check(torch.equal(ck[i], cp[i]), f"split scan carry field {i} differs")
     torch.testing.assert_close(ck[0], cp[0], rtol=1e-6, atol=0)
     log(f"split scan: winners and counts identical over 3 slabs, gain max|d| {max_abs(ck[0], cp[0]):.3g}")
+    # past shared memory's class limits: both kernels take the class axis in tiles
+    Nw, Fw, Sw, Bw, Cw = 20_011, 6, 5, 256, 300
+    xw = torch.from_numpy(rng.integers(0, Bw, (Nw, Fw)).astype(np.uint8)).to(dev)
+    basew = class_channels(torch.from_numpy(rng.integers(0, Cw, Nw)).to(dev), Cw)
+    ww = torch.from_numpy(rng.integers(0, 4, (tc, Nw)).astype(np.float32)).to(dev)
+    slotw = torch.from_numpy(rng.integers(-1, Sw, (tc, Nw)).astype(np.int32)).to(dev)
+    hpw = multi_tree_hist_ref(xw, basew, ww, slotw, n_slots=Sw, n_bins=Bw)
+    check(torch.equal(hist_ops.multi_tree_hist(xw, basew, ww, slotw, n_slots=Sw, n_bins=Bw), hpw),
+          f"class-tiled histogram (B {Bw}, C {Cw}) != plain")
+    maskw = torch.from_numpy(rng.random((tc, Fw)) > 0.2).to(dev)
+    ckw = cpw = init_carry(tc, Sw, Cw, dev)
+    for f0, f1 in ((0, 4), (4, Fw)):
+        ckw = scan_ops.split_scan_block(hpw[:, :, f0:f1], maskw[:, f0:f1], ckw, f0)
+        cpw = split_scan_block_ref(hpw[:, :, f0:f1], maskw[:, f0:f1], cpw, f0)
+    for i in range(5):
+        check(torch.equal(ckw[i], cpw[i]), f"class-tiled split scan (B {Bw}, C {Cw}): field {i} differs")
+    log(f"class tiles at B {Bw}, C {Cw}: histogram (tiles of {hist_ops.class_tile(Bw, Cw)} classes) "
+        f"and split scan (tiles of {scan_ops.class_tile(Bw, Cw)}, every carry field) bitwise equal to "
+        f"the plain versions")
 
     xf = make_classification(n_samples=N, n_features=F, n_classes=C, seed=1)
     small = train_prf(xf[0], xf[1], ForestConfig(n_trees=32, max_depth=8, n_bins=B, n_classes=C,
@@ -1027,6 +1287,11 @@ def main() -> int:
                        "src/repro/kernels/tree_traverse/kernel.py:124", counts["tree_traverse"],
                        max_abs(tk, tp), t, p_ms, nbytes, nops, None)
 
+    # 5b. full size, streamed -----------------------------------------------------
+    streamed = streamed_phase(dev, xtr, ytr, xte, yte, wt, u, rcfg, model, pred)
+    for row in rows:
+        row["launches_streamed"] = streamed["launches"].get(row["name"])
+
     # 6. full size, LM serving ----------------------------------------------------
     lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
@@ -1040,11 +1305,12 @@ def main() -> int:
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
-              "timings": timings}
+              "streamed": streamed, "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     log("launch counts on the main path: " + json.dumps(counts))
+    log("launch counts on the streamed path: " + json.dumps(streamed["launches"]))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

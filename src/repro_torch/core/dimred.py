@@ -9,11 +9,15 @@ uniformly from the rest.
 The uniform draws ``u [k, F]`` are an input (the reference draws them
 inside ``select_features`` from its key), so tests can hand in the
 reference's draws. Ranks use stable sorts, as JAX's sort is stable.
+``dimension_reduction_streamed`` builds the root histograms block by
+block from a ``BlockFeeder`` (the streaming data plane).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..device import as_tensor, host_array, resolve_device
 from .gain import multiway_gain_ratio, variable_importance
 from .histograms import class_channels, hist_feature_slab, level_histograms
 from .types import ForestConfig
@@ -65,3 +69,42 @@ def dimension_reduction(x_binned, y, weights, config: ForestConfig, u) -> torch.
     cfg = config.resolved(x_binned.shape[1])
     gr = root_gain_ratios(x_binned, y, weights, cfg)
     return select_features(gr, u, n_selected=cfg.n_selected, n_important=cfg.n_important)
+
+
+def dimension_reduction_streamed(x_binned, y, weights, config: ForestConfig, u, *,
+                                 prefetch: int = 2, device=None) -> torch.Tensor:
+    """Alg. 3.1 over host sample blocks (reference:
+    ``repro/core/dimred.py:dimension_reduction_streamed``). The root
+    histogram is a sum over samples, so each block adds into one
+    ``[k, 1, F, B, C]`` carry (``out=``); with integer DSI counts it is
+    exact, and the mask equals ``dimension_reduction``'s bitwise (the
+    gain ratio is per feature, so scoring all F at once matches the
+    resident slab sweep). ``x_binned``: an ``[N, F]`` array or memmap
+    (sliced per ``config.sample_block``) or a list of ``[Nb, F]``
+    blocks; ``u [k, F]``: the selection's uniform draws. Returns the
+    mask [k, F] on ``device`` (default ``cuda``)."""
+    from ..data.pipeline import BlockFeeder, stream_blocks
+
+    dev = resolve_device(device)
+    y_np = host_array(y)
+    w_np = host_array(weights).astype(np.float32, copy=False)
+    blocks = stream_blocks(x_binned, config.sample_block, what="dimension_reduction_streamed",
+                           n_y=y_np.shape[0], n_w=w_np.shape[1])
+    feeder = BlockFeeder(blocks, placement=dev, prefetch=prefetch)
+    F = blocks[0].shape[1]
+    cfg = config.resolved(F)
+    k = w_np.shape[0]
+    hist = torch.zeros((k, 1, F, cfg.n_bins, cfg.n_classes), dtype=torch.float32, device=dev)
+    o = 0
+    with feeder:
+        for xb_b in feeder.sweep():
+            n = xb_b.shape[0]
+            w_b = feeder.pin(w_np[:, o:o + n])
+            slot0 = torch.zeros(w_b.shape, dtype=torch.int32, device=dev)
+            level_histograms(xb_b, class_channels(feeder.pin(y_np[o:o + n]), cfg.n_classes), w_b,
+                             slot0, n_slots=1, n_bins=cfg.n_bins, backend=cfg.hist_backend,
+                             out=hist)
+            o += n
+    gr = multiway_gain_ratio(hist[:, 0])                 # [k, F]
+    return select_features(gr, as_tensor(u, dev, torch.float32), n_selected=cfg.n_selected,
+                           n_important=cfg.n_important)

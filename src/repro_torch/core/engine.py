@@ -22,9 +22,11 @@ small`` from the cache of the level before, and all k trees go in one
 task group, as in the reference. On CUDA it runs the same two kernels
 per feature slab (``fused_level_scores`` with the cache).
 
-Not ported here, and refused with ``NotImplementedError``: the mesh and
-multi-process planes, sample-block streaming and checkpointed growth
-(ROADMAP.md Queue 1 items 7-10).
+With ``config.sample_block > 0`` every level histogram is accumulated
+over row blocks (``blocked_level_histograms``), and the streaming data
+plane (``core/api.grow_forest_streamed``) runs one ``stream_block_step``
+per (block, level). Not ported here: the mesh and multi-process planes
+and checkpointed growth (ROADMAP.md Queue 1 items 8-10).
 """
 from __future__ import annotations
 
@@ -34,8 +36,8 @@ import torch
 
 from .gain import SplitScores, level_scores, node_counts, resolve_split_backend, sibling_plan
 from .histograms import (
-    SlotOrder, hist_feature_slab, level_histograms, sibling_expand, sibling_perm,
-    sibling_segments, slot_order,
+    blocked_level_histograms, block_slot_orders, hist_feature_slab, level_histograms,
+    sibling_expand, sibling_perm, sibling_segments, slot_order,
 )
 from .types import Forest, ForestConfig, GrowthState
 
@@ -82,18 +84,6 @@ def _rank_splits(gain: torch.Tensor, valid: torch.Tensor, n_max: int) -> torch.T
     return torch.where(admitted, pos, torch.full_like(pos, -1))
 
 
-def check_ported(config: ForestConfig) -> None:
-    """Refuse, by name, every path this slice of the port does not run."""
-    if config.sample_block > 0:
-        raise NotImplementedError(
-            "sample_block > 0 (streaming data plane) is not ported yet: ROADMAP.md Queue 1 item 7"
-        )
-    if config.resolved_bin_fit() == "blocked":
-        raise NotImplementedError(
-            "bin_fit='blocked' (streaming quantile sketch) is not ported yet: ROADMAP.md Queue 1 item 7"
-        )
-
-
 class CollectivePlane:
     """The engine's collective protocol — identity ops on a single device."""
 
@@ -118,15 +108,17 @@ class LocalPlane(CollectivePlane):
 
 
 def _level_hists(x_binned, base_channels, w_c, slot_c, config: ForestConfig,
-                 order: Optional[SlotOrder] = None, n_slots: Optional[int] = None):
-    """One chunk's level histogram. ``n_slots`` overrides the frontier
-    width (the reuse path histograms into R rank segments instead)."""
-    return level_histograms(
-        x_binned, base_channels, w_c, slot_c,
-        n_slots=config.frontier if n_slots is None else n_slots, n_bins=config.n_bins,
-        packed=config.packed_hist and not config.regression,
-        backend=config.hist_backend, order=order,
-    )
+                 order=None, n_slots: Optional[int] = None):
+    """One chunk's level histogram, accumulated over sample blocks when
+    ``config.sample_block`` asks for it (``order`` is then the list of
+    per-block groupings). ``n_slots`` overrides the frontier width (the
+    reuse path histograms into R rank segments instead)."""
+    kw = dict(n_slots=config.frontier if n_slots is None else n_slots, n_bins=config.n_bins,
+              packed=config.packed_hist and not config.regression, backend=config.hist_backend)
+    if config.sample_block > 0:
+        return blocked_level_histograms(x_binned, base_channels, w_c, slot_c,
+                                        sample_block=config.sample_block, orders=order, **kw)
+    return level_histograms(x_binned, base_channels, w_c, slot_c, order=order, **kw)
 
 
 def fused_level_scores(
@@ -142,7 +134,8 @@ def fused_level_scores(
     split scan folds it into the running-best carry. Peak histogram
     footprint is one ``[tc, S, W, B, C]`` slab. The histogram kernel's
     grouping of samples by slot is made once here, for the level, and
-    shared by every slab. Returns (SplitScores, n_node [tc, S]).
+    shared by every slab (one grouping per sample block with
+    ``config.sample_block > 0``). Returns (SplitScores, n_node [tc, S]).
 
     With the reuse ``cache`` (the reference's ``fused_reuse_level_scores``)
     ``sample_slot`` holds rank segments: each slab is the small-child
@@ -164,7 +157,10 @@ def fused_level_scores(
         feature_mask if feature_mask is not None
         else torch.ones((tc, F), dtype=torch.bool, device=x_binned.device)
     )
-    order = slot_order(sample_slot, weights, n_slots)
+    if config.sample_block > 0:
+        order = block_slot_orders(sample_slot, weights, n_slots, config.sample_block)
+    else:
+        order = slot_order(sample_slot, weights, n_slots)
     carry = init_carry(tc, S, C, x_binned.device)
     if cache is not None:
         hist2 = torch.empty((tc, S, F, B, C), dtype=torch.float32, device=x_binned.device)
@@ -407,6 +403,34 @@ def route_level(x_binned, sample_slot, split_rank, scores: SplitScores,
     go_right = plane.broadcast_route(x_binned, f_i, thr_i)
     routed = 2 * rank_i + go_right
     return torch.where(live & (rank_i >= 0), routed, -1).to(torch.int32)
+
+
+def stream_block_step(hist_acc, xb_b, base_b, w_b, slot_b, slot_node, split_rank,
+                      scores: Optional[SplitScores], config: ForestConfig,
+                      plane: CollectivePlane, *, route: bool, small_right=None):
+    """One (block, level) step of the streaming data plane (reference:
+    ``repro/core/engine.py:stream_block_step``): route the block's samples
+    from the previous level's plan (``route``: from level 1 on), then add
+    the block's histogram into this level's carry ``hist_acc`` in place
+    (``out=``; the kernel's atomics flush straight into it). The slot
+    table ``slot_b`` stays on the device across levels. With
+    ``small_right`` (histogram reuse) the block goes into the packed R
+    rank segments and ``hist_acc`` is ``[k, R, F, B, C]``. Returns
+    ``(hist_acc, routed slot_b)``."""
+    if route:
+        slot_b = route_level(xb_b, slot_b, split_rank, scores, plane)
+    tree_live = (slot_node >= 0).any(dim=1)
+    w_lvl = w_b * tree_live[:, None].to(w_b.dtype)
+    if small_right is None:
+        slots, n_slots = slot_b, config.frontier
+    else:
+        slots, n_slots = sibling_segments(slot_b, small_right), config.max_splits_per_level
+    level_histograms(
+        xb_b, base_b, w_lvl, slots, n_slots=n_slots, n_bins=config.n_bins,
+        packed=config.packed_hist and not config.regression, backend=config.hist_backend,
+        out=hist_acc,
+    )
+    return hist_acc, slot_b
 
 
 def next_frontier(is_split, child_base: int, n_slots: int) -> torch.Tensor:

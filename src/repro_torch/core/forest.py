@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 
 from ..device import as_tensor, resolve_device
-from .engine import LocalPlane, _gather_feature_bins, check_ported, grow
+from .engine import LocalPlane, _gather_feature_bins, grow
 from .histograms import class_channels, regression_channels
 from .types import Forest, ForestConfig
 
@@ -30,7 +30,6 @@ def grow_forest(
     runs on ``cuda`` unless ``device="cpu"``."""
     dev = resolve_device(device)
     xb = as_tensor(x_binned, dev, torch.uint8).contiguous()
-    check_ported(config)
     y_t = as_tensor(y, dev)
     w = as_tensor(weights, dev, torch.float32).contiguous()
     mask = None if feature_mask is None else as_tensor(feature_mask, dev, torch.bool)

@@ -280,6 +280,8 @@ def resolve_split_backend(backend: str, device: torch.device) -> str:
     """'auto' -> 'pallas' (CUDA kernel) for CUDA tensors, 'xla' (plain) on the CPU.
 
     Forcing 'pallas' for CPU tensors raises: the kernel has no CPU form.
+    The kernel takes every histogram shape (a class axis too wide for
+    its shared memory goes in tiles), so no shape leaves the kernel.
     """
     if backend not in SPLIT_BACKENDS:
         raise ValueError(f"split_backend={backend!r} not in {SPLIT_BACKENDS}")

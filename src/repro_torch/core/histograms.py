@@ -8,6 +8,12 @@ dimension reduction). Backends, by ``ForestConfig.hist_backend``:
 * ``"segment_sum"`` — its plain PyTorch version (``kernels/gain_ratio/ref.py``);
 * ``"auto"``        — the kernel for CUDA tensors, the plain version on the CPU.
 
+The kernel takes every shape: a class axis whose ``[B, C]`` histogram
+does not fit its shared memory (C >= 227 at B 256, the paper's
+hundreds-of-classes datasets) goes in class tiles
+(``kernels/gain_ratio/ops.class_tile``), so ``"auto"`` on CUDA always
+resolves to the kernel.
+
 The per-tree DSI weight multiply is applied inside the per-tree step, so
 the ``[k, N, C]`` weighted-channel tensor never exists. A feature slab is
 a column slice view of the ``[N, F]`` bins (no copy); its histogram
@@ -18,7 +24,7 @@ makes the grouping once and passes it to each.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -61,11 +67,13 @@ def level_histograms(
     packed: bool = False,
     backend: str = "auto",
     order: Optional[SlotOrder] = None,   # slot_order(sample_slot, weights, n_slots)
+    out: Optional[torch.Tensor] = None,  # [k, S, F, B, C] float32 to add into
 ) -> torch.Tensor:
     """hist[t,s,f,b,c] = sum_i w[t,i] * base[i,c] * [slot_i = s] * [x_if = b].
 
-    Returns [k, S, F, B, C] float32. ``order`` only steers the kernel;
-    the plain version gives the same histogram without it.
+    Returns [k, S, F, B, C] float32, or ``out`` with the histogram added
+    into it. ``order`` only steers the kernel; the plain version gives
+    the same histogram without it.
     """
     backend = resolve_backend(backend, x_binned.device)
     if backend == "pallas":
@@ -73,14 +81,61 @@ def level_histograms(
 
         return multi_tree_hist(
             x_binned, base_channels, weights, sample_slot,
-            n_slots=n_slots, n_bins=n_bins, packed=packed, order=order,
+            n_slots=n_slots, n_bins=n_bins, packed=packed, order=order, out=out,
         )
     from ..kernels.gain_ratio.ref import multi_tree_hist_ref
 
-    return multi_tree_hist_ref(
+    hist = multi_tree_hist_ref(
         x_binned, base_channels, weights, sample_slot,
         n_slots=n_slots, n_bins=n_bins, packed=packed,
     )
+    return hist if out is None else out.add_(hist)
+
+
+def blocked_level_histograms(
+    x_binned: torch.Tensor,      # [N, F] uint8
+    base_channels: torch.Tensor, # [N, C]
+    weights: torch.Tensor,       # [k, N]
+    sample_slot: torch.Tensor,   # [k, N] int32, -1 = parked
+    *,
+    n_slots: int,
+    n_bins: int,
+    sample_block: int,
+    packed: bool = False,
+    backend: str = "auto",
+    orders: Optional[Sequence[SlotOrder]] = None,   # block_slot_orders(...)
+) -> torch.Tensor:
+    """``level_histograms`` accumulated over ``[sample_block, F]`` row
+    blocks, each added into one carry (``out=``): the resumable
+    sample-axis carry of the T_GR stage (reference:
+    ``repro/core/histograms.py:blocked_level_histograms``). Exact for
+    integer counts (every partial sum an exact float below 2^24), so it
+    equals ``level_histograms`` bitwise for classification; regression
+    channels agree to rounding. The remainder block is a shorter slice:
+    both the kernel and the plain version take any N (the reference pads
+    it with parked samples, which add nothing). ``orders`` hands in each
+    block's slot grouping for the kernel."""
+    N, F = x_binned.shape
+    k = weights.shape[0]
+    acc = torch.zeros((k, n_slots, F, n_bins, base_channels.shape[-1]),
+                      dtype=torch.float32, device=x_binned.device)
+    for j, r0 in enumerate(range(0, N, sample_block)):
+        r1 = min(r0 + sample_block, N)
+        level_histograms(
+            x_binned[r0:r1], base_channels[r0:r1], weights[:, r0:r1], sample_slot[:, r0:r1],
+            n_slots=n_slots, n_bins=n_bins, packed=packed, backend=backend,
+            order=None if orders is None else orders[j], out=acc,
+        )
+    return acc
+
+
+def block_slot_orders(sample_slot: torch.Tensor, weights: torch.Tensor, n_slots: int,
+                      sample_block: int) -> list:
+    """``slot_order`` of each ``sample_block``-row block, made once a level
+    and shared by every feature slab of ``blocked_level_histograms``."""
+    N = sample_slot.shape[1]
+    return [slot_order(sample_slot[:, r0:r0 + sample_block], weights[:, r0:r0 + sample_block],
+                       n_slots) for r0 in range(0, N, sample_block)]
 
 
 # Sibling-subtraction reuse (ForestConfig.hist_reuse). Only the *smaller*

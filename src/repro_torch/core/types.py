@@ -46,8 +46,8 @@ class ForestConfig:
     # task-parallel execution knobs (§4.2)
     tree_chunk: int = 0               # trees processed per level-step (0 => all)
     early_exit: bool = True           # stop once every frontier is empty
-    sample_block: int = 0             # streaming plane (not ported: raises)
-    bin_fit: str = "auto"             # exact | blocked (not ported) | auto
+    sample_block: int = 0             # rows per block of the streaming plane (0: resident)
+    bin_fit: str = "auto"             # exact | blocked (streaming sketch) | auto
     regression: bool = False
     packed_hist: bool = False         # class index folded into the histogram index
     hist_reduce: str = "psum"         # mesh plane only (not ported)

@@ -10,11 +10,19 @@ backends, by ``ForestConfig.predict_backend``:
 * ``"auto"``   — the kernel for CUDA tensors, the plain path on the CPU.
 
 Both vote with the same per-node payloads (tree weight folded in), so the
-labels agree.
+labels agree. The ``*_streamed`` functions run OOB weights and
+prediction over sample blocks from a ``BlockFeeder`` (the streaming data
+plane); both are per sample, so they equal the resident calls bitwise.
+The streamed regression functions (``oob_r2_streamed``,
+``predict_regression_streamed``) come with end-to-end regression
+(ROADMAP.md Queue 1 item 5).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..device import host_array
 
 from .forest import fused_vote_scores, predict_proba_trees, predict_value_trees
 from .types import Forest
@@ -33,26 +41,39 @@ def resolve_predict_backend(backend: str, device: torch.device) -> str:
     return backend
 
 
-def oob_accuracy(forest: Forest, x_binned, y, weights) -> torch.Tensor:
-    """Eq. (8): CA_i = #correct / #OOB over OOB_i; 0.5 for an empty OOB set. [k]."""
+def _oob_counts(forest: Forest, x_binned, y, weights):
+    """(#correct, #OOB) per tree over these samples: Eq. (8)'s two sums."""
     pred = torch.argmax(predict_proba_trees(forest, x_binned), dim=-1)   # [k, N]
     oob = (weights == 0.0).to(torch.float32)
     correct = torch.sum(oob * (pred == y.long()[None]).to(torch.float32), dim=1)
-    total = torch.sum(oob, dim=1)
-    return torch.where(
-        total > 0, correct / torch.clamp_min(total, 1.0), torch.full_like(total, 0.5)
-    )
+    return correct, torch.sum(oob, dim=1)
+
+
+def _oob_ratio(correct: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    return torch.where(total > 0, correct / torch.clamp_min(total, 1.0), torch.full_like(total, 0.5))
+
+
+def oob_accuracy(forest: Forest, x_binned, y, weights) -> torch.Tensor:
+    """Eq. (8): CA_i = #correct / #OOB over OOB_i; 0.5 for an empty OOB set. [k]."""
+    return _oob_ratio(*_oob_counts(forest, x_binned, y, weights))
 
 
 def weighted_vote(probs: torch.Tensor, tree_weight: torch.Tensor, *, soft: bool = False) -> torch.Tensor:
-    """Eq. (10): scores [N, C] = sum_i w_i * h_i(x) (hard: one-hot of argmax)."""
+    """Eq. (10): scores [N, C] = sum_i w_i * h_i(x) (hard: one-hot of argmax).
+
+    The trees are added one by one, in order, as the traversal kernel adds
+    them: a sample's scores then do not depend on the batch it came in
+    (``torch.sum`` over the tree axis may group the terms by batch shape),
+    so a streamed prediction equals the resident one bitwise."""
     w = tree_weight[:, None, None]
-    if soft:
-        return torch.sum(w * probs, dim=0)
-    votes = torch.nn.functional.one_hot(
+    votes = probs if soft else torch.nn.functional.one_hot(
         torch.argmax(probs, -1), probs.shape[-1]
     ).to(probs.dtype)
-    return torch.sum(w * votes, dim=0)
+    terms = w * votes
+    out = terms[0].clone()
+    for t in range(1, terms.shape[0]):
+        out += terms[t]
+    return out
 
 
 def weighted_regression(values: torch.Tensor, tree_weight: torch.Tensor, *,
@@ -132,3 +153,59 @@ def predict_regression(forest: Forest, x_binned: torch.Tensor, *, backend=None) 
     else:
         num = torch.sum(w[:, None] * predict_value_trees(forest, x_binned), dim=0)
     return num / torch.clamp_min(w.sum(), 1e-38)
+
+
+# ---------------------------------------------------------------------------
+# Streamed OOB and prediction: the sample-block carriers of the data plane
+# ---------------------------------------------------------------------------
+
+
+def _block_feeder(x_binned, sample_block, prefetch, device, *, what, n_y=None, n_w=None):
+    """A ``BlockFeeder`` on ``device`` over a validated block list
+    (``pipeline.stream_blocks``: explicit sequences pass through, array
+    sources need ``sample_block > 0``, blocks must cover the caller's
+    label and weight lengths when given)."""
+    from ..data.pipeline import BlockFeeder, stream_blocks
+
+    return BlockFeeder(stream_blocks(x_binned, sample_block, what=what, n_y=n_y, n_w=n_w),
+                       placement=device, prefetch=prefetch)
+
+
+def oob_accuracy_streamed(forest: Forest, x_binned, y, weights, *,
+                          sample_block=None, prefetch: int = 2) -> torch.Tensor:
+    """Eq. (8) accumulated over sample blocks, on the forest's device:
+    ``#correct`` and ``#OOB`` are sums of 0/1 floats (exact integers), so
+    the result equals ``oob_accuracy`` bitwise."""
+    y_np = host_array(y)
+    w_np = host_array(weights).astype(np.float32, copy=False)
+    feeder = _block_feeder(x_binned, sample_block, prefetch, forest.device,
+                           what="oob_accuracy_streamed", n_y=y_np.shape[0], n_w=w_np.shape[1])
+    k = w_np.shape[0]
+    correct = torch.zeros((k,), dtype=torch.float32, device=forest.device)
+    total = torch.zeros_like(correct)
+    o = 0
+    with feeder:
+        for xb_b in feeder.sweep():
+            n = xb_b.shape[0]
+            c, t = _oob_counts(forest, xb_b, feeder.pin(y_np[o:o + n]),
+                               feeder.pin(w_np[:, o:o + n]))
+            correct, total = correct + c, total + t
+            o += n
+    return _oob_ratio(correct, total)
+
+
+def predict_scores_streamed(forest: Forest, x_binned, *, sample_block=None, backend=None,
+                            prefetch: int = 2) -> torch.Tensor:
+    """``predict_scores`` over sample blocks: per sample, so bitwise the
+    resident call; only the ``[N, C]`` scores (never ``[N, F]``) exist."""
+    feeder = _block_feeder(x_binned, sample_block, prefetch, forest.device,
+                           what="predict_scores_streamed")
+    with feeder:
+        return torch.cat([predict_scores(forest, xb_b, backend=backend) for xb_b in feeder.sweep()])
+
+
+def predict_streamed(forest: Forest, x_binned, *, sample_block=None, backend=None,
+                     prefetch: int = 2) -> torch.Tensor:
+    """Streamed classification labels [N] (bitwise ``predict``)."""
+    return torch.argmax(predict_scores_streamed(forest, x_binned, sample_block=sample_block,
+                                                backend=backend, prefetch=prefetch), dim=-1)

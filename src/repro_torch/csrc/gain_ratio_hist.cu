@@ -37,6 +37,15 @@
 // (one slot, as dimension reduction asks) the samples are taken in index
 // order and parked ones are skipped.
 //
+// A class axis too wide for one feature's [B, C] histogram in shared
+// memory is taken in tiles of Ct classes (`class_tile`, chosen by the
+// wrapper: kernels/gain_ratio/ops.class_tile): each block keeps the
+// [Wt, B, Ct] histogram of its tile and skips a one-channel sample whose
+// class lies outside it, so every class count still adds in shared memory
+// and flushes once per cell. Every shape whose histogram fits runs the
+// kernel above (hist_kernel<kPacked, false>: the tiling compiled out, as
+// its loop variables cost registers and occupancy).
+//
 // Arbitrary N and W need no padding; x may be a column slice of a wider
 // matrix (row stride ld); bin ids >= B are ignored. The DSI weights are
 // integers, so every entry is an exact float below 2^24 and any atomic
@@ -63,25 +72,31 @@ __device__ __forceinline__ void add(int* cell, float* gcell, float v, float int_
   else atomicAdd(gcell, v);
 }
 
-template <bool kPacked>
+// kTiled: the block holds classes [c0, c0 + nc) of C (z picks the tile);
+// else every class (z is the feature tile alone).
+template <bool kPacked, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict__ base,
             const float* __restrict__ w, const int* __restrict__ slot,
             const int* __restrict__ order, const int* __restrict__ seg,
             float* __restrict__ out, int N, int W, int S, int B, int C, int chunk, int wt,
-            float int_max) {
-  extern __shared__ int sh[];                     // [wt][B * C + 1]
+            int ct, int nct, int z0, float int_max) {
+  extern __shared__ int sh[];                     // [wt][B * ct + 1]
   const int t = blockIdx.x;
   const int p0 = blockIdx.y * chunk;
-  const int f0 = blockIdx.z * wt;
-  const int nf = min(wt, W - f0);
-  const int BC = B * C, row = BC + 1;
   const float* wt_t = w + (long long)t * N;
   const int* ord = order ? order + (long long)t * N : nullptr;
   const int* sg = order ? seg + (long long)t * (S + 1) : nullptr;
   const int total = sg ? sg[S] : N;
   if (p0 >= total) return;
   const int p1 = min(p0 + chunk, total);
+  const int z = z0 + blockIdx.z;                  // feature tile [* nct + class tile]
+  const int f0 = (kTiled ? z / nct : z) * wt;
+  const int c0 = kTiled ? (z % nct) * ct : 0;
+  const int nc = kTiled ? min(ct, C - c0) : C;    // this tile's classes: [c0, c0 + nc)
+  const int nf = min(wt, W - f0);
+  const int BC = B * C;                           // a feature's cells in the output
+  const int BCt = B * nc, row = BCt + 1;          // a feature's cells in shared memory
 
   for (int e = threadIdx.x; e < nf * row; e += kThreads) sh[e] = 0;
   int s = 0;                                      // the slot whose segment holds p0
@@ -145,41 +160,49 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
           cj[u] = __shfl_sync(0xffffffffu, cls, j0 + u);
         }
         // the eight bin loads go out before any atomic
+        // (a one-channel sample of a class outside this tile adds nothing)
 #pragma unroll
-        for (int u = 0; u < 8; ++u) b[u] = vj[u] != 0.0f && active ? x[(long long)ij[u] * ld + f] : B;
+        for (int u = 0; u < 8; ++u)
+          b[u] = vj[u] != 0.0f && active &&
+                         (!kTiled || cj[u] < 0 || (unsigned)(cj[u] - c0) < (unsigned)nc)
+                     ? x[(long long)ij[u] * ld + f] : B;
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           if (b[u] >= B) continue;
           if (cj[u] >= 0) {
-            add(my_row + b[u] * C + cj[u], my_g + b[u] * C + cj[u], vj[u], int_max);
+            add(my_row + b[u] * nc + cj[u] - c0, my_g + b[u] * C + cj[u], vj[u], int_max);
           } else {
             const float* bi = base + (long long)ij[u] * C;
-            for (int c = 0; c < C; ++c) {
+            for (int c = c0; c < c0 + nc; ++c) {
               const float vc = vj[u] * bi[c];
-              if (vc != 0.0f) add(my_row + b[u] * C + c, my_g + b[u] * C + c, vc, int_max);
+              if (vc != 0.0f) add(my_row + b[u] * nc + c - c0, my_g + b[u] * C + c, vc, int_max);
             }
           }
         }
       }
     }
     __syncthreads();
-    // flush this slot's cells: one global atomic per nonzero cell (per four with C % 4 == 0)
-    if (BC % 4 == 0) {
-      for (int e = threadIdx.x; e < nf * BC / 4; e += kThreads) {
-        const int fe = e / (BC / 4), r = 4 * (e - fe * (BC / 4));
+    // flush this slot's cells: one global atomic per nonzero cell (per four
+    // when four shared cells are four aligned output cells); shared cell r
+    // of a feature is output cell r, or in a class tile bin r / nc, class c0 + r % nc
+    if (!kTiled ? BC % 4 == 0 : nc % 4 == 0 && C % 4 == 0 && c0 % 4 == 0) {
+      for (int e = threadIdx.x; e < nf * BCt / 4; e += kThreads) {
+        const int fe = e / (BCt / 4), r = 4 * (e - fe * (BCt / 4));
         int* c = sh + fe * row + r;
         if (c[0] | c[1] | c[2] | c[3]) {
-          atomicAdd(reinterpret_cast<float4*>(og + (long long)fe * BC + r),
+          const int o = kTiled ? (r / nc) * C + c0 + r % nc : r;
+          atomicAdd(reinterpret_cast<float4*>(og + (long long)fe * BC + o),
                     make_float4((float)c[0], (float)c[1], (float)c[2], (float)c[3]));
           c[0] = c[1] = c[2] = c[3] = 0;
         }
       }
     } else {
-      for (int e = threadIdx.x; e < nf * BC; e += kThreads) {
-        const int fe = e / BC, r = e - fe * BC;
+      for (int e = threadIdx.x; e < nf * BCt; e += kThreads) {
+        const int fe = e / BCt, r = e - fe * BCt;
         int& c = sh[fe * row + r];
         if (c != 0) {
-          atomicAdd(og + (long long)fe * BC + r, (float)c);
+          const int o = kTiled ? (r / nc) * C + c0 + r % nc : r;
+          atomicAdd(og + (long long)fe * BC + o, (float)c);
           c = 0;
         }
       }
@@ -194,37 +217,49 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
 }  // namespace
 
 // x [N, ld] uint8 (W columns used), base [N, C], w and slot [tc, N], out
-// [tc, S, W, B, C] zeroed by the caller. order [tc, N] and seg [tc, S + 1]
-// (int32) group the live samples by slot; both null: index order, S must be 1.
+// [tc, S, W, B, C] zeroed by the caller (or a carry to add into). order
+// [tc, N] and seg [tc, S + 1] (int32) group the live samples by slot; both
+// null: index order, S must be 1. ct: classes a block holds (C, or a tile
+// of a class axis too wide for shared memory).
 extern "C" int prf_hist(const void* x, long long ld, const void* base, const void* w,
                         const void* slot, const void* order, const void* seg, void* out, int N,
-                        int W, int tc, int S, int B, int C, int packed, void* stream) {
+                        int W, int tc, int S, int B, int C, int packed, int ct, void* stream) {
   if (N <= 0 || W <= 0 || tc <= 0) return (int)cudaGetLastError();
-  if ((order == nullptr) != (seg == nullptr) || (order == nullptr && S != 1))
+  if ((order == nullptr) != (seg == nullptr) || (order == nullptr && S != 1) || ct < 1 || ct > C)
     return (int)cudaErrorInvalidValue;
-  const size_t row_bytes = ((size_t)B * C + 1) * sizeof(int);
+  const int nct = (C + ct - 1) / ct;
+  const size_t row_bytes = ((size_t)B * ct + 1) * sizeof(int);
   int wt = W < kMaxTile ? W : kMaxTile;
   if (wt * row_bytes > kSmemTarget) wt = (int)(kSmemTarget / row_bytes);
   if (wt < 1) wt = 1;
   const size_t smem = wt * row_bytes;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  auto kernel = packed ? hist_kernel<true> : hist_kernel<false>;
+  const bool tiled = nct > 1;
+  auto kernel = packed ? (tiled ? hist_kernel<true, true> : hist_kernel<true, false>)
+                       : (tiled ? hist_kernel<false, true> : hist_kernel<false, false>);
   if (smem > kSmemTarget) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int ftiles = (W + wt - 1) / wt;
-  long long chunks = kTargetBlocks / ((long long)tc * ftiles);
+  const long long ntiles = (long long)((W + wt - 1) / wt) * nct;
+  long long chunks = kTargetBlocks / ((long long)tc * ntiles);
   if (chunks < 1) chunks = 1;
   long long chunk = (N + chunks - 1) / chunks;
   if (chunk < 1024) chunk = 1024;
   if ((N + chunk - 1) / chunk > 65535) chunk = (N + 65534) / 65535;
-  dim3 grid((unsigned)tc, (unsigned)((N + chunk - 1) / chunk), (unsigned)ftiles);
   // a block adds at most `chunk` contributions to a cell: keep int sums below 2^31
   const float int_max = (float)(2147483647LL / chunk < 32767 ? 2147483647LL / chunk : 32767);
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)x, ld, (const float*)base, (const float*)w, (const int*)slot,
-      (const int*)order, (const int*)seg, (float*)out, N, W, S, B, C, (int)chunk, wt, int_max);
-  return (int)cudaGetLastError();
+  // (feature tile, class tile) pairs past the grid's z extent take further launches
+  for (long long z0 = 0; z0 < ntiles; z0 += 65535) {
+    const long long nz = ntiles - z0 < 65535 ? ntiles - z0 : 65535;
+    dim3 grid((unsigned)tc, (unsigned)((N + chunk - 1) / chunk), (unsigned)nz);
+    kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)x, ld, (const float*)base, (const float*)w, (const int*)slot,
+        (const int*)order, (const int*)seg, (float*)out, N, W, S, B, C, (int)chunk, wt, ct, nct,
+        (int)z0, int_max);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -44,6 +44,19 @@
 // features in sequence, three __syncthreads each, every feature read) took
 // 2.635 ms at the PRF main path's level-0 slab on an NVIDIA H100 80GB HBM3
 // at 700 W (chip_smoke.py).
+//
+// A class axis too wide for a warp's [B, C | 1] buffer (classification
+// only: regression has 3 channels) takes split_scan_wide_kernel: the warp
+// loads the feature's classes in tiles of Ct (`class_tile`, chosen by the
+// wrapper: kernels/split_scan/ops.class_tile) and passes over them twice.
+// Pass one sums, for each of the lane's thresholds (at most 8: B <= 256),
+// the left and right counts and the node's total, class by class in
+// order; pass two reloads and rescans each tile (prefix sums of integer
+// counts are exact, so the values are the same) and sums the entropies'
+// x log x terms in the same order, divided by pass one's sums. The running
+// sums live in registers and every sum runs over the classes left to
+// right, as in the one-buffer kernel, so the gains stay bitwise the plain
+// version's.
 #include <cfloat>
 #include <climits>
 #include <cmath>
@@ -124,6 +137,74 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// In-place prefix sum over the bins of a warp's [B, Cp]-strided buffer,
+// channels [0, C): a warp shuffle scan per channel, exact on integer counts.
+__device__ __forceinline__ void scan_bins(float* cum, int B, int C, int Cp, int lane) {
+  for (int c = 0; c < C; ++c) {
+    float carry = 0.0f;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      const int b = b0 + lane;
+      float incl = b < B ? cum[b * Cp + c] : 0.0f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float n = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += n;
+      }
+      if (b < B) cum[b * Cp + c] = carry + incl;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+  }
+}
+
+// The warp's best (gain, flat index) over the slab, folded into the carry of
+// slot ts: "strictly greater, or carry feature < 0"; the winner's left and
+// right counts summed again from its histogram h (the slot's [W, B, C]).
+__device__ void fold_winner(float best_g, int best_i, const float* h, int f_base, float* gain,
+                            int* feat, int* thr_out, float* left_out, float* right_out, int ts,
+                            int B, int C, int regression, int lane) {
+  const int nthr = B - 1;
+  const long long BC = (long long)B * C;
+  // argmax over (gain, index), ties to the lower index
+  warp_best(best_g, best_i);
+  if (best_g == -INFINITY) best_i = 0;     // the argmax of all -inf is the first candidate
+  if (!(best_g > gain[ts] || feat[ts] < 0)) return;
+  const int fl = best_i / nthr;
+  const int th = best_i - fl * nthr;
+  if (lane == 0) {
+    gain[ts] = best_g;
+    feat[ts] = f_base + fl;
+    thr_out[ts] = th;
+  }
+  const float* hf = h + (long long)fl * BC;
+  if (regression) {
+    if (lane < C) {
+      float acc = hf[lane];
+      float lc = acc;
+      for (int b = 1; b < B; ++b) {
+        acc = acc + hf[b * C + lane];
+        if (b == th) lc = acc;
+      }
+      left_out[(long long)ts * C + lane] = lc;
+      right_out[(long long)ts * C + lane] = acc - lc;
+    }
+    return;
+  }
+  for (int c = 0; c < C; ++c) {
+    float lsum = 0.0f, tsum = 0.0f;
+    for (int b = lane; b < B; b += 32) {
+      const float v = hf[b * C + c];
+      tsum += v;
+      if (b <= th) lsum += v;
+    }
+    lsum = warp_sum(lsum);
+    tsum = warp_sum(tsum);
+    if (lane == 0) {
+      left_out[(long long)ts * C + c] = lsum;
+      right_out[(long long)ts * C + c] = tsum - lsum;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kMaxWarps * 32)
 split_scan_kernel(const float* __restrict__ hist, const uint8_t* __restrict__ mask, int f_base,
                   float* gain, int* feat, int* thr_out, float* left_out, float* right_out, int TS,
@@ -180,20 +261,7 @@ split_scan_kernel(const float* __restrict__ hist, const uint8_t* __restrict__ ma
           }
         }
       } else {
-        for (int c = 0; c < C; ++c) {
-          float carry = 0.0f;
-          for (int b0 = 0; b0 < B; b0 += 32) {
-            const int b = b0 + lane;
-            float incl = b < B ? cum[b * Cp + c] : 0.0f;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-              const float n = __shfl_up_sync(0xffffffffu, incl, o);
-              if (lane >= o) incl += n;
-            }
-            if (b < B) cum[b * Cp + c] = carry + incl;
-            carry += __shfl_sync(0xffffffffu, incl, 31);
-          }
-        }
+        scan_bins(cum, B, C, Cp, lane);
       }
       __syncwarp();
       const float* tot = cum + (B - 1) * Cp;
@@ -230,74 +298,159 @@ split_scan_kernel(const float* __restrict__ hist, const uint8_t* __restrict__ ma
     }
   }
 
-  // argmax over (gain, index), ties to the lower index
-  warp_best(best_g, best_i);
-  if (best_g == -INFINITY) best_i = 0;     // the argmax of all -inf is the first candidate
-  if (!(best_g > gain[ts] || feat[ts] < 0)) return;
-  const int fl = best_i / nthr;
-  const int th = best_i - fl * nthr;
-  if (lane == 0) {
-    gain[ts] = best_g;
-    feat[ts] = f_base + fl;
-    thr_out[ts] = th;
-  }
-  const float* hf = h + (long long)fl * BC;
-  if (regression) {
-    if (lane < C) {
-      float acc = hf[lane];
-      float lc = acc;
-      for (int b = 1; b < B; ++b) {
-        acc = acc + hf[b * C + lane];
-        if (b == th) lc = acc;
+  fold_winner(best_g, best_i, h, f_base, gain, feat, thr_out, left_out, right_out, ts, B, C,
+              regression, lane);
+}
+
+constexpr int kMaxThrPerLane = 8;        // B - 1 <= 255 thresholds over 32 lanes
+
+// Classification with C classes in tiles of Ct (see the note at the top).
+__global__ void __launch_bounds__(kMaxWarps * 32)
+split_scan_wide_kernel(const float* __restrict__ hist, const uint8_t* __restrict__ mask,
+                       int f_base, float* gain, int* feat, int* thr_out, float* left_out,
+                       float* right_out, int TS, int S, int W, int B, int C, int Ct) {
+  extern __shared__ float sh[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int ts = blockIdx.x * (blockDim.x / 32) + warp;
+  if (ts >= TS) return;
+  const int Cp = Ct | 1;
+  float* cum = sh + warp * B * Cp;
+  const int t = ts / S;
+  const long long BC = (long long)B * C;
+  const float* h = hist + (long long)ts * W * BC;
+  const int nthr = B - 1;
+  float best_g = -INFINITY;
+  int best_i = INT_MAX;
+
+  // loads classes [c0, c0 + nc) of feature row hf into the buffer, prefix-summed over bins
+  auto load_tile = [&](const float* hf, int c0, int nc, bool& nonzero) {
+    __syncwarp();                  // the last tile's readers are done
+    for (int j = lane; j < B * nc; j += 32) {
+      const int b = j / nc, c = j - b * nc;
+      const float v = __ldg(hf + (long long)b * C + c0 + c);
+      cum[b * Cp + c] = v;
+      nonzero |= v != 0.0f;
+    }
+    __syncwarp();
+    scan_bins(cum, B, nc, Cp, lane);
+    __syncwarp();
+  };
+
+  for (int f0 = 0; f0 < W; f0 += 32) {
+    unsigned todo = __ballot_sync(0xffffffffu, f0 + lane < W && mask[(long long)t * W + f0 + lane]);
+    while (todo) {
+      const int f = f0 + __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float* hf = h + (long long)f * BC;
+      // pass one: n (node), n_l and n_r (each threshold), class by class
+      float n = 0.0f, nl[kMaxThrPerLane] = {}, nr[kMaxThrPerLane] = {};
+      bool nonzero = false;
+      for (int c0 = 0; c0 < C; c0 += Ct) {
+        const int nc = min(Ct, C - c0);
+        load_tile(hf, c0, nc, nonzero);
+        const float* tot = cum + (B - 1) * Cp;
+        for (int c = 0; c < nc; ++c) {
+          const bool first = c0 + c == 0;
+          const float tv = tot[c];
+          n = first ? tv : n + tv;
+#pragma unroll
+          for (int j = 0; j < kMaxThrPerLane; ++j) {
+            const int thr = lane + 32 * j;
+            if (thr < nthr) {
+              const float l = cum[thr * Cp + c];
+              nl[j] = first ? l : nl[j] + l;
+              nr[j] = first ? tv - l : nr[j] + (tv - l);
+            }
+          }
+        }
       }
-      left_out[(long long)ts * C + lane] = lc;
-      right_out[(long long)ts * C + lane] = acc - lc;
+      if (!__any_sync(0xffffffffu, nonzero)) continue;  // empty: every split has an empty side
+      // pass two: the entropies' x log x terms over the same classes in the same order
+      const float n_tot = fmaxf(n, kTiny);
+      float hn = 0.0f, hl[kMaxThrPerLane] = {}, hr[kMaxThrPerLane] = {};
+      for (int c0 = 0; c0 < C; c0 += Ct) {
+        const int nc = min(Ct, C - c0);
+        load_tile(hf, c0, nc, nonzero);
+        const float* tot = cum + (B - 1) * Cp;
+        for (int c = 0; c < nc; ++c) {
+          const bool first = c0 + c == 0;
+          const float tv = tot[c];
+          const float xn = xlogx(tv / n_tot);
+          hn = first ? xn : hn + xn;
+#pragma unroll
+          for (int j = 0; j < kMaxThrPerLane; ++j) {
+            const int thr = lane + 32 * j;
+            if (thr < nthr) {
+              const float l = cum[thr * Cp + c];
+              const float xl = xlogx(l / fmaxf(nl[j], kTiny));
+              const float xr = xlogx((tv - l) / fmaxf(nr[j], kTiny));
+              hl[j] = first ? xl : hl[j] + xl;
+              hr[j] = first ? xr : hr[j] + xr;
+            }
+          }
+        }
+      }
+      const float h_node = -hn;
+#pragma unroll
+      for (int j = 0; j < kMaxThrPerLane; ++j) {
+        const int thr = lane + 32 * j;
+        if (thr >= nthr) continue;
+        // Eq. 3 with the one fused multiply-add the reference's compiler forms
+        const float h_cond = fmaf(nr[j] / n_tot, -hr[j], (nl[j] / n_tot) * -hl[j]);
+        const float gn = h_node - h_cond;
+        const float p_l = nl[j] / n_tot;
+        const float p_r = nr[j] / n_tot;
+        const float split_info = -(xlogx(p_l) + xlogx(p_r));
+        float g = gn / fmaxf(split_info, kSplitInfoFloor);
+        if (!(nl[j] > 0.0f && nr[j] > 0.0f)) g = -INFINITY;
+        const int idx = f * nthr + thr;
+        if (better(g, idx, best_g, best_i)) { best_g = g; best_i = idx; }
+      }
     }
-    return;
   }
-  for (int c = 0; c < C; ++c) {
-    float lsum = 0.0f, tsum = 0.0f;
-    for (int b = lane; b < B; b += 32) {
-      const float v = hf[b * C + c];
-      tsum += v;
-      if (b <= th) lsum += v;
-    }
-    lsum = warp_sum(lsum);
-    tsum = warp_sum(tsum);
-    if (lane == 0) {
-      left_out[(long long)ts * C + c] = lsum;
-      right_out[(long long)ts * C + c] = tsum - lsum;
-    }
-  }
+  fold_winner(best_g, best_i, h, f_base, gain, feat, thr_out, left_out, right_out, ts, B, C, 0,
+              lane);
 }
 
 }  // namespace
 
-// Warps (slots) per block for a [B, C] histogram: up to kMaxWarps buffers of B * (C | 1) floats.
-static int split_scan_warps(int B, int C) {
-  const size_t per_warp = (size_t)B * (C | 1) * sizeof(float);
+// Warps (slots) per block for a [B, Ct] buffer: up to kMaxWarps buffers of B * (Ct | 1) floats.
+static int split_scan_warps(int B, int Ct) {
+  const size_t per_warp = (size_t)B * (Ct | 1) * sizeof(float);
   const size_t fit = kMaxSmem / per_warp;
   return fit < (size_t)kMaxWarps ? (int)fit : kMaxWarps;
 }
 
+// class_tile: C (one buffer holds a feature's [B, C] histogram) or the
+// classes a tile of split_scan_wide_kernel holds (classification only).
 extern "C" int prf_split_scan(const void* hist, const void* mask, int f_base,
                               void* gain, void* feat, void* thr, void* left,
                               void* right, int tc, int S, int W, int B, int C,
-                              int regression, void* stream) {
+                              int regression, int class_tile, void* stream) {
+  if (class_tile < 1 || class_tile > C || (regression && class_tile != C))
+    return (int)cudaErrorInvalidValue;
   if (tc > 0 && S > 0 && W > 0) {
-    const int nw = split_scan_warps(B, C);
+    const bool wide = class_tile < C;
+    const int nw = split_scan_warps(B, class_tile);
     if (nw < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)nw * B * (C | 1) * sizeof(float);
+    const size_t smem = (size_t)nw * B * (class_tile | 1) * sizeof(float);
+    const void* kernel = wide ? (const void*)split_scan_wide_kernel : (const void*)split_scan_kernel;
     if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(split_scan_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
     const int TS = tc * S;
-    split_scan_kernel<<<(TS + nw - 1) / nw, nw * 32, smem, (cudaStream_t)stream>>>(
-        (const float*)hist, (const uint8_t*)mask, f_base, (float*)gain,
-        (int*)feat, (int*)thr, (float*)left, (float*)right, TS, S, W, B, C,
-        regression);
+    if (wide) {
+      split_scan_wide_kernel<<<(TS + nw - 1) / nw, nw * 32, smem, (cudaStream_t)stream>>>(
+          (const float*)hist, (const uint8_t*)mask, f_base, (float*)gain,
+          (int*)feat, (int*)thr, (float*)left, (float*)right, TS, S, W, B, C, class_tile);
+    } else {
+      split_scan_kernel<<<(TS + nw - 1) / nw, nw * 32, smem, (cudaStream_t)stream>>>(
+          (const float*)hist, (const uint8_t*)mask, f_base, (float*)gain,
+          (int*)feat, (int*)thr, (float*)left, (float*)right, TS, S, W, B, C,
+          regression);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -43,7 +43,16 @@
 // so the two agree bitwise. Pool padding is a leaf with zero payload.
 // The tile plan (TN) is made by the wrapper
 // (kernels/tree_traverse/ops.py:traverse_plan).
+//
+// Wide data (F > 65536, feature ids past 16 bits): the plan picks the
+// wide variant. Each node is an int4 {feature, threshold + 1,
+// left_child, 0} (a leaf {0, 256, its own id, 0}), one 16-byte load a
+// step, and the bins are not staged: a row of F > 65536 bytes leaves
+// room for at most two rows in shared memory, so each thread reads its
+// own row's bins through the read-only cache, 128 rows a block. The
+// sums and their order are those of the narrow variant.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -52,26 +61,44 @@ constexpr int kJ = 8;         // trees walked at once by each thread
 constexpr int kMaxC = 8;      // classes summed at once by each thread
 
 // Packed node of tree t, node n (n < Pp; rows past P step to themselves).
+// Narrow (int2): {feature | (threshold + 1) << 16, left_child}. Wide
+// (int4): {feature, threshold + 1, left_child, 0}.
+template <bool kWide>
 __global__ void pack_nodes_kernel(const int* __restrict__ feature,
                                   const int* __restrict__ threshold,
                                   const int* __restrict__ left_child,
-                                  int2* __restrict__ packed, int tc, int P,
-                                  int Pp) {
+                                  void* __restrict__ packed, int tc, int P, int Pp) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)tc * Pp) return;
   const int t = (int)(i / Pp), n = (int)(i % Pp);
-  int2 out = make_int2((int)(256u << 16), n);   // a leaf steps to itself
+  int f = 0, thr1 = 256, lc = n;                // a leaf steps to itself
   if (n < P) {
     const long long j = (long long)t * P + n;
-    const int f = feature[j];
-    if (f >= 0) {
+    if (feature[j] >= 0) {
       int thr = threshold[j];
       thr = thr < -1 ? -1 : (thr > 255 ? 255 : thr);
-      out.x = (int)((unsigned)f | ((unsigned)(thr + 1) << 16));
-      out.y = left_child[j];
+      f = feature[j];
+      thr1 = thr + 1;
+      lc = left_child[j];
     }
   }
-  packed[i] = out;
+  if (kWide) {
+    static_cast<int4*>(packed)[i] = make_int4(f, thr1, lc, 0);
+  } else {
+    static_cast<int2*>(packed)[i] = make_int2((int)((unsigned)f | ((unsigned)thr1 << 16)), lc);
+  }
+}
+
+// One step of a walk: the next node id.
+__device__ __forceinline__ int step(const int2* __restrict__ nd_p, const uint8_t* xrow) {
+  const int2 nd = __ldg(nd_p);
+  const unsigned w = (unsigned)nd.x;
+  return nd.y + ((unsigned)xrow[w & 0xFFFFu] >= (w >> 16) ? 1 : 0);
+}
+
+__device__ __forceinline__ int step(const int4* __restrict__ nd_p, const uint8_t* xrow) {
+  const int4 nd = __ldg(nd_p);
+  return nd.z + ((unsigned)__ldg(xrow + (unsigned)nd.x) >= (unsigned)nd.y ? 1 : 0);
 }
 
 // Bins of rows [r0, r0 + rows) into xs (row stride Fs bytes).
@@ -95,24 +122,32 @@ __device__ __forceinline__ void load_tile(uint8_t* xs, const uint8_t* __restrict
   }
 }
 
-// Block: TN samples, one thread each. Shared memory: the TN rows of
-// bins. One barrier, after the bins.
+// Block: TN samples, one thread each. Narrow: shared memory holds the TN
+// rows of bins, one barrier after them. Wide: no shared memory, each
+// thread reads its own row.
+template <bool kWide>
 __global__ void __launch_bounds__(128) traverse_kernel(
     const uint8_t* __restrict__ x, int N, int F, int Fs, int vec,
-    const int2* __restrict__ nodes, int Pp, const float* __restrict__ payload, int P,
+    const void* __restrict__ nodes_v, int Pp, const float* __restrict__ payload, int P,
     const float* __restrict__ carry, float* __restrict__ out, int tc, int C, int depth,
     bool vec4) {
+  using Node = typename std::conditional<kWide, int4, int2>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* xs = smem;
+  const Node* nodes = static_cast<const Node*>(nodes_v);
 
   const int TN = blockDim.x, s = threadIdx.x;
   const long long r0 = (long long)blockIdx.x * TN;
   const int rows = (int)(N - r0 < TN ? N - r0 : TN);
-  const uint8_t* xrow = xs + s * Fs;
-
-  load_tile(xs, x, r0, rows, F, Fs, vec);
-  __syncthreads();
-  if (s >= rows) return;
+  const uint8_t* xrow;
+  if (kWide) {
+    if (s >= rows) return;
+    xrow = x + (r0 + s) * F;
+  } else {
+    load_tile(smem, x, r0, rows, F, Fs, vec);
+    __syncthreads();
+    if (s >= rows) return;
+    xrow = smem + s * Fs;
+  }
 
   for (int j0 = 0; j0 < C; j0 += kMaxC) {      // class passes (one if C <= kMaxC)
     float acc[kMaxC];
@@ -123,7 +158,7 @@ __global__ void __launch_bounds__(128) traverse_kernel(
       // branch (leaves step to themselves). A chain past the last tree
       // walks the group's first one and is dropped.
       int node[kJ];
-      const int2* tree[kJ];
+      const Node* tree[kJ];
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         node[j] = 0;
@@ -131,11 +166,7 @@ __global__ void __launch_bounds__(128) traverse_kernel(
       }
       for (int d = 0; d < depth; ++d) {
 #pragma unroll
-        for (int j = 0; j < kJ; ++j) {
-          const int2 nd = __ldg(tree[j] + node[j]);
-          const unsigned w = (unsigned)nd.x;
-          node[j] = nd.y + ((unsigned)xrow[w & 0xFFFFu] >= (w >> 16) ? 1 : 0);
-        }
+        for (int j = 0; j < kJ; ++j) node[j] = step(tree[j] + node[j], xrow);
       }
       // The leaves' payloads, in tree order.
 #pragma unroll
@@ -174,36 +205,48 @@ __global__ void __launch_bounds__(128) traverse_kernel(
 
 }  // namespace
 
-// packed: [tc, Pp] int2 scratch (Pp = P rounded up to even). Fs (the
-// bins' row stride in shared memory), TN and smem_bytes come from the
-// wrapper's plan.
+// packed: [tc, Pp] int2 scratch, int4 when `wide` (Pp = P rounded up to
+// even). Fs (the bins' row stride in shared memory; unused when wide),
+// TN and smem_bytes come from the wrapper's plan.
 extern "C" int prf_traverse(const void* x, int N, int F, const void* feature,
                             const void* threshold, const void* left_child,
                             const void* payload, const void* carry, void* out,
                             void* packed, int tc, int P, int C, int depth, int Fs,
-                            int TN, int smem_bytes, void* stream) {
+                            int TN, int smem_bytes, int wide, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (N <= 0) return (int)cudaGetLastError();
   const int Pp = P + (P & 1);
   const long long n_nodes = (long long)tc * Pp;
   if (n_nodes > 0) {
-    pack_nodes_kernel<<<(unsigned)((n_nodes + 255) / 256), 256, 0, st>>>(
-        (const int*)feature, (const int*)threshold, (const int*)left_child, (int2*)packed, tc,
-        P, Pp);
+    const unsigned blocks = (unsigned)((n_nodes + 255) / 256);
+    if (wide) {
+      pack_nodes_kernel<true><<<blocks, 256, 0, st>>>(
+          (const int*)feature, (const int*)threshold, (const int*)left_child, packed, tc, P, Pp);
+    } else {
+      pack_nodes_kernel<false><<<blocks, 256, 0, st>>>(
+          (const int*)feature, (const int*)threshold, (const int*)left_child, packed, tc, P, Pp);
+    }
+  }
+  // Payload rows as float4 when one pass holds all of a row's classes.
+  const bool vec4 = C <= kMaxC && C % 4 == 0 && (uintptr_t)payload % 16 == 0;
+  const unsigned grid = (unsigned)((N + TN - 1) / TN);
+  if (wide) {
+    traverse_kernel<true><<<grid, TN, 0, st>>>(
+        (const uint8_t*)x, N, F, 0, 1, packed, Pp, (const float*)payload, P,
+        (const float*)carry, (float*)out, tc, C, depth, vec4);
+    return (int)cudaGetLastError();
   }
   const uintptr_t xa = (uintptr_t)x;
   const int vec = (F % 16 == 0 && xa % 16 == 0) ? 16 : ((F % 4 == 0 && xa % 4 == 0) ? 4 : 1);
-  // Payload rows as float4 when one pass holds all of a row's classes.
-  const bool vec4 = C <= kMaxC && C % 4 == 0 && (uintptr_t)payload % 16 == 0;
   static int smem_set = 48 * 1024;     // the largest size allowed so far (48 KiB needs no opt-in)
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        traverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        traverse_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
     smem_set = smem_bytes;
   }
-  traverse_kernel<<<(N + TN - 1) / TN, TN, smem_bytes, st>>>(
-      (const uint8_t*)x, N, F, Fs, vec, (const int2*)packed, Pp, (const float*)payload, P,
+  traverse_kernel<false><<<grid, TN, smem_bytes, st>>>(
+      (const uint8_t*)x, N, F, Fs, vec, packed, Pp, (const float*)payload, P,
       (const float*)carry, (float*)out, tc, C, depth, vec4);
   return (int)cudaGetLastError();
 }

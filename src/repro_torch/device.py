@@ -37,3 +37,10 @@ def as_tensor(a, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
         arr = arr.copy()
     t = torch.from_numpy(arr)
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def host_array(a):
+    """Tensor (on any device) or array-like -> numpy array (no copy when already one)."""
+    import numpy as np
+
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)

@@ -39,14 +39,15 @@ FMAD_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every exported launcher (all return cudaGetLastError()).
 SIGNATURES = {
-    # x, ld, base, w, slot, order, seg, out, N, W, tc, S, B, C, packed, stream
-    "prf_hist": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # hist, mask, f_base, gain, feat, thr, left, right, tc, S, W, B, C, regression, stream
-    "prf_split_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, ld, base, w, slot, order, seg, out, N, W, tc, S, B, C, packed, class_tile, stream
+    "prf_hist": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # hist, mask, f_base, gain, feat, thr, left, right, tc, S, W, B, C, regression,
+    # class_tile, stream
+    "prf_split_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, N, F, feature, threshold, left_child, payload, carry, out, packed, tc, P, C, depth,
-    # Fs, TN, smem_bytes, stream
+    # Fs, TN, smem_bytes, wide, stream
     "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _I, _P],
+                     _I, _I, _I, _I, _P],
     # q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, bf16, stream
     "lm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, loga, b, c, y, h, B, L, H, P, N, chunk, bf16, stream

@@ -18,7 +18,19 @@ import torch
 from .ref import multi_tree_hist_ref
 
 launches = 0   # kernel launches in this process (the CPU path does not count)
-MAX_ROW_BYTES = 227 * 1024   # one feature's [B, C] int histogram (+ pad) must fit shared memory
+MAX_ROW_BYTES = 227 * 1024    # shared memory a block may take
+TILE_ROW_BYTES = 48 * 1024    # a class tile's [B, Ct] int histogram (+ pad): several blocks an SM
+
+
+def class_tile(n_bins: int, n_channels: int) -> int:
+    """Classes a block holds at once: all C while one feature's ``[B, C]``
+    int histogram, plus its pad word, fits ``MAX_ROW_BYTES`` (C < 227 at
+    B 256), else tiles of a multiple of 4 classes (whole float4 flushes)
+    whose row fits ``TILE_ROW_BYTES`` (44 at B 256)."""
+    if (n_bins * n_channels + 1) * 4 <= MAX_ROW_BYTES:
+        return n_channels
+    ct = (TILE_ROW_BYTES // 4 - 1) // n_bins
+    return max(1, ct - ct % 4 if ct >= 8 else ct)
 
 
 class SlotOrder(NamedTuple):
@@ -94,34 +106,47 @@ def multi_tree_hist(
     n_bins: int,
     packed: bool = False,
     order: Optional[SlotOrder] = None,   # slot_order(slot, w, n_slots); made here if None
+    out: Optional[torch.Tensor] = None,  # [tc, S, W, B, C] float32 to add into
 ) -> torch.Tensor:
-    """Multi-tree histograms [tc, S, W, B, C] float32 (bins must be < n_bins)."""
+    """Multi-tree histograms [tc, S, W, B, C] float32 (bins must be < n_bins).
+
+    With ``out`` the histogram is added into it, in place, and ``out`` is
+    returned: the kernel's atomics flush into it as into its own zeroed
+    output, the plain version does ``out += hist``. With integer counts
+    the sum is exact, so a histogram accumulated over sample blocks is
+    bitwise the one-shot histogram."""
     global launches
     _check(x_bins, base, w, slot)
     if order is not None:
         _check_order(order, slot, n_slots)
+    N, W = x_bins.shape
+    tc, C = w.shape[0], base.shape[1]
+    if out is not None:
+        shape = (tc, n_slots, W, n_bins, C)
+        if out.dtype != torch.float32 or tuple(out.shape) != shape or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous float32 {list(shape)} tensor")
+        if out.device != x_bins.device:
+            raise ValueError(f"out on {out.device}, bins on {x_bins.device}")
     if not x_bins.is_cuda:
-        return multi_tree_hist_ref(
+        hist = multi_tree_hist_ref(
             x_bins, base, w, slot, n_slots=n_slots, n_bins=n_bins, packed=packed
         )
+        return hist if out is None else out.add_(hist)
     from .._build import launch
 
     base, w, slot = base.contiguous(), w.contiguous(), slot.contiguous()
-    N, W = x_bins.shape
-    tc, C = w.shape[0], base.shape[1]
-    if (n_bins * C + 1) * 4 > MAX_ROW_BYTES:
-        raise ValueError(f"n_bins * C = {n_bins * C} cells per feature do not fit shared memory")
     if order is None and n_slots > 1:
         order = slot_order(slot, w, n_slots)
     order_ptr = seg_ptr = None      # one slot: the kernel takes the samples in index order
     if order is not None:
         order = SlotOrder(order.order.contiguous(), order.seg.contiguous())
         order_ptr, seg_ptr = order.order.data_ptr(), order.seg.data_ptr()
-    out = torch.zeros((tc, n_slots, W, n_bins, C), dtype=torch.float32, device=base.device)
+    if out is None:
+        out = torch.zeros((tc, n_slots, W, n_bins, C), dtype=torch.float32, device=base.device)
     launch(
         "prf_hist", x_bins.data_ptr(), x_bins.stride(0), base.data_ptr(),
         w.data_ptr(), slot.data_ptr(), order_ptr, seg_ptr, out.data_ptr(), N, W, tc,
-        n_slots, n_bins, C, int(packed),
+        n_slots, n_bins, C, int(packed), class_tile(n_bins, C),
     )
     launches += 1
     return out

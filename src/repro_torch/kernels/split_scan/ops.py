@@ -13,6 +13,19 @@ from ...core.gain import SplitScores
 from .ref import init_carry, split_scan_block_ref
 
 launches = 0   # kernel launches in this process (the CPU path does not count)
+MAX_HIST_BYTES = 200 * 1024   # shared memory of a block: its warps' [B, Ct | 1] buffers
+WARPS = 8                     # warps (slots) a block takes at most
+
+
+def class_tile(n_bins: int, n_channels: int) -> int:
+    """Classes a warp's buffer holds at once: all C while one ``[B, C | 1]``
+    float histogram fits ``MAX_HIST_BYTES`` (C < 200 at B 256), else the
+    largest odd tile that lets ``WARPS`` buffers fit (25 at B 256), which
+    the wide kernel passes over (classification only)."""
+    if n_bins * (n_channels | 1) * 4 <= MAX_HIST_BYTES:
+        return n_channels
+    per = MAX_HIST_BYTES // (WARPS * n_bins * 4)
+    return min(n_channels, per if per % 2 else per - 1)
 
 
 def split_scan_block(
@@ -44,16 +57,13 @@ def split_scan_block(
         return split_scan_block_ref(hist, mask.bool(), carry, f_base, regression=regression)
     from .._build import launch
 
-    if B * (C | 1) * 4 > 200 * 1024:
-        raise ValueError(f"the kernel holds one [B, C] histogram in shared memory: "
-                         f"B * (C | 1) * 4 <= 200 KiB, got B {B}, C {C}")
     hist = hist.contiguous()
     mask_u8 = mask.to(torch.uint8).contiguous()
     gain, feat, thr, left, right = (c.clone().contiguous() for c in carry)
     launch(
         "prf_split_scan", hist.data_ptr(), mask_u8.data_ptr(), int(f_base),
         gain.data_ptr(), feat.data_ptr(), thr.data_ptr(), left.data_ptr(),
-        right.data_ptr(), tc, S, W, B, C, int(regression),
+        right.data_ptr(), tc, S, W, B, C, int(regression), class_tile(B, C),
     )
     launches += 1
     return gain, feat, thr, left, right

@@ -26,7 +26,7 @@ from .ref import traverse_block_ref
 launches = 0   # kernel launches in this process (the CPU path does not count)
 
 SMEM_BYTES = 232448     # shared memory one block may use on sm_90 (227 KiB)
-MAX_FEATURES = 65536    # feature ids ride in 16 bits of the packed node
+MAX_FEATURES = 65536    # feature ids that ride in 16 bits of the narrow packed node
 
 
 def _smem(TN: int, Fs: int) -> int:
@@ -36,23 +36,26 @@ def _smem(TN: int, Fs: int) -> int:
 @functools.lru_cache(maxsize=256)
 def traverse_plan(F: int) -> dict:
     """Tile plan of one launch: TN samples per block (one thread each),
-    the bins' row stride Fs in shared memory (an odd number of words) and
-    the block's shared-memory bytes. TN is 128, halved for a wide F until
-    the bins fit. A small batch gains nothing from shorter blocks: each
-    thread's walk is a chain of dependent loads however many SMs hold the
-    batch (blocks of 32, 64 and 128 rows take the same call time at N
-    256, PERF.md)."""
+    the bins' row stride Fs in shared memory (an odd number of words),
+    the block's shared-memory bytes and the node layout. TN is 128,
+    halved for a wide F until the bins fit. A small batch gains nothing
+    from shorter blocks: each thread's walk is a chain of dependent loads
+    however many SMs hold the batch (blocks of 32, 64 and 128 rows take
+    the same call time at N 256, PERF.md).
+
+    Past ``MAX_FEATURES`` a feature id does not fit the narrow node's 16
+    bits: the plan is ``wide``, an int4 node with a 32-bit feature id,
+    and the bins stay in device memory (no shared memory), 128 rows a
+    block."""
     if F > MAX_FEATURES:
-        raise ValueError(
-            f"the traversal kernel packs feature ids into 16 bits: F = {F} > {MAX_FEATURES}"
-        )
+        return {"TN": 128, "Fs": 0, "smem_bytes": 0, "wide": True}
     Fs = -(-F // 4) * 4
     if (Fs // 4) % 2 == 0:
         Fs += 4
     TN = 128
     while TN > 1 and _smem(TN, Fs) > SMEM_BYTES:
         TN //= 2
-    return {"TN": TN, "Fs": Fs, "smem_bytes": _smem(TN, Fs)}
+    return {"TN": TN, "Fs": Fs, "smem_bytes": _smem(TN, Fs), "wide": False}
 
 
 def traverse_block(
@@ -95,12 +98,13 @@ def traverse_block(
         a.contiguous() for a in (x_binned, feature, threshold, left_child, payload, carry)
     )
     out = torch.empty((N, C), dtype=torch.float32, device=x_binned.device)
-    packed = torch.empty((tc, P + (P & 1), 2), dtype=torch.int32, device=x_binned.device)
+    words = 4 if plan["wide"] else 2           # int4 or int2 packed nodes
+    packed = torch.empty((tc, P + (P & 1), words), dtype=torch.int32, device=x_binned.device)
     launch(
         "prf_traverse", x_binned.data_ptr(), N, F, feature.data_ptr(),
         threshold.data_ptr(), left_child.data_ptr(), payload.data_ptr(),
         carry.data_ptr(), out.data_ptr(), packed.data_ptr(), tc, P, C, depth,
-        plan["Fs"], plan["TN"], plan["smem_bytes"],
+        plan["Fs"], plan["TN"], plan["smem_bytes"], int(plan["wide"]),
     )
     launches += 1
     return out

@@ -152,12 +152,16 @@ def test_reuse_on_matches_reference_labels(class_data, reference):
 
 
 @pytest.mark.parametrize("kw", [dict(regression=True, hist_reuse="off"),
-                                dict(sample_block=500, hist_reuse="off")])
+                                dict(hist_reuse="off", checkpoint_dir="ckpt")])
 def test_unported_paths_raise(class_data, kw):
+    """Regression and checkpointing still raise, naming ROADMAP (the
+    streamed trainer's own refusal: ``tests/test_torch_streamed.py``)."""
     xtr, ytr, _, _ = class_data
+    kw = dict(kw)
+    call = {"checkpoint_dir": kw.pop("checkpoint_dir")} if "checkpoint_dir" in kw else {}
     cfg = TConfig(n_trees=2, max_depth=2, n_bins=8, n_classes=4, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_prf(xtr, ytr, cfg, 0, device="cpu")
+        train_prf(xtr, ytr, cfg, 0, device="cpu", **call)
 
 
 def test_import_hygiene_subprocess():

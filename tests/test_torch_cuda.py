@@ -156,6 +156,65 @@ def test_split_scan_kernel_matches_plain(cuda_device, regression):
         assert torch.equal(k_carry[3], p_carry[3]) and torch.equal(k_carry[4], p_carry[4])
 
 
+@pytest.mark.parametrize("B,C", [(256, 300), (64, 1000), (256, 199)])   # the last: one tile each
+@pytest.mark.parametrize("packed", [False, True])
+def test_class_tiled_kernels_bitwise(cuda_device, B, C, packed):
+    """Past shared memory's class limits (C >= 227 for the histogram,
+    C >= 200 for the split scan at B 256) both kernels take the class axis
+    in tiles (``class_tile``): the histogram (ordered by slot; unpacked
+    rows with several channels too) and the split scan's carry over two
+    slabs, every field, bitwise the plain versions."""
+    tc, N, F, S = 2, 3001, 6, 5
+    dev = cuda_device
+    xb = torch.from_numpy(RNG.integers(0, B, (N, F)).astype(np.uint8)).to(dev)
+    base = torch.eye(C, device=dev)[torch.from_numpy(RNG.integers(0, C, N)).to(dev)]
+    if not packed:
+        base[:50] = torch.from_numpy(RNG.integers(0, 3, (50, C)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(RNG.integers(0, 4, (tc, N)).astype(np.float32)).to(dev)
+    slot = torch.from_numpy(RNG.integers(-1, S, (tc, N)).astype(np.int32)).to(dev)
+    n0 = (hist_ops.launches, scan_ops.launches)
+    got = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=S, n_bins=B, packed=packed)
+    want = multi_tree_hist_ref(xb, base, w, slot, n_slots=S, n_bins=B, packed=packed)
+    mask = torch.from_numpy(RNG.random((tc, F)) > 0.2).to(dev)
+    k_carry = p_carry = init_carry(tc, S, C, dev)
+    for f0, f1 in ((0, 4), (4, F)):
+        k_carry = scan_ops.split_scan_block(want[:, :, f0:f1], mask[:, f0:f1], k_carry, f0)
+        p_carry = split_scan_block_ref(want[:, :, f0:f1], mask[:, f0:f1], p_carry, f0)
+    torch.cuda.synchronize()
+    assert (hist_ops.launches, scan_ops.launches) == (n0[0] + 1, n0[1] + 2)
+    assert torch.equal(got, want)
+    for i in range(5):
+        assert torch.equal(k_carry[i], p_carry[i]), i
+    assert (hist_ops.class_tile(B, C) < C) == (B * C + 1 > 227 * 256)
+    assert (scan_ops.class_tile(B, C) < C) == (B * (C | 1) > 200 * 256)
+
+
+def test_train_prf_many_classes_stays_on_the_kernels(cuda_device):
+    """250 classes at 256 bins: ``"auto"`` grows on the histogram and split
+    scan kernels (both in class tiles) and gives the plain path's forest."""
+    import dataclasses
+
+    from repro_torch import ForestConfig, train_prf
+
+    rng = np.random.default_rng(11)
+    N, F, C = 4000, 8, 250
+    y = rng.integers(0, C, N).astype(np.int32)
+    x = rng.standard_normal((N, F)).astype(np.float32)
+    x[:, 0] += y / 10.0
+    x[:, 1] -= (y % 17) / 3.0
+    cfg = ForestConfig(n_trees=3, max_depth=4, n_bins=256, n_classes=C, hist_reuse="off")
+    plain = dataclasses.replace(cfg, hist_backend="segment_sum", split_backend="xla",
+                                predict_backend="xla")
+    n0 = (hist_ops.launches, scan_ops.launches)
+    a = train_prf(x, y, cfg, 0, device=cuda_device)
+    torch.cuda.synchronize()
+    assert hist_ops.launches > n0[0] and scan_ops.launches > n0[1]
+    b = train_prf(x, y, plain, 0, device=cuda_device)
+    for name in ("feature", "threshold", "left_child", "class_counts", "tree_weight"):
+        assert torch.equal(getattr(a.forest, name), getattr(b.forest, name)), name
+    np.testing.assert_array_equal(a.predict(x), b.predict(x))
+
+
 def test_traverse_kernel_matches_plain(cuda_device):
     N, F, k, P, C, depth = 3001, 9, 7, 63, 4, 5
     xb = torch.from_numpy(RNG.integers(0, 16, (N, F)).astype(np.uint8)).to(cuda_device)
@@ -227,6 +286,94 @@ def test_train_prf_kernel_path_equals_plain_path(cuda_device):
     for name in ("feature", "threshold", "left_child", "class_counts", "tree_weight"):
         assert torch.equal(getattr(a.forest, name), getattr(b.forest, name)), name
     np.testing.assert_array_equal(a.predict(xte), b.predict(xte))
+
+
+def test_streamed_kernel_path_equals_plain_path(cuda_device, tmp_path):
+    """The streaming plane on the card: ``train_prf`` from an ``np.memmap``
+    with ``sample_block`` (5 blocks, a remainder; exact bins) on the
+    kernel path gives the plain path's model and the resident kernel
+    path's forest bitwise, and its streamed prediction equals the
+    resident one; the three kernels ran on the streamed run."""
+    import dataclasses
+
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.data.tabular import make_classification, train_test_split
+
+    x, y = make_classification(n_samples=6000, n_features=20, n_classes=3, seed=4)
+    xtr, ytr, xte, _ = train_test_split(x, y, 0.25, 0)
+    mm = np.memmap(tmp_path / "x.f32", np.float32, "w+", shape=xtr.shape)
+    mm[:] = xtr
+    mm.flush()
+    cfg = ForestConfig(n_trees=6, max_depth=5, n_bins=32, n_classes=3, hist_reuse="off",
+                       sample_block=1000, bin_fit="exact")
+    plain = dataclasses.replace(cfg, hist_backend="segment_sum", split_backend="xla",
+                                predict_backend="xla")
+    n0 = (hist_ops.launches, scan_ops.launches, trav_ops.launches)
+    a = train_prf(mm, ytr, cfg, 0, device=cuda_device)
+    pa = a.predict(xte[:1700])                         # 2 blocks of prediction
+    torch.cuda.synchronize()
+    assert hist_ops.launches > n0[0] and scan_ops.launches > n0[1] and trav_ops.launches > n0[2]
+    b = train_prf(mm, ytr, plain, 0, device=cuda_device)
+    r = train_prf(xtr.astype(np.float32), ytr, dataclasses.replace(cfg, sample_block=0), 0,
+                  device=cuda_device)
+    for other in (b, r):
+        for name in ("feature", "threshold", "left_child", "class_counts", "tree_weight"):
+            assert torch.equal(getattr(a.forest, name), getattr(other.forest, name)), name
+    np.testing.assert_array_equal(pa, b.predict(xte[:1700]))
+    np.testing.assert_array_equal(pa, r.predict(xte[:1700]))
+
+
+@pytest.mark.parametrize("consumer", ["slow host", "busy card"])
+def test_block_feeder_pinned_ring_never_overwrites_a_block_in_flight(cuda_device, consumer):
+    """``prefetch`` 2 (a ring of 3 pinned buffers) over 24 blocks of 4 MiB,
+    each block's content distinct: every block the consumer receives
+    equals its host array, whether the consumer sleeps between blocks or
+    queues long kernels on the card before reading each one."""
+    import time
+
+    from repro_torch.data.pipeline import BlockFeeder
+
+    blocks = [np.full((4096, 1024), i % 251, np.uint8) for i in range(24)]
+    for i, b in enumerate(blocks):
+        b[i % 4096] = 255 - i % 251
+    feeder = BlockFeeder(blocks, placement=cuda_device, prefetch=2)
+    busy = torch.randn((2048, 2048), device=cuda_device)
+    got = []
+    with feeder:
+        for i, blk in zip(feeder.live_blocks, feeder.sweep()):
+            if consumer == "slow host":
+                time.sleep(0.02)
+            else:
+                for _ in range(8):
+                    busy = busy @ busy / 2048
+            got.append(blk.clone())
+    torch.cuda.synchronize()
+    assert len(got) == len(blocks)
+    for g, b in zip(got, blocks):
+        assert torch.equal(g.cpu(), torch.from_numpy(b))
+
+
+def test_predict_past_16_bit_features_stays_on_the_kernel(cuda_device):
+    """F = 70,000: ``"auto"`` prediction runs the traversal kernel (wide
+    nodes) and equals the plain path."""
+    from repro_torch import ForestConfig, train_prf
+
+    rng = np.random.default_rng(7)
+    N, F = 1200, 70_000
+    x = rng.standard_normal((N, F), dtype=np.float32)
+    y = (x[:, 69_999] > 0).astype(np.int32) + 2 * (x[:, 3] > 0)
+    cfg = ForestConfig(n_trees=4, max_depth=3, n_bins=16, n_classes=4, hist_reuse="off",
+                       feature_mode="all")
+    model = train_prf(x, y, cfg, 0, device=cuda_device)
+    assert trav_ops.traverse_plan(F)["wide"]
+    assert int(model.forest.feature.max()) >= 1 << 16
+    n0 = trav_ops.launches
+    got = model.predict(x)
+    torch.cuda.synchronize()
+    assert trav_ops.launches == n0 + 1
+    np.testing.assert_array_equal(got, model.with_predict_backend("xla").predict(x))
+    np.testing.assert_allclose(model.predict_scores(x),
+                               model.with_predict_backend("xla").predict_scores(x), rtol=1e-6, atol=1e-6)
 
 
 # The LM kernels' tolerance, per element: |got - want| <= rtol |want| +

@@ -100,11 +100,19 @@ def test_rank_splits_is_stable_on_ties():
 
 
 def test_unported_paths_raise(case):
+    """The two configurations growth refused before the streaming plane was
+    ported (``sample_block > 0``, ``bin_fit="blocked"``) now grow, and
+    give the resident forest bitwise (histograms summed over 64-row
+    blocks are exact for integer counts; ``bin_fit`` does not reach
+    growth)."""
     xb, y, w = case
+    want = tgrow(xb, y, w, TConfig(n_trees=8, max_depth=3, n_bins=16, n_classes=3,
+                                   hist_reuse="off"), None, device="cpu")
     for kw in (dict(sample_block=64, hist_reuse="off"), dict(bin_fit="blocked", hist_reuse="off")):
         cfg = TConfig(n_trees=8, max_depth=3, n_bins=16, n_classes=3, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgrow(xb, y, w, cfg, None, device="cpu")
+        got = tgrow(xb, y, w, cfg, None, device="cpu")
+        for name in FIELDS:
+            assert torch.equal(getattr(want, name), getattr(got, name)), (kw, name)
 
 
 def test_levels_run_from_pool(case):

@@ -82,20 +82,26 @@ def test_traverse_wide_classes_and_pool_match_reference():
 
 def _kernel_emulation(xb, feature, threshold, left, payload, carry, depth):
     """The kernel's arithmetic in numpy: nodes packed as pack_nodes_kernel
-    packs them (a leaf steps to itself), walked depth steps by the packed
-    word, then, whatever the tile plan, each (sample, class) summed over
-    the trees in order and added to the carry once."""
+    packs them (a leaf steps to itself) in the plan's layout — narrow,
+    ``feature | (threshold + 1) << 16`` in one word, or wide, the feature
+    id and ``threshold + 1`` in words of their own — walked depth steps
+    by the packed words, then, whatever the tile plan, each (sample,
+    class) summed over the trees in order and added to the carry once."""
     tc, P = feature.shape
     thr = np.clip(threshold.astype(np.int64), -1, 255) + 1
-    word = np.where(feature >= 0, feature.astype(np.int64) | (thr << 16), 256 << 16)
+    if ops.traverse_plan(xb.shape[1])["wide"]:
+        fid = np.where(feature >= 0, feature.astype(np.int64), 0)
+        thr1 = np.where(feature >= 0, thr, 256)
+    else:
+        word = np.where(feature >= 0, feature.astype(np.int64) | (thr << 16), 256 << 16)
+        fid, thr1 = word & 0xFFFF, word >> 16
     lc = np.where(feature >= 0, left, np.arange(P)[None, :])
     rows = np.arange(xb.shape[0])
     acc = np.zeros_like(carry)
     for t in range(tc):
         node = np.zeros(len(rows), np.int64)
         for _ in range(depth):
-            w = word[t, node]
-            node = lc[t, node] + (xb[rows, w & 0xFFFF].astype(np.int64) >= (w >> 16))
+            node = lc[t, node] + (xb[rows, fid[t, node]].astype(np.int64) >= thr1[t, node])
         acc = acc + payload[t, node]
     return carry + acc
 
@@ -130,5 +136,10 @@ def test_traverse_plan_fits_the_card(F):
 
 
 def test_traverse_plan_refuses_features_past_16_bits():
-    with pytest.raises(ValueError, match="16 bits"):
-        ops.traverse_plan(ops.MAX_FEATURES + 1)
+    """Feature ids past 16 bits no longer make the plan refuse: it picks
+    the wide layout (int4 nodes with a 32-bit feature id, bins read from
+    device memory, 128 rows a block), and F <= 65536 keeps the narrow
+    one."""
+    wide = ops.traverse_plan(ops.MAX_FEATURES + 1)
+    assert wide == {"TN": 128, "Fs": 0, "smem_bytes": 0, "wide": True}
+    assert not ops.traverse_plan(ops.MAX_FEATURES)["wide"]

@@ -19,6 +19,7 @@ TRAVERSE_CASES = {
     "C > 8 over several chunks": (3001, 9, 12, 5, 11, 5, 100),
     "C > 8 in two class passes": (40000, 16, 6, 6, 11, 6, 140),
     "wide F, tile cut to fit shared memory": (20000, 3000, 6, 3, 4, 6, 140),
+    "F past 16 bits: wide nodes, bins read from device memory": (300, 70000, 6, 4, 4, 6, 140),
 }
 
 
@@ -76,3 +77,5 @@ def test_traverse_case_holds_what_it_names(name):
         assert C > 8 and k % tc != 0
     if name.startswith("wide F"):
         assert TN < 128 and N > 100 * TN                  # 128 rows would not fit
+    if name.startswith("F past 16 bits"):
+        assert traverse_plan(F)["wide"] and (feature >= 2 ** 16).any() and k % tc != 0
