@@ -50,6 +50,22 @@ tile plan (``traverse_batch_ab``). The first:
    and from pinned host bins in turns; the histogram added into a carry
    at the block shape, the split scan on the carry (level 0: all 8
    blocks) and the S = 1 root histogram over the blocks, bitwise;
+5c. full size, checkpoints (``checkpoint_phase``, in a directory under
+   ``build/`` removed at the end): resident growth with a checkpoint every
+   level killed from ``on_level`` at level 4 and resumed (first resumed
+   level 5, the replay's forest bitwise), the newest step corrupted and
+   resumed (a walk-back warning, the same forest), the same kill and
+   resume streamed (phase 5b's exact-bins forest); one step's bytes, a
+   save split into device-to-host copy, CRC32 and ``np.save``, a restore,
+   growth with a checkpoint every level against none in turns;
+5d. full size, regression (``regression_phase``): ``make_regression``
+   on 2^20 training rows, F = 128, ``train_prf`` + ``predict`` on the three
+   PRF kernels with their launch counts, held-out R^2 >= ``R2_FLOOR``,
+   stage times; the histogram at the level-0 regression slab (C 3) and
+   the split scan on it against their plain versions and bounds; at a
+   reduced size the kernel path against the plain path (predictions,
+   tree weights); two growths with the same draws, equal or not
+   (``regression_run_to_run_equal``, printed, not checked);
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
@@ -880,6 +896,392 @@ def streamed_phase(dev, xtr, ytr, xte, yte, wt, u, cfg, model, pred):
         path.unlink(missing_ok=True)
 
 
+class _Kill(Exception):
+    """The simulated crash of phase 5c, raised from ``on_level`` after the
+    level's checkpoint is durable."""
+
+
+def checkpoint_phase(dev, xbt, yt, wt, fmask, rcfg, forest):
+    """5c. Checkpoints at full size, in a directory under ``build/`` that is
+    removed at the end. The replay's binned data, weights and mask:
+
+    (a) resident ``grow_forest_checkpointed`` (``checkpoint_every`` 1,
+        keep 3) killed from ``on_level`` at level 4, then resumed: the
+        resumed run's first level is 5 and the forest equals the
+        replay's reuse-off forest (phase 5's) bitwise;
+    (b) the newest step corrupted with ``CheckpointCorruptor(seed=0)``,
+        resumed: the walk-back warns, regrows level 4, same forest;
+    (c) the same kill and resume on the streamed path (``sample_block``
+        131072 from the replay's exact bins in pinned host blocks): its
+        forest equals phase 5b's exact-bins streamed forest, which is the
+        resident one;
+    (d) the bytes of one resident step, a save's seconds split into the
+        device-to-host copy, CRC32 and ``np.save`` (one thread, as
+        ``save_checkpoint`` does them), a whole ``save_checkpoint`` and a
+        restore; growth with a checkpoint every level against none, in
+        turns; the histogram and split-scan launches of one resumed
+        growth.
+    """
+    import shutil
+    import warnings
+    import zlib
+
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+    from repro_torch.checkpoint.checkpoint import _flatten, _to_host
+    from repro_torch.core import api, engine
+    from repro_torch.core.forest import grow_forest, grow_forest_checkpointed
+    from repro_torch.core.histograms import class_channels
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.launch.fault import CheckpointCorruptor
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    fields = type(forest).FIELDS[:-1]          # tree_weight is set after growth
+    kill_at = 4
+
+    def same(f, what):
+        for name in fields:
+            check(torch.equal(getattr(f, name), getattr(forest, name)), f"{what}: {name} differs")
+
+    def killed(grow, d):
+        """Run ``grow`` with a checkpoint every level until the kill; return
+        the carry that the last checkpoint holds (the level-4 state)."""
+        held = {}
+
+        def boom(level, state):
+            if level == kill_at:
+                held["state"] = state
+                raise _Kill
+
+        try:
+            grow(manager=CheckpointManager(str(d), keep=3, save_interval=1), on_level=boom)
+        except _Kill:
+            return held.get("state")
+        raise AssertionError("checkpoint phase: the kill at level 4 did not fire")
+
+    def resumed(grow, d):
+        levels = []
+        return grow(resume_from=str(d), on_level=lambda level, _: levels.append(level)), levels
+
+    try:
+        res = {}
+
+        def grow_r(**kw):
+            return grow_forest_checkpointed(xbt, yt, wt, rcfg, fmask, device=dev, **kw)
+
+        # (a) resident kill at level 4 and resume
+        d = root / "resident"
+        (state, t_kill) = sync_time(lambda: killed(grow_r, d))
+        hist_ops.launches = scan_ops.launches = 0
+        (f, levels), t_res = sync_time(lambda: resumed(grow_r, d))
+        counts = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}
+        check(levels[0] == kill_at + 1, f"resident resume started at level {levels[0]}, want 5")
+        for name, n in counts.items():
+            check(n > 0, f"checkpoint phase: {name} was not launched on the resumed growth")
+        same(f, "resident resume after a kill at level 4")
+        del f
+        log(f"checkpoint phase (a): resident growth killed at level 4 ({t_kill:.3f} s with a checkpoint a "
+            f"level), resumed at level {levels[0]} ({t_res:.3f} s, launches {counts}): forest bitwise equal "
+            "to the replay's")
+        res.update(resident_kill_s=t_kill, resident_resume_s=t_res, resume_launches=counts)
+
+        # (d) one step's bytes, a save split into its parts, a restore
+        step_dir = d / f"step_{kill_at:08d}"
+        step_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        leaves = _flatten(state)
+        host, t_d2h = sync_time(lambda: [_to_host(leaf) for _, leaf in leaves])
+        t0 = time.perf_counter()
+        for a in host:
+            zlib.crc32(np.ascontiguousarray(a).data)
+        t_crc = time.perf_counter() - t0
+        scratch = root / "split"
+        scratch.mkdir()
+        t0 = time.perf_counter()
+        for i, a in enumerate(host):
+            np.save(scratch / f"leaf_{i:05d}.npy", a)
+        t_npsave = time.perf_counter() - t0
+        del host
+        _, t_save = sync_time(lambda: save_checkpoint(state, str(root / "whole"), kill_at))
+        like = engine.init_growth_state(class_channels(yt, rcfg.n_classes), wt, rcfg,
+                                        engine.LocalPlane(fmask), n_features=xbt.shape[1])
+        _, t_restore = sync_time(lambda: restore_checkpoint(like, str(d), kill_at, device=dev))
+        del like, state
+        log(f"checkpoint phase (d): one resident step {step_bytes} bytes ({step_bytes / 2**20:.1f} MiB, of "
+            f"which sample_slot {tuple(wt.shape)} int32 is {wt.numel() * 4 / 2**20:.0f} MiB); a save: "
+            f"device-to-host {t_d2h:.4f} s, CRC32 {t_crc:.4f} s, np.save {t_npsave:.4f} s; save_checkpoint "
+            f"{t_save:.4f} s; restore (verified, onto the card) {t_restore:.4f} s")
+        res.update(step_bytes=step_bytes, save_d2h_s=t_d2h, save_crc32_s=t_crc, save_npsave_s=t_npsave,
+                   save_checkpoint_s=t_save, restore_s=t_restore)
+        del leaves
+
+        # (b) the newest step corrupted, resumed
+        check(CheckpointCorruptor(seed=0).corrupt(str(d)) == kill_at, "corruptor: not the newest step")
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            (f, levels), t_bad = sync_time(lambda: resumed(grow_r, d))
+        check(any("skipping corrupt checkpoint" in str(w.message) for w in warned),
+              "corrupted resume: no walk-back warning")
+        check(levels[0] == kill_at, f"corrupted resume started at level {levels[0]}, want 4")
+        same(f, "resident resume after corrupting the newest step")
+        del f
+        log(f"checkpoint phase (b): newest step corrupted, the walk-back warned and resumed at level "
+            f"{levels[0]} ({t_bad:.3f} s): forest bitwise equal")
+        res["corrupted_resume_s"] = t_bad
+
+        # growth with a checkpoint every level against none, in turns
+        turns = {"checkpoint": [], "none": []}
+        for i in range(4):
+            mode = ("checkpoint", "none")[i % 2]
+            dd = root / f"turn{i}"
+            _, t = sync_time(lambda: grow_forest_checkpointed(
+                xbt, yt, wt, rcfg, fmask, device=dev,
+                manager=CheckpointManager(str(dd), keep=3, save_interval=1) if mode == "checkpoint" else None))
+            turns[mode].append(t)
+            shutil.rmtree(dd, ignore_errors=True)
+        _, t_plain = sync_time(lambda: grow_forest(xbt, yt, wt, rcfg, fmask, device=dev))
+        log(f"checkpoint phase: growth in turns, a checkpoint every level / none (s): {turns['checkpoint']} / "
+            f"{turns['none']}; grow_forest {t_plain:.4f} s")
+        res.update(growth_turns_s=turns, grow_forest_s=t_plain)
+
+        # (c) streamed: the replay's exact bins in pinned host blocks
+        nb = STREAM_BLOCK
+        scfg = dataclasses.replace(rcfg, sample_block=nb)
+        blocks = [torch.empty((min(nb, xbt.shape[0] - o), xbt.shape[1]), dtype=torch.uint8,
+                              pin_memory=True).copy_(xbt[o:o + nb]) for o in range(0, xbt.shape[0], nb)]
+        y_host, w_host = yt.cpu().numpy(), wt.cpu().numpy()
+
+        def grow_s(**kw):
+            return api.grow_forest_streamed(blocks, y_host, w_host, scfg, fmask, device=dev, **kw)
+
+        ds = root / "streamed"
+        _, t_kill_s = sync_time(lambda: killed(grow_s, ds))
+        step_bytes_s = sum(p.stat().st_size for p in (ds / f"step_{kill_at:08d}").iterdir())
+        (f, levels), t_res_s = sync_time(lambda: resumed(grow_s, ds))
+        check(levels[0] == kill_at + 1, f"streamed resume started at level {levels[0]}, want 5")
+        same(f, "streamed resume after a kill at level 4 (phase 5b's exact-bins forest)")
+        del f, blocks
+        log(f"checkpoint phase (c): streamed growth (sample_block {nb}) killed at level 4 ({t_kill_s:.3f} s), "
+            f"one step {step_bytes_s / 2**20:.1f} MiB, resumed at level {levels[0]} ({t_res_s:.3f} s): forest "
+            "bitwise equal to phase 5b's exact-bins streamed forest")
+        res.update(streamed_kill_s=t_kill_s, streamed_resume_s=t_res_s, streamed_step_bytes=step_bytes_s)
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# Held-out R^2 floor of phase 5d: the JAX reference's 0.8168435 on the CPU,
+# trained on 40,000 of the phase's training rows with the same configuration
+# and scored on its test rows (tools/reference_r2_floor.py), less a margin of
+# 0.04, as phase 5's accuracy floor is set.
+R2_FLOOR = 0.78
+
+
+def _r2(pred, y):
+    return 1.0 - float(np.mean((pred.astype(np.float64) - y) ** 2) / np.var(y.astype(np.float64)))
+
+
+def tied_divergences(fa, fb, xb, y, w, what):
+    """Two regression forests from the same draws, compared on the host
+    (``tests/test_torch_regression_ties.py``): every split where they
+    diverge is a tie to float rounding (float64 gains within
+    ``TIE_TOL * sqrt(m)`` of the node's sum of ``w y^2``, m its in-bag
+    rows) and matched leaves agree to rounding; fails otherwise."""
+    from test_torch_regression_ties import compare_regression_forests
+
+    names = ("feature", "threshold", "left_child", "value")
+    host = [{n: getattr(f, n).cpu().numpy() for n in names} for f in (fa, fb)]
+    out = compare_regression_forests(*host, np.asarray(xb.cpu() if torch.is_tensor(xb) else xb), np.asarray(y),
+                                     w.cpu().numpy())
+    check(not out["untied"], f"{what}: divergences that are not ties to float rounding: {out['untied'][:4]}")
+    check(not out["leaves_off"], f"{what}: matched leaves differ: {out['leaves_off'][:4]}")
+    gaps = [abs(ga - gb) / allowed for _, _, _, ga, gb, allowed in out["divergences"] if allowed > 0]
+    out.update(diverged_trees=int(out["divergent"].any(1).sum()), tie_gap_share=max(gaps, default=0.0))
+    return out
+
+
+def regression_phase(dev, timings):
+    """5d. Regression at full size: ``make_regression(1,310,720 x 128,
+    n_informative=12, noise=0.1, seed=0)`` split 80/20,
+    ``ForestConfig(n_trees=32, max_depth=8, n_bins=64, regression=True)``
+    (``hist_reuse`` "auto" resolves off):
+
+    (a) ``train_prf`` + ``predict`` on the kernels, the three PRF kernels'
+        launch counts set to 0 just before and read just after, held-out
+        R^2 >= ``R2_FLOOR``; a staged replay's stage times (binning,
+        bootstrap, growth, OOB R^2, predict);
+    (b) the histogram at the level-0 regression slab (C 3: ``[1, y, y^2]``
+        channels, float atomics) beside its plain version and bound, within
+        1e-5 of the plain version's largest entry;
+    (c) the split scan on that carry (variance gains), winners equal to the
+        plain version's, gains within 1e-5;
+    (d) reduced (N 65536, F 32, 8 trees, depth 6): the kernel path against
+        the plain path: every split where their trees diverge a tie to
+        float rounding (``tied_divergences``), and with no divergence the
+        predictions within rtol 1e-5 and 1e-5 of their scale; tree weights
+        (of the trees that did not diverge) within 1e-6;
+    (e) two growths with the replay's draws: whether they are bitwise equal
+        (``regression_run_to_run_equal``, printed), whether their trees
+        are, and every divergence a tie (checked).
+    """
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.core import engine
+    from repro_torch.core.binning import apply_bins, bin_dataset
+    from repro_torch.core.dsi import bootstrap_counts
+    from repro_torch.core.forest import grow_forest
+    from repro_torch.core.histograms import hist_feature_slab, regression_channels, slot_order
+    from repro_torch.core.voting import oob_r2, predict_regression
+    from repro_torch.data.tabular import make_regression, train_test_split
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
+
+    (x, y), t_data = sync_time(lambda: make_regression(
+        n_samples=1_310_720, n_features=128, n_informative=12, noise=0.1, seed=0))
+    xtr, ytr, xte, yte = train_test_split(x, y, 0.2, 0)
+    del x, y
+    cfg = ForestConfig(n_trees=32, max_depth=8, n_bins=64, regression=True)
+    rcfg = cfg.resolved(xtr.shape[1])
+    check(not engine.resolve_hist_reuse(rcfg, xtr.shape[1]), "regression: hist_reuse auto did not resolve off")
+
+    # (a) the main path
+    for m in (hist_ops, scan_ops, trav_ops):
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = train_prf(xtr, ytr, cfg, 0, device=dev)
+    pred = model.predict(xte)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    counts = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches,
+              "tree_traverse": trav_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in counts.items():
+        check(n > 0, f"{name} was not launched on the regression path")
+    check(pred.dtype == np.float32 and pred.shape == yte.shape and np.isfinite(pred).all(),
+          "regression predictions: not finite float32 of the test rows' shape")
+    r2 = _r2(pred, yte)
+    check(r2 >= R2_FLOOR, f"full-size regression held-out R^2 {r2} < {R2_FLOOR}")
+    log(f"regression main path (data {t_data:.2f} s, host): train_prf + predict {t_main:.3f} s, held-out R^2 "
+        f"{r2:.7f} (floor {R2_FLOOR}), launches {counts}, levels run {engine.levels_run(model.forest)}, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+
+    stages = {}
+    (xbt, edges), stages["binning"] = sync_time(lambda: bin_dataset(xtr, rcfg.n_bins, device=dev))
+    check(np.array_equal(edges, model.bin_edges), "regression replay: edges differ")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    wt, stages["bootstrap"] = sync_time(lambda: bootstrap_counts(gen, rcfg.n_trees, xtr.shape[0], dev))
+    yt = torch.from_numpy(ytr).to(dev)
+    fa, stages["growth"] = sync_time(lambda: grow_forest(xbt, yt, wt, rcfg, None, device=dev))
+    fa.tree_weight, stages["oob_r2"] = sync_time(lambda: oob_r2(fa, xbt, yt, wt))
+    xbe = apply_bins(torch.from_numpy(xte).to(dev), torch.from_numpy(edges).to(dev))
+    _, stages["predict"] = sync_time(lambda: predict_regression(fa, xbe))
+    log("regression stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    # (e) two growths with the same draws: bitwise equal or not; every
+    # split where they diverge must be a tie to float rounding
+    fb, t_b = sync_time(lambda: grow_forest(xbt, yt, wt, rcfg, None, device=dev))
+    structure = ("feature", "threshold", "left_child")
+    run_to_run = all(torch.equal(getattr(fa, n), getattr(fb, n)) for n in type(fa).FIELDS[:-1])
+    trees_equal = all(torch.equal(getattr(fa, n), getattr(fb, n)) for n in structure)
+    main_trees_equal = all(torch.equal(getattr(fa, n), getattr(model.forest, n)) for n in structure)
+    n_split = int((fa.feature[:, :rcfg.max_nodes] >= 0).sum())
+    cmp, t_cmp = sync_time(lambda: tied_divergences(fa, fb, xbt, ytr, wt, "two regression growths"))
+    log(f"regression_run_to_run_equal: {run_to_run} (two growths with the same draws, {t_b:.3f} s the second); "
+        f"trees equal {trees_equal}; {len(cmp['divergences'])} divergent splits of {n_split}, in "
+        f"{cmp['diverged_trees']} of {rcfg.n_trees} trees, every one a tie to float rounding (largest gap "
+        f"{cmp['tie_gap_share']:.3g} of its allowance; checked in {t_cmp:.1f} s on the host); matched leaves max "
+        f"|d value| {cmp['leaf_value_max_abs']:.3g}; the replay's trees equal train_prf's: {main_trees_equal}")
+    del fb
+
+    # (b) the histogram at the level-0 regression slab
+    k, Ntr, Fall = rcfg.n_trees, xtr.shape[0], xtr.shape[1]
+    S, B, C = rcfg.frontier, rcfg.n_bins, 3
+    W = hist_feature_slab(Ntr, Fall, S, B, C)
+    xs = xbt[:, :W]
+    base = regression_channels(yt)
+    slot0 = torch.zeros((k, Ntr), dtype=torch.int32, device=dev)
+    order = slot_order(slot0, wt, S)
+    hk = hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B, order=order)
+    hp = multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B)
+    h_err, h_scale = max_abs(hk, hp), float(hp.abs().max())
+    check(h_err <= 1e-5 * h_scale, f"regression histogram: max |d| {h_err} > 1e-5 x {h_scale}")
+    t = timed("histogram, regression level 0", lambda: hist_ops.multi_tree_hist(
+        xs, base, wt, slot0, n_slots=S, n_bins=B, order=order), "hist_kernel", timings)
+    p_ms = cuda_ms(lambda: multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B), reps=2, warmup=1)
+    live = int((wt > 0).sum())
+    nbytes = Ntr * W + Ntr * C * 4 + 2 * k * Ntr * 4 + hk.numel() * 4
+    nops = 2 * live * W * C
+    bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
+    hist_r = {**t, "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
+              nops / F32_OPS_PER_S else "operations", "max_abs_err": h_err, "scale": h_scale, "W": W}
+    log(f"regression histogram at [{k}, {Ntr}, {W}], S {S}, C {C}, level 0: call {t['ms']:.4f} ms, kernel "
+        f"{fmt_ms(t['kernel_ms'])} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms by {hist_r['bound_by']}, share "
+        f"{bound / t['ms']:.3f}; max |d| {h_err:.3g} of {h_scale:.4g}")
+    del hp
+
+    # (c) the split scan on the regression carry
+    mask = torch.ones((k, W), dtype=torch.bool, device=dev)
+    carry0 = init_carry(k, S, C, dev)
+    sk = scan_ops.split_scan_block(hk, mask, carry0, 0, regression=True)
+    sp = split_scan_block_ref(hk, mask, carry0, 0, regression=True)
+    check(torch.equal(sk[1], sp[1]) and torch.equal(sk[2], sp[2]),
+          "regression split scan: winners differ from the plain version")
+    g_err = max_abs(sk[0], sp[0])
+    torch.testing.assert_close(sk[0], sp[0], rtol=1e-5, atol=1e-5)
+    ts = timed("split scan, regression level 0", lambda: scan_ops.split_scan_block(
+        hk, mask, carry0, 0, regression=True), "split_scan_kernel", timings)
+    sp_ms = cuda_ms(lambda: split_scan_block_ref(hk, mask, carry0, 0, regression=True), reps=1, warmup=1)
+    scored = int((hk != 0).flatten(3).any(-1).sum())
+    ops_per_candidate = 20               # two sums of squares, three subtractions, compares
+    nbytes = k * W * S * B * C * 4 + mask.numel() + 2 * k * S * (3 * 4 + 2 * C * 4)
+    nops = scored * ((B - 1) * ops_per_candidate + B * C)
+    bound_s = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
+    scan_r = {**ts, "plain_ms": sp_ms, "bound_ms": bound_s, "max_abs_err": g_err, "scored_features": scored}
+    log(f"regression split scan at [{k}, {S}, {W}, {B}, {C}], level 0: call {ts['ms']:.4f} ms, kernel "
+        f"{fmt_ms(ts['kernel_ms'])} ms, plain {sp_ms:.4f} ms, bound {bound_s:.4f} ms, winners equal to the "
+        f"plain version, gain max |d| {g_err:.3g}")
+    del hk, sk, sp, xbt, xbe
+
+    # (d) reduced: kernel path against plain path (the plain path's CUDA
+    # index_add_ sums the float channels by atomics too)
+    xr, yr = make_regression(n_samples=65_536, n_features=32, n_informative=8, noise=0.1, seed=2)
+    cfg_k = ForestConfig(n_trees=8, max_depth=6, n_bins=64, regression=True)
+    cfg_p = dataclasses.replace(cfg_k, hist_backend="segment_sum", split_backend="xla", predict_backend="xla")
+    mk, mp = train_prf(xr, yr, cfg_k, 5, device=dev), train_prf(xr, yr, cfg_p, 5, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)                       # train_prf's own draw of the DSI weights
+    wr = bootstrap_counts(gen, cfg_k.n_trees, xr.shape[0], dev)
+    red = tied_divergences(mk.forest, mp.forest, mk._binned(xr), yr, wr, "reduced regression, kernel vs plain")
+    same = ~red["divergent"].any(1)
+    w_err = max_abs(mk.forest.tree_weight[same], mp.forest.tree_weight[same]) if same.any() else 0.0
+    check(w_err <= 1e-6, f"reduced regression: tree weights differ by {w_err}")
+    pk, pp = mk.predict(xr), mp.predict(xr)
+    scale, p_err = float(np.abs(pp).max()), float(np.abs(pk - pp).max())
+    if not red["divergences"]:
+        check(np.allclose(pk, pp, rtol=1e-5, atol=1e-5 * scale),
+              f"reduced regression: predictions differ by {p_err}")
+    red_trees = all(torch.equal(getattr(mk.forest, n), getattr(mp.forest, n)) for n in structure)
+    log(f"reduced regression (N 65536, F 32, k 8, depth 6), kernel path vs plain path: trees equal {red_trees} "
+        f"({len(red['divergences'])} tied divergences), predictions max |d| {p_err:.3g} (scale {scale:.4g}"
+        f"{', within rtol 1e-5' if not red['divergences'] else ', not compared: trees diverge at a tie'}), tree "
+        f"weights of the {int(same.sum())} trees that did not diverge max |d| {w_err:.3g}")
+    torch.cuda.empty_cache()
+    return {"launches": counts, "main_path_s": t_main, "r2": r2, "r2_floor": R2_FLOOR, "peak_bytes": peak,
+            "stages_s": stages, "run_to_run_equal": run_to_run, "run_to_run_trees_equal": trees_equal,
+            "run_to_run_divergences": len(cmp["divergences"]), "run_to_run_diverged_trees": cmp["diverged_trees"],
+            "run_to_run_tie_gap_share": cmp["tie_gap_share"], "splits": n_split,
+            "run_to_run_leaf_value_max_abs": cmp["leaf_value_max_abs"],
+            "replay_trees_equal_main": main_trees_equal, "hist_level0": hist_r, "split_scan_level0": scan_r,
+            "reduced": {"pred_max_abs": p_err, "scale": scale, "tree_weight_max_abs": w_err,
+                        "trees_equal": red_trees, "divergences": len(red["divergences"])}}
+
+
 def traverse_batch_ab(src: str) -> int:
     """``--traverse-ab``: the traversal at a 256-row request batch, alone
     (F 128, 32 trees, depth 8, P 2050, C 4: the smoke forest's shape, a
@@ -1292,6 +1694,10 @@ def main() -> int:
     for row in rows:
         row["launches_streamed"] = streamed["launches"].get(row["name"])
 
+    # 5c. checkpoints at full size; 5d. regression at full size -----------------
+    checkpoints = checkpoint_phase(dev, xbt, yt, wt, fmask, rcfg, forest)
+    regression = regression_phase(dev, timings)
+
     # 6. full size, LM serving ----------------------------------------------------
     lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
@@ -1305,12 +1711,15 @@ def main() -> int:
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
-              "streamed": streamed, "timings": timings}
+              "streamed": streamed, "checkpoints": checkpoints, "regression": regression,
+              "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     log("launch counts on the main path: " + json.dumps(counts))
     log("launch counts on the streamed path: " + json.dumps(streamed["launches"]))
+    log("launch counts on the resumed growth (5c): " + json.dumps(checkpoints["resume_launches"]))
+    log("launch counts on the regression path (5d): " + json.dumps(regression["launches"]))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ selection — and hands them to ``fit_prf_from_draws``, which does
 everything else. That split is where tests feed in the reference's JAX
 draws. With ``config.sample_block > 0`` it runs the streamed trainer:
 ``x`` may be an ``np.memmap``, and the ``[N, F]`` matrix never sits on
-the device whole.
+the device whole. Both trainers checkpoint growth after every level
+(``checkpoint_dir``) and resume from the newest valid checkpoint
+(``resume_from``); ``config.regression`` trains on float targets with
+OOB R^2 tree weights.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed.
 """
@@ -32,15 +35,14 @@ from .engine import (
     LocalPlane, _safe_mean, finalize_forest, init_forest, init_hist_cache, next_frontier,
     plan_level, resolve_hist_reuse, reuse_expand_scores, stream_block_step, write_level,
 )
-from .forest import grow_forest
-from .gain import level_scores, sibling_plan
+from .forest import grow_forest, grow_forest_checkpointed
+from .gain import SplitScores, level_scores, sibling_plan
 from .histograms import class_channels, regression_channels
 from .types import Forest, ForestConfig
 from .voting import (
-    oob_accuracy, oob_accuracy_streamed, predict, predict_regression, predict_scores,
+    oob_accuracy, oob_accuracy_streamed, oob_r2, oob_r2_streamed, predict, predict_regression,
+    predict_scores,
 )
-
-_CHECKPOINT_ITEM = "ROADMAP.md Queue 1 item 8"
 
 
 @dataclasses.dataclass
@@ -104,17 +106,21 @@ class PRFModel:
         )
 
 
-def _check_supported(config: ForestConfig) -> None:
-    if config.regression:
-        raise NotImplementedError(
-            "regression=True in train_prf is not ported yet (end-to-end regression: "
-            "ROADMAP.md Queue 1 item 5, remainder)"
-        )
+def _check_supported() -> None:
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(
             "multi-process training is not ported yet: ROADMAP.md Queue 1 item 10"
         )
+
+
+def _checkpoint_manager(checkpoint_dir: Optional[str], checkpoint_every: int,
+                        checkpoint_keep: int):
+    if checkpoint_dir is None:
+        return None
+    from ..checkpoint.checkpoint import CheckpointManager
+
+    return CheckpointManager(checkpoint_dir, keep=checkpoint_keep, save_interval=checkpoint_every)
 
 
 def train_prf(
@@ -127,7 +133,10 @@ def train_prf(
     feeder_opts: Optional[dict] = None,
     bad_block_policy: Optional[str] = "raise",
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_keep: int = 3,
     resume_from: Optional[str] = None,
+    on_level=None,
 ) -> PRFModel:
     """End-to-end PRF training on host data (paper §3 + §4 semantics).
 
@@ -137,25 +146,30 @@ def train_prf(
     ``fit_prf_from_draws``. With ``config.sample_block > 0`` that runs the
     streamed trainer (``x`` may be an ``np.memmap``); ``feeder_opts``
     goes to its ``BlockFeeder`` (retry, backoff, ``fault_hook``).
-    Checkpointed growth (``checkpoint_dir`` / ``resume_from``) is not
-    ported yet and raises.
+
+    **Crash resume.** ``checkpoint_dir`` checkpoints the growth carry
+    every ``checkpoint_every`` levels (``checkpoint_keep`` rotated
+    atomic-rename checkpoints); ``resume_from`` restores the newest
+    CRC-verified carry from that directory and continues. Everything
+    before growth is a deterministic function of ``(x, y, config, seed,
+    device)`` and is recomputed, so the resumed model equals an
+    uninterrupted one bitwise. An empty or all-corrupt ``resume_from``
+    is a fresh start. ``on_level(level, _)`` fires after each completed
+    (checkpointed) level.
     """
-    if checkpoint_dir is not None or resume_from is not None:
-        raise NotImplementedError(
-            "checkpointed growth (checkpoint_dir / resume_from) is not ported yet: "
-            + _CHECKPOINT_ITEM
-        )
     dev = resolve_device(device)
     N, F = np.shape(x)
     config = config.resolved(F)
-    _check_supported(config)
+    _check_supported()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     weights = bootstrap_counts(gen, config.n_trees, N, dev)          # DSI §4.1.2
     u = torch.rand((config.n_trees, F), generator=gen, device=dev)
     return fit_prf_from_draws(
         x, y, config, weights, u, device=dev, feeder_opts=feeder_opts,
-        bad_block_policy=bad_block_policy,
+        bad_block_policy=bad_block_policy, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+        resume_from=resume_from, on_level=on_level,
     )
 
 
@@ -169,15 +183,22 @@ def fit_prf_from_draws(
     device=None,
     feeder_opts: Optional[dict] = None,
     bad_block_policy: Optional[str] = "raise",
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    checkpoint_keep: int = 3,
+    resume_from: Optional[str] = None,
+    on_level=None,
 ) -> PRFModel:
     """Everything of ``train_prf`` after the random draws: validation,
-    binning, dimension reduction, growth and OOB tree weights; streamed
+    binning, dimension reduction (classification only), growth
+    (checkpointed with ``checkpoint_dir`` / ``resume_from``) and OOB tree
+    weights (accuracy, or R^2 for regression); streamed
     (``_fit_streamed``) when ``config.sample_block > 0``. ``x`` is not
     copied as a whole (an ``np.memmap`` stays on disk)."""
     dev = resolve_device(device)
     y = np.asarray(y)
     config = config.resolved(np.shape(x)[1])
-    _check_supported(config)
+    _check_supported()
     weights = as_tensor(weights, dev, torch.float32)
     u = as_tensor(u, dev, torch.float32)
     k, (N, F) = config.n_trees, np.shape(x)
@@ -186,8 +207,11 @@ def fit_prf_from_draws(
             f"need weights [{k}, {N}], u [{k}, {F}] and y [{N}]; got weights "
             f"{tuple(weights.shape)}, u {tuple(u.shape)}, y {y.shape}"
         )
+    manager = _checkpoint_manager(checkpoint_dir, checkpoint_every, checkpoint_keep)
     if config.sample_block > 0:
-        return _fit_streamed(x, y, config, weights, u, dev, feeder_opts, bad_block_policy)
+        return _fit_streamed(x, y, config, weights, u, dev, feeder_opts, bad_block_policy,
+                             manager, resume_from, on_level)
+    n_classes = None if config.regression else config.n_classes
 
     x = np.asarray(x)
     report, cell_mask, label_mask = None, None, None
@@ -196,7 +220,7 @@ def fit_prf_from_draws(
 
         blocks1, y_clean, cmasks, lmasks, report = screen_blocks(
             [x], y, policy=bad_block_policy, n_features=x.shape[1],
-            n_classes=config.n_classes, regression=False,
+            n_classes=n_classes, regression=config.regression,
         )
         if not report.clean:
             if bad_block_policy == "quarantine":
@@ -224,24 +248,29 @@ def fit_prf_from_draws(
         xb, edges = bin_dataset(x, config.n_bins, device=dev)
     if cell_mask is not None:
         xb[torch.from_numpy(cell_mask).to(dev)] = 0          # imputed cells -> bin 0
-    y_t = as_tensor(y, dev)
+    y_t = as_tensor(y, dev, torch.float32 if config.regression else None)
     if label_mask is not None:
         weights = torch.where(torch.from_numpy(label_mask).to(dev)[None, :], 0.0, weights)
 
     feature_mask = None
-    if config.feature_mode == "importance":
+    if config.feature_mode == "importance" and not config.regression:
         feature_mask = dimension_reduction(xb, y_t, weights, config, u)     # §3.2
     elif config.feature_mode == "random":
         feature_mask = random_feature_mask(u, n_selected=config.n_selected)
 
-    forest = grow_forest(xb, y_t, weights, config, feature_mask, device=dev)  # §4.2
+    if manager is not None or resume_from is not None:                    # §4.2
+        forest = grow_forest_checkpointed(xb, y_t, weights, config, feature_mask, manager=manager,
+                                          resume_from=resume_from, on_level=on_level, device=dev)
+    else:
+        forest = grow_forest(xb, y_t, weights, config, feature_mask, device=dev)
 
     if config.weighted_voting:                                            # §3.3
         xb_o, y_o, w_o = xb, y_t, weights
         if label_mask is not None:
             keep = torch.from_numpy(np.flatnonzero(~label_mask)).to(dev)
             xb_o, y_o, w_o = xb_o[keep], y_o[keep], w_o[:, keep]
-        forest.tree_weight = oob_accuracy(forest, xb_o, y_o, w_o)
+        oob = oob_r2 if config.regression else oob_accuracy
+        forest.tree_weight = oob(forest, xb_o, y_o, w_o)
     return PRFModel(forest=forest, bin_edges=edges, quarantine=report)
 
 
@@ -252,7 +281,8 @@ def fit_prf_from_draws(
 
 def _fit_streamed(x, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
                   u: torch.Tensor, dev: torch.device, feeder_opts: Optional[dict],
-                  bad_block_policy: Optional[str]) -> PRFModel:
+                  bad_block_policy: Optional[str], manager, resume_from: Optional[str],
+                  on_level) -> PRFModel:
     """``fit_prf_from_draws`` over the streaming data plane (reference:
     ``repro/core/api.py:_train_prf_streamed``, after its draws).
 
@@ -267,7 +297,8 @@ def _fit_streamed(x, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
     cells go to bin 0, sanitized labels get zero DSI weight and leave
     the OOB sums, and quarantined blocks leave every sweep and the edge
     fit, all decided once. On clean data every input is untouched, so
-    the model equals the one with validation off bitwise.
+    the model equals the one with validation off bitwise. ``manager``,
+    ``resume_from`` and ``on_level`` go to ``grow_forest_streamed``.
     """
     nb = config.sample_block
     N, F = np.shape(x)
@@ -279,7 +310,8 @@ def _fit_streamed(x, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
 
         raw_blocks, y_host, cell_masks, label_masks, report = screen_blocks(
             raw_blocks, y_host, policy=bad_block_policy, n_features=F,
-            n_classes=config.n_classes, regression=False,
+            n_classes=None if config.regression else config.n_classes,
+            regression=config.regression,
         )
         quar = frozenset(report.quarantined)
         if len(quar) == len(raw_blocks):
@@ -317,7 +349,7 @@ def _fit_streamed(x, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
     w_host = weights.cpu().numpy()
 
     feature_mask = None
-    if config.feature_mode == "importance":                               # §3.2
+    if config.feature_mode == "importance" and not config.regression:     # §3.2
         rows = [np.arange(i * nb, i * nb + xb_blocks[i].shape[0]) for i in good]
         sel = np.concatenate(rows) if quar else slice(None)
         feature_mask = dimension_reduction_streamed(
@@ -328,7 +360,8 @@ def _fit_streamed(x, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
 
     forest = grow_forest_streamed(                                         # §4.2
         xb_blocks, y_host, w_host, config, feature_mask, device=dev,
-        feeder_opts=feeder_opts, quarantined=sorted(quar),
+        feeder_opts=feeder_opts, quarantined=sorted(quar), manager=manager,
+        resume_from=resume_from, on_level=on_level,
     )
 
     if config.weighted_voting:                                             # §3.3
@@ -346,7 +379,8 @@ def _fit_streamed(x, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
                     keep_rows.append(i * nb + np.flatnonzero(keep))
             keep_rows = np.concatenate(keep_rows)
             o_y, o_w = y_host[keep_rows], w_host[:, keep_rows]
-        forest.tree_weight = oob_accuracy_streamed(forest, o_blocks, o_y, o_w)
+        oob = oob_r2_streamed if config.regression else oob_accuracy_streamed
+        forest.tree_weight = oob(forest, o_blocks, o_y, o_w)
     return PRFModel(forest=forest, bin_edges=edges, quarantine=report)
 
 
@@ -414,6 +448,35 @@ def _stream_setup(x_binned, y, weights, config: ForestConfig, prefetch: int, dev
     return feeder, y_np, w_np, offsets
 
 
+def _stream_state_like(sizes: Sequence[int], config: ForestConfig, hist_width: int,
+                       dev: torch.device) -> dict:
+    """Structure template of the streamed growth checkpoint (reference:
+    ``repro/core/api.py:_stream_state_like``): the level loop's whole
+    carry. ``scores`` and ``split_rank`` are part of it because each
+    level's routing runs in the next level's block sweep, so resuming at
+    level L + 1 needs level L's plan. One slot table per block,
+    quarantined ones too (zeros), so the structure does not depend on
+    which blocks were quarantined. ``hist_width > 0`` adds the reuse
+    cache; with reuse off the entry is ``None`` (no leaf)."""
+    k, S = config.n_trees, config.frontier
+    C = 3 if config.regression else config.n_classes
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {
+        "forest": init_forest(config, dev),
+        "slot_node": zeros(k, S),
+        "scores": SplitScores(zeros(k, S, dtype=torch.float32), zeros(k, S), zeros(k, S),
+                              zeros(k, S, C, dtype=torch.float32),
+                              zeros(k, S, C, dtype=torch.float32)),
+        "split_rank": zeros(k, S),
+        "slots": [zeros(k, n) for n in sizes],
+        "level": 0,
+        "hist_cache": init_hist_cache(config, hist_width, dev) if hist_width > 0 else None,
+    }
+
+
 def grow_forest_streamed(
     x_binned,
     y,
@@ -448,20 +511,23 @@ def grow_forest_streamed(
     DSI counts are integers, so the forest equals the resident
     ``grow_forest``'s array for array; regression agrees to rounding.
     ``quarantined`` blocks (plus any a ``validator`` in ``feeder_opts``
-    flags) are never transferred, routed or histogrammed. Checkpointing
-    (``manager``, ``resume_from``, ``on_level``) is not ported yet.
+    flags) are never transferred, routed or histogrammed.
 
-    ``stats``, a dict, receives ``levels_s`` (each level's seconds on the
-    host clock, between the level loop's own synchronising early-exit
-    checks; the last one ends in a synchronise), ``feed_wait_s`` (the
-    growth sweeps' summed wait for the feed, ``BlockFeeder.wait_s``) and
-    ``retries``.
+    **Checkpointing.** ``manager`` saves the loop's whole carry
+    (``_stream_state_like``) after each level, as step ``level + 1``;
+    ``resume_from`` restores the newest CRC-verified carry
+    (``restore_latest_valid``: a corrupt or torn step is skipped) and the
+    loop continues at the restored level with the restored plan, giving
+    the uninterrupted forest bitwise. An empty or all-corrupt directory
+    is a fresh start. ``on_level(level + 1, forest)`` fires after each
+    level's checkpoint.
+
+    ``stats``, a dict, receives ``levels_s`` (the seconds of each level
+    this call ran, on the host clock, between the level loop's own
+    synchronising early-exit checks; the last one ends in a synchronise),
+    ``feed_wait_s`` (the growth sweeps' summed wait for the feed,
+    ``BlockFeeder.wait_s``) and ``retries``.
     """
-    if manager is not None or resume_from is not None or on_level is not None:
-        raise NotImplementedError(
-            "checkpointed streamed growth (manager / resume_from / on_level) is not ported "
-            "yet: " + _CHECKPOINT_ITEM
-        )
     dev = resolve_device(device)
     feeder, y_np, w_np, offsets = _stream_setup(
         x_binned, y, weights, config, prefetch, dev, feeder_opts, quarantined
@@ -474,20 +540,35 @@ def grow_forest_streamed(
     # step subtracts the large children from the cache.
     reuse = resolve_hist_reuse(config, F)
     n_rows = config.max_splits_per_level if reuse else S
-    cache = init_hist_cache(config, F, dev) if reuse else None
+    sizes = np.diff(offsets).tolist()
 
-    # Per-block constants, on the device once for the whole growth (none
-    # for a quarantined block).
-    base_dev, w_dev, slot_dev = {}, {}, {}
     try:
+        # Per-block constants, on the device once for the whole growth (none
+        # for a quarantined block).
+        base_dev, w_dev = {}, {}
         for i in feeder.live_blocks:
             o0, o1 = offsets[i], offsets[i + 1]
             base_dev[i] = _channels(feeder.pin(y_np[o0:o1]), config)
             w_dev[i] = feeder.pin(w_np[:, o0:o1])
-            slot_dev[i] = torch.zeros((k, o1 - o0), dtype=torch.int32, device=dev)
-        slot_node = torch.full((k, S), -1, dtype=torch.int32, device=dev)
-        slot_node[:, 0] = 0
-        forest = scores = split_rank = None
+        state = None
+        if resume_from is not None:
+            from ..checkpoint.checkpoint import restore_latest_valid
+
+            restored = restore_latest_valid(
+                _stream_state_like(sizes, config, F if reuse else 0, dev), resume_from, device=dev)
+            if restored is not None:
+                state = restored[0]
+        if state is not None:
+            forest, slot_node, scores = state["forest"], state["slot_node"], state["scores"]
+            split_rank, slot_dev, start = state["split_rank"], state["slots"], state["level"]
+            cache = state["hist_cache"]
+        else:
+            slot_dev = [torch.zeros((k, n), dtype=torch.int32, device=dev) for n in sizes]
+            slot_node = torch.full((k, S), -1, dtype=torch.int32, device=dev)
+            slot_node[:, 0] = 0
+            forest = scores = split_rank = None
+            cache = init_hist_cache(config, F, dev) if reuse else None
+            start = 0
 
         def level_sweep(route: bool) -> torch.Tensor:
             hist = torch.zeros((k, n_rows, F, B, C), dtype=torch.float32, device=dev)
@@ -500,9 +581,9 @@ def grow_forest_streamed(
             return hist
 
         t_level, live = time.perf_counter(), True
-        for level in range(config.max_depth):
+        for level in range(start, config.max_depth):
             live = bool((slot_node >= 0).any())
-            if stats is not None and level > 0:
+            if stats is not None and level > start:
                 now = time.perf_counter()
                 stats.setdefault("levels_s", []).append(now - t_level)
                 t_level = now
@@ -518,10 +599,18 @@ def grow_forest_streamed(
                 forest, scores, split_rank, slot_node = _stream_plan_write(
                     forest, slot_node, hist, mask, level, config)
             del hist
+            if manager is not None:
+                manager.maybe_save({
+                    "forest": forest, "slot_node": slot_node, "scores": scores,
+                    "split_rank": split_rank, "slots": slot_dev, "level": level + 1,
+                    "hist_cache": cache,
+                }, level + 1)
+            if on_level is not None:
+                on_level(level + 1, forest)
         if forest is None:                              # max_depth == 0: the root only
             forest = _stream_init(level_sweep(route=False), config)
         if stats is not None:
-            if live and config.max_depth > 0:           # the loop ran to max_depth
+            if live and start < config.max_depth:       # the loop ran to max_depth
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 stats.setdefault("levels_s", []).append(time.perf_counter() - t_level)

@@ -25,8 +25,10 @@ per feature slab (``fused_level_scores`` with the cache).
 With ``config.sample_block > 0`` every level histogram is accumulated
 over row blocks (``blocked_level_histograms``), and the streaming data
 plane (``core/api.grow_forest_streamed``) runs one ``stream_block_step``
-per (block, level). Not ported here: the mesh and multi-process planes
-and checkpointed growth (ROADMAP.md Queue 1 items 8-10).
+per (block, level). ``grow_checkpointed`` is the same loop with a
+checkpoint after every level and resume from the newest valid one. Not
+ported here: the mesh and multi-process planes (ROADMAP.md Queue 1
+items 9-10).
 """
 from __future__ import annotations
 
@@ -505,6 +507,54 @@ def grow(
         if config.early_exit and not bool((state.slot_node >= 0).any()):
             break
         state = level_step(x_binned, base_channels, weights, state, config, plane)
+    return finalize_forest(state.forest)
+
+
+def grow_checkpointed(
+    x_binned: torch.Tensor,
+    base_channels: torch.Tensor,
+    weights: torch.Tensor,
+    config: ForestConfig,
+    plane: CollectivePlane,
+    *,
+    manager=None,
+    resume_from: Optional[str] = None,
+    on_level=None,
+) -> Forest:
+    """``grow`` with per-level ``GrowthState`` checkpointing (reference:
+    ``repro/core/engine.py:grow_checkpointed``).
+
+    The same host loop over ``level_step``, so the forest equals
+    ``grow``'s. It runs while ``level < max_depth`` and any frontier slot
+    is live, whatever ``config.early_exit`` says (the levels it skips
+    change nothing). After each level the full carry goes to
+    ``manager.maybe_save(state, state.level)`` (``checkpoint.CheckpointManager``),
+    then ``on_level(level, state)`` fires, so a raise there is a crash at
+    the level boundary with the level's checkpoint durable.
+    ``resume_from`` names a checkpoint directory whose newest
+    CRC-verified step restores the carry (``restore_latest_valid``: a
+    corrupt or torn step is skipped) on the weights' device, and growth
+    continues from the level after it; an empty, missing or all-corrupt
+    directory is a fresh start.
+    """
+    state = None
+    if resume_from is not None:
+        from ..checkpoint.checkpoint import restore_latest_valid
+
+        like = init_growth_state(base_channels, weights, config, plane,
+                                 n_features=x_binned.shape[1])
+        restored = restore_latest_valid(like, resume_from, device=weights.device)
+        if restored is not None:
+            state, _ = restored
+    if state is None:
+        state = init_growth_state(base_channels, weights, config, plane,
+                                  n_features=x_binned.shape[1])
+    while state.level < config.max_depth and bool((state.slot_node >= 0).any()):
+        state = level_step(x_binned, base_channels, weights, state, config, plane)
+        if manager is not None:
+            manager.maybe_save(state, state.level)
+        if on_level is not None:
+            on_level(state.level, state)
     return finalize_forest(state.forest)
 
 

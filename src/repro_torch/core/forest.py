@@ -1,7 +1,8 @@
 """Single-device PRF training & prediction entry points (paper Alg. 4.2).
 
 Counterpart of ``repro/core/forest.py``. ``grow_forest`` runs the growth
-engine on a ``LocalPlane``; prediction walks the node pool either with
+engine on a ``LocalPlane`` (``grow_forest_checkpointed``: with a
+checkpoint after every level); prediction walks the node pool either with
 plain gathers (``route_to_leaves``) or with the fused traversal kernel
 (``fused_vote_scores``).
 """
@@ -12,9 +13,19 @@ from typing import Optional
 import torch
 
 from ..device import as_tensor, resolve_device
-from .engine import LocalPlane, _gather_feature_bins, grow
+from .engine import LocalPlane, _gather_feature_bins, grow, grow_checkpointed
 from .histograms import class_channels, regression_channels
 from .types import Forest, ForestConfig
+
+
+def _growth_inputs(x_binned, y, weights, config: ForestConfig, feature_mask, device):
+    dev = resolve_device(device)
+    xb = as_tensor(x_binned, dev, torch.uint8).contiguous()
+    y_t = as_tensor(y, dev)
+    w = as_tensor(weights, dev, torch.float32).contiguous()
+    mask = None if feature_mask is None else as_tensor(feature_mask, dev, torch.bool)
+    base = regression_channels(y_t) if config.regression else class_channels(y_t, config.n_classes)
+    return xb, base, w, LocalPlane(mask)
 
 
 def grow_forest(
@@ -28,13 +39,29 @@ def grow_forest(
 ) -> Forest:
     """Train k trees level-synchronously. Accepts numpy arrays or tensors;
     runs on ``cuda`` unless ``device="cpu"``."""
-    dev = resolve_device(device)
-    xb = as_tensor(x_binned, dev, torch.uint8).contiguous()
-    y_t = as_tensor(y, dev)
-    w = as_tensor(weights, dev, torch.float32).contiguous()
-    mask = None if feature_mask is None else as_tensor(feature_mask, dev, torch.bool)
-    base = regression_channels(y_t) if config.regression else class_channels(y_t, config.n_classes)
-    return grow(xb, base, w, config, LocalPlane(mask))
+    xb, base, w, plane = _growth_inputs(x_binned, y, weights, config, feature_mask, device)
+    return grow(xb, base, w, config, plane)
+
+
+def grow_forest_checkpointed(
+    x_binned,
+    y,
+    weights,
+    config: ForestConfig,
+    feature_mask=None,
+    *,
+    manager=None,
+    resume_from: Optional[str] = None,
+    on_level=None,
+    device=None,
+) -> Forest:
+    """``grow_forest`` with per-level checkpointing and crash resume
+    (``engine.grow_checkpointed``): the forest equals ``grow_forest``'s,
+    and a run resumed from any level's checkpoint finishes with the
+    trees an uninterrupted run grows."""
+    xb, base, w, plane = _growth_inputs(x_binned, y, weights, config, feature_mask, device)
+    return grow_checkpointed(xb, base, w, config, plane, manager=manager,
+                             resume_from=resume_from, on_level=on_level)
 
 
 def route_to_leaves(forest: Forest, x_binned: torch.Tensor) -> torch.Tensor:

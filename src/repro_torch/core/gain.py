@@ -38,6 +38,18 @@ def _csum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _bin_cumsum(hist: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over the bin axis (-2) in float32, left to right:
+    the reference's ``jnp.cumsum`` on the CPU and the split-scan kernel's
+    regression lanes. (``torch.cumsum`` on the CPU accumulates float32 in
+    float64: the same values for integer counts, other roundings for the
+    regression channels ``y`` and ``y^2``.)"""
+    cum = hist.clone()
+    for b in range(1, hist.shape[-2]):
+        cum[..., b, :] += cum[..., b - 1, :]
+    return cum
+
+
 def _fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding (a fused multiply-add).
 
@@ -172,7 +184,7 @@ def split_gain_ratios_from_cumsum(cum: torch.Tensor, total: torch.Tensor) -> tor
 
 def split_gain_ratios(hist: torch.Tensor) -> torch.Tensor:
     """Gain ratio of every candidate split of [..., F, B, C] histograms."""
-    cum = torch.cumsum(hist, dim=-2)
+    cum = _bin_cumsum(hist)
     return split_gain_ratios_from_cumsum(cum, cum[..., -1, :])
 
 
@@ -224,7 +236,7 @@ def _mask_scores(sc: torch.Tensor, feature_mask) -> torch.Tensor:
 
 def best_splits(hist: torch.Tensor, feature_mask=None) -> SplitScores:
     """The node-splitting task T_NS: global best split of [k, S, F, B, C]."""
-    cum = torch.cumsum(hist, dim=-2)
+    cum = _bin_cumsum(hist)
     total = cum[..., -1, :]
     gr = _mask_scores(split_gain_ratios_from_cumsum(cum, total), feature_mask)
     return _select_winners(gr, cum, total)
@@ -306,7 +318,7 @@ def level_scores(
 
         scores = split_scan_scores(hist, feature_mask, regression=regression)
     elif regression:
-        cum = torch.cumsum(hist, dim=-2)
+        cum = _bin_cumsum(hist)
         total = cum[..., -1, :]
         gains = _mask_scores(variance_gains_from_cumsum(cum, total), feature_mask)
         scores = _select_winners(gains, cum, total)

@@ -144,6 +144,9 @@ class GrowthState:
 
     The reference's ``rng`` leaf (reserved, unused) is left out; ``level``
     is a host integer because the port's level loop runs on the host.
+    ``FIELDS`` gives the checkpoint keys (``checkpoint._flatten``): each
+    field keeps the reference's index, so a checkpoint holds the
+    reference's keys without its ``3`` (``rng``).
     ``hist_cache`` is None with histogram reuse off; with it on, the dict
     of ``engine.init_hist_cache``: ``hist`` [k, S, F, B, C] (last level's
     histograms in paired-row order), ``perm`` [k, S] (its slot -> row
@@ -155,3 +158,5 @@ class GrowthState:
     sample_slot: torch.Tensor   # [k, N] frontier slot of each sample, -1 parked
     level: int = 0              # next level to grow
     hist_cache: Optional[dict] = None
+
+    FIELDS = ("forest", "slot_node", "sample_slot", None, "level", "hist_cache")

@@ -13,16 +13,16 @@ Both vote with the same per-node payloads (tree weight folded in), so the
 labels agree. The ``*_streamed`` functions run OOB weights and
 prediction over sample blocks from a ``BlockFeeder`` (the streaming data
 plane); both are per sample, so they equal the resident calls bitwise.
-The streamed regression functions (``oob_r2_streamed``,
-``predict_regression_streamed``) come with end-to-end regression
-(ROADMAP.md Queue 1 item 5).
+Regression's OOB weight (``oob_r2``) reduces per-sample f32 terms on
+the host in float64, one-shot or Neumaier-compensated across blocks, so
+``oob_r2_streamed`` equals ``oob_r2`` bitwise too.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..device import host_array
+from ..device import as_tensor, host_array
 
 from .forest import fused_vote_scores, predict_proba_trees, predict_value_trees
 from .types import Forest
@@ -56,6 +56,65 @@ def _oob_ratio(correct: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
 def oob_accuracy(forest: Forest, x_binned, y, weights) -> torch.Tensor:
     """Eq. (8): CA_i = #correct / #OOB over OOB_i; 0.5 for an empty OOB set. [k]."""
     return _oob_ratio(*_oob_counts(forest, x_binned, y, weights))
+
+
+def _r2_mean_stats(y: torch.Tensor, w: torch.Tensor):
+    """The OOB mean's sufficient statistics (per tree: the OOB sum of y
+    and the OOB count), from the whole ``[k, N]`` weights: the streamed
+    path takes them the same way, without touching a feature block."""
+    oob = (w == 0.0).to(torch.float32)
+    return torch.sum(oob * y[None], dim=1), oob.sum(1)
+
+
+def _r2_block_terms(forest: Forest, xb_b, y_b, w_b, mean):
+    """Per-sample OOB squared-error and variance terms of one block,
+    ``[k, Nb]`` each: elementwise per sample, so each term is the same
+    whether the block is the whole data set or a slice of it. Their sum
+    over samples is taken on the host in float64 by both ``oob_r2``
+    paths."""
+    vals = predict_value_trees(forest, xb_b)
+    oob = (w_b == 0.0).to(torch.float32)
+    err = vals - y_b[None]
+    dev = y_b[None] - mean[:, None]
+    return oob * (err * err), oob * (dev * dev)
+
+
+def _neumaier_add(s: np.ndarray, c: np.ndarray, x: np.ndarray) -> None:
+    """One Neumaier-compensated step, in place: ``s += x`` with the
+    rounding error banked in ``c`` (float64 [k] each); the sum is ``s + c``."""
+    t = s + x
+    c += np.where(np.abs(s) >= np.abs(x), (s - t) + x, (x - t) + s)
+    s[:] = t
+
+
+def _r2_finalize(err_sum, var_sum, total, device) -> torch.Tensor:
+    """R^2 from the float64 moment sums, in float64, then one cast to
+    float32 on ``device``. Neutral prior 0.5 for an empty OOB set or one
+    with zero target variance."""
+    n = np.maximum(total, 1.0)
+    r2 = np.clip(1.0 - (err_sum / n) / np.maximum(var_sum / n, 1e-300), 0.0, 1.0)
+    out = np.where((total > 0) & (var_sum > 0), r2, 0.5)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+def _host64(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.float64)
+
+
+def oob_r2(forest: Forest, x_binned, y, weights) -> torch.Tensor:
+    """Regression analogue of Eq. (8): per-tree OOB R^2 clipped to [0, 1],
+    0.5 where the OOB set is empty or its target variance is zero. [k].
+
+    The per-sample f32 terms (``_r2_block_terms``) are summed on the host
+    in float64, then one cast to float32: ``oob_r2_streamed`` folds the
+    same terms block by block and equals this bitwise."""
+    y32 = as_tensor(y, forest.device, torch.float32)
+    w32 = as_tensor(weights, forest.device, torch.float32)
+    sum_y, total = _r2_mean_stats(y32, w32)
+    mean = sum_y / torch.clamp_min(total, 1.0)
+    err_t, var_t = _r2_block_terms(forest, x_binned, y32, w32, mean)
+    return _r2_finalize(_host64(err_t).sum(axis=1), _host64(var_t).sum(axis=1), _host64(total),
+                        forest.device)
 
 
 def weighted_vote(probs: torch.Tensor, tree_weight: torch.Tensor, *, soft: bool = False) -> torch.Tensor:
@@ -142,17 +201,29 @@ def predict(forest: Forest, x_binned: torch.Tensor, *, backend=None) -> torch.Te
     return torch.argmax(predict_scores(forest, x_binned, backend=backend), dim=-1)
 
 
-def predict_regression(forest: Forest, x_binned: torch.Tensor, *, backend=None) -> torch.Tensor:
-    """Full PRF regression prediction: weighted mean of h_i(x), [N]."""
+def predict_regression_scores(forest: Forest, x_binned: torch.Tensor, *,
+                              backend=None) -> torch.Tensor:
+    """Eq. (9)'s numerator ``sum_i w_i h_i(x)``, [N]: the traversal kernel
+    with a one-column value payload, or the plain per-tree values added
+    tree by tree in order, as the kernel adds them (a sample's sum then
+    does not depend on its batch)."""
     backend = resolve_predict_backend(
         backend if backend is not None else forest.config.predict_backend, x_binned.device
     )
     w = _vote_weights(forest)
     if backend == "pallas":
-        num = fused_vote_scores(forest, x_binned, leaf_value_payload(forest, w).contiguous())[:, 0]
-    else:
-        num = torch.sum(w[:, None] * predict_value_trees(forest, x_binned), dim=0)
-    return num / torch.clamp_min(w.sum(), 1e-38)
+        return fused_vote_scores(forest, x_binned, leaf_value_payload(forest, w).contiguous())[:, 0]
+    terms = w[:, None] * predict_value_trees(forest, x_binned)
+    num = terms[0].clone()
+    for t in range(1, terms.shape[0]):
+        num += terms[t]
+    return num
+
+
+def predict_regression(forest: Forest, x_binned: torch.Tensor, *, backend=None) -> torch.Tensor:
+    """Full PRF regression prediction: weighted mean of h_i(x), [N]."""
+    num = predict_regression_scores(forest, x_binned, backend=backend)
+    return num / torch.clamp_min(_vote_weights(forest).sum(), 1e-38)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +265,32 @@ def oob_accuracy_streamed(forest: Forest, x_binned, y, weights, *,
     return _oob_ratio(correct, total)
 
 
+def oob_r2_streamed(forest: Forest, x_binned, y, weights, *, sample_block=None,
+                    prefetch: int = 2) -> torch.Tensor:
+    """``oob_r2`` in one sweep over sample blocks: the OOB mean needs only
+    ``y`` and the weights (the resident one-shot sums), so only the
+    moment terms stream. Each block's float64 term sums are folded with
+    Neumaier compensation: the result equals ``oob_r2`` bitwise."""
+    y_np = host_array(y).astype(np.float32, copy=False)
+    w_np = host_array(weights).astype(np.float32, copy=False)
+    feeder = _block_feeder(x_binned, sample_block, prefetch, forest.device,
+                           what="oob_r2_streamed", n_y=y_np.shape[0], n_w=w_np.shape[1])
+    sum_y, total = _r2_mean_stats(as_tensor(y_np, forest.device), as_tensor(w_np, forest.device))
+    mean = sum_y / torch.clamp_min(total, 1.0)
+    k = w_np.shape[0]
+    err_sum, err_c, var_sum, var_c = (np.zeros(k, np.float64) for _ in range(4))
+    o = 0
+    with feeder:
+        for xb_b in feeder.sweep():
+            n = xb_b.shape[0]
+            err_t, var_t = _r2_block_terms(forest, xb_b, feeder.pin(y_np[o:o + n]),
+                                           feeder.pin(w_np[:, o:o + n]), mean)
+            _neumaier_add(err_sum, err_c, _host64(err_t).sum(1))
+            _neumaier_add(var_sum, var_c, _host64(var_t).sum(1))
+            o += n
+    return _r2_finalize(err_sum + err_c, var_sum + var_c, _host64(total), forest.device)
+
+
 def predict_scores_streamed(forest: Forest, x_binned, *, sample_block=None, backend=None,
                             prefetch: int = 2) -> torch.Tensor:
     """``predict_scores`` over sample blocks: per sample, so bitwise the
@@ -209,3 +306,15 @@ def predict_streamed(forest: Forest, x_binned, *, sample_block=None, backend=Non
     """Streamed classification labels [N] (bitwise ``predict``)."""
     return torch.argmax(predict_scores_streamed(forest, x_binned, sample_block=sample_block,
                                                 backend=backend, prefetch=prefetch), dim=-1)
+
+
+def predict_regression_streamed(forest: Forest, x_binned, *, sample_block=None, backend=None,
+                                prefetch: int = 2) -> torch.Tensor:
+    """Streamed regression predictions [N]: per sample, so bitwise
+    ``predict_regression``."""
+    feeder = _block_feeder(x_binned, sample_block, prefetch, forest.device,
+                           what="predict_regression_streamed")
+    with feeder:
+        num = torch.cat([predict_regression_scores(forest, xb_b, backend=backend)
+                         for xb_b in feeder.sweep()])
+    return num / torch.clamp_min(_vote_weights(forest).sum(), 1e-38)

@@ -25,8 +25,9 @@
 // classification the prefix over bins is a warp shuffle scan per channel:
 // the counts are integers below 2^24, so every order of summation gives
 // the cumsum's values exactly. Regression channels (y, y^2) are summed
-// left to right by one lane each, the order torch.cumsum takes on the
-// CPU, so their winners stay those of the plain version. Each lane then
+// left to right in float32 by one lane each, the order of the plain
+// version's gain._bin_cumsum and of the reference's cumsum on the CPU, so
+// their winners stay those of the plain version. Each lane then
 // scores its thresholds (two at B = 64) with the node's entropy hoisted
 // out of the threshold loop. Sums over the C channels run left to right
 // and every operation follows core/gain.py in the port one for one: the

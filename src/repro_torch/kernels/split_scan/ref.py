@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ...core.gain import (
-    _mask_scores, _select_winners, split_gain_ratios_from_cumsum,
+    _bin_cumsum, _mask_scores, _select_winners, split_gain_ratios_from_cumsum,
     variance_gains_from_cumsum,
 )
 
@@ -37,7 +37,7 @@ def split_scan_block_ref(
     regression: bool = False,
 ) -> tuple:
     """Reference running-best update over one slab. Returns a new carry."""
-    cum = torch.cumsum(hist, dim=-2)
+    cum = _bin_cumsum(hist)
     total = cum[..., -1, :]
     if regression:
         sc = variance_gains_from_cumsum(cum, total)

@@ -5,9 +5,12 @@ against ``repro.core.api.train_prf`` on ``class_data``.
   uniforms fed to ``fit_prf_from_draws`` give every Forest array,
   ``tree_weight`` and predicted label bitwise.
 * Own draws (``torch.Generator``): accuracy within 0.03.
-* Carried weights, the device rule, unported paths, import hygiene.
+* Carried weights, the device rule, the checkpoint and regression knobs
+  (which run now; multi-process training still raises), import hygiene
+  (no jax, repro or msgpack).
 """
 import dataclasses
+import os
 import pathlib
 import re
 import subprocess
@@ -117,11 +120,19 @@ def test_carried_weights_predict_identically(class_data, reference):
         model.with_predict_backend("pallas").predict(xte)   # the kernel needs the card
 
 
-def test_checkpoint_knobs_and_bad_draw_shapes_raise(class_data):
+def test_checkpoint_knobs_and_bad_draw_shapes_raise(class_data, reference, tmp_path):
+    """The checkpoint knobs run (given the reference's draws, the model with
+    checkpoints and the one resumed from them are the reference's); bad
+    draw shapes still raise."""
     xtr, ytr, _, _ = class_data
-    for kw in (dict(checkpoint_dir="ckpt"), dict(resume_from="ckpt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_prf(xtr, ytr, _tcfg(JCFG), 0, device="cpu", **kw)
+    w, u = _reference_draws(JCFG, *xtr.shape, SEED)
+    d = str(tmp_path / "ckpt")
+    for kw in (dict(checkpoint_dir=d), dict(resume_from=d)):
+        model = fit_prf_from_draws(xtr, ytr, _tcfg(JCFG), w, u, device="cpu", **kw)
+        for name in Forest.FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(reference.forest, name)),
+                                          getattr(model.forest, name).numpy(), err_msg=f"{name} {kw}")
+    assert sorted(os.listdir(d)) == ["step_00000004", "step_00000005", "step_00000006"]
     w, u = _reference_draws(JCFG, *xtr.shape, SEED)
     with pytest.raises(ValueError, match="weights"):
         fit_prf_from_draws(xtr, ytr, _tcfg(JCFG), w[:, :-1], u, device="cpu")
@@ -152,25 +163,37 @@ def test_reuse_on_matches_reference_labels(class_data, reference):
 
 
 @pytest.mark.parametrize("kw", [dict(regression=True, hist_reuse="off"),
-                                dict(hist_reuse="off", checkpoint_dir="ckpt")])
-def test_unported_paths_raise(class_data, kw):
-    """Regression and checkpointing still raise, naming ROADMAP (the
-    streamed trainer's own refusal: ``tests/test_torch_streamed.py``)."""
-    xtr, ytr, _, _ = class_data
+                                dict(hist_reuse="off", checkpoint_dir="ckpt"),
+                                dict(world_size=2)])
+def test_unported_paths_raise(class_data, kw, tmp_path, monkeypatch):
+    """Regression and checkpointing, which raised before they were ported,
+    now train; multi-process training still raises, naming ROADMAP."""
+    xtr, ytr, xte, _ = class_data
     kw = dict(kw)
-    call = {"checkpoint_dir": kw.pop("checkpoint_dir")} if "checkpoint_dir" in kw else {}
+    call = {"checkpoint_dir": str(tmp_path / kw.pop("checkpoint_dir"))} if "checkpoint_dir" in kw else {}
+    if kw.pop("world_size", 1) > 1:
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+            train_prf(xtr, ytr, TConfig(n_trees=2, max_depth=2, n_bins=8, n_classes=4), 0, device="cpu")
+        return
     cfg = TConfig(n_trees=2, max_depth=2, n_bins=8, n_classes=4, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_prf(xtr, ytr, cfg, 0, device="cpu", **call)
+    model = train_prf(xtr, ytr.astype(np.float32) if cfg.regression else ytr, cfg, 0, device="cpu", **call)
+    pred = model.predict(xte)
+    assert pred.shape == (xte.shape[0],) and np.isfinite(pred).all()
+    assert pred.dtype == (np.float32 if cfg.regression else np.int64)
+    if call:
+        assert sorted(os.listdir(call["checkpoint_dir"])) == ["step_00000001", "step_00000002"]
 
 
 def test_import_hygiene_subprocess():
     code = (
         "import sys, repro_torch, repro_torch.convert, repro_torch.core.engine, "
         "repro_torch.kernels.split_scan.ops, repro_torch.kernels.tree_traverse.ops, "
-        "repro_torch.kernels.gain_ratio.ops, repro_torch.kernels._build\n"
+        "repro_torch.kernels.gain_ratio.ops, repro_torch.kernels._build, "
+        "repro_torch.checkpoint, repro_torch.launch.fault\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'repro' or m.startswith('repro.')]\n"
+        "or m == 'repro' or m.startswith('repro.') or m == 'msgpack' or m.startswith('msgpack.')]\n"
         "assert not bad, bad\n"
     )
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -178,7 +201,8 @@ def test_import_hygiene_subprocess():
 
 
 def test_import_hygiene_text_scan():
-    pat = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|from repro |import repro\s*$)", re.M)
+    pat = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|from repro |import repro\s*$"
+                     r"|import msgpack|from msgpack)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:

@@ -495,3 +495,176 @@ def test_lm_kernel_path_equals_plain_path(cuda_device, arch):
     assert flash_ops.launches + ssd_ops.launches == n0 + 4
     b = greedy_generate(plain, toks, steps=8, s_max=272)
     assert torch.equal(a, b)
+
+
+class _Kill(Exception):
+    pass
+
+
+def _kill_at(level_to_kill):
+    def boom(level, _):
+        if level == level_to_kill:
+            raise _Kill
+    return boom
+
+
+def _resume_case(tmp_path, streamed):
+    """A classification case on the card: the memmap and config of a
+    streamed run (exact bins, 5 blocks and a remainder) or a resident one
+    (``hist_reuse`` auto, on at this size)."""
+    from repro_torch import ForestConfig
+    from repro_torch.data.tabular import make_classification
+
+    x, y = make_classification(n_samples=6000, n_features=20, n_classes=3, seed=6)
+    cfg = ForestConfig(n_trees=6, max_depth=6, n_bins=32, n_classes=3)
+    if streamed:
+        mm = np.memmap(tmp_path / "x.f32", np.float32, "w+", shape=x.shape)
+        mm[:] = x
+        mm.flush()
+        x = mm
+        cfg = ForestConfig(**{**cfg.__dict__, "sample_block": 1100, "bin_fit": "exact"})
+    return x, y, cfg
+
+
+def _assert_same_model(a, b, x, msg):
+    for name in ("feature", "threshold", "left_child", "class_counts", "value", "tree_weight"):
+        assert torch.equal(getattr(a.forest, name), getattr(b.forest, name)), f"{name} {msg}"
+    np.testing.assert_array_equal(a.predict(x[:2000]), b.predict(x[:2000]), err_msg=msg)
+
+
+@pytest.mark.parametrize("plane", ["resident", "streamed"])
+def test_kill_and_resume_on_the_kernels(cuda_device, tmp_path, plane):
+    """Checkpointed growth on the kernel path, killed after levels 1 and 4
+    and resumed: the uninterrupted kernel run's model bitwise, the resumed
+    run starting after the crash level and launching the kernels."""
+    from repro_torch import train_prf
+
+    x, y, cfg = _resume_case(tmp_path, plane == "streamed")
+    baseline = train_prf(x, y, cfg, 0, device=cuda_device)
+    for kill_at in (1, 4):
+        d = str(tmp_path / f"k{kill_at}")
+        with pytest.raises(_Kill):
+            train_prf(x, y, cfg, 0, device=cuda_device, checkpoint_dir=d, on_level=_kill_at(kill_at))
+        levels, n0 = [], (hist_ops.launches, scan_ops.launches)
+        model = train_prf(x, y, cfg, 0, device=cuda_device, checkpoint_dir=d, resume_from=d,
+                          on_level=lambda level, _: levels.append(level))
+        torch.cuda.synchronize()
+        assert levels[0] == kill_at + 1, levels
+        assert hist_ops.launches > n0[0] and scan_ops.launches > n0[1]
+        _assert_same_model(model, baseline, x, f"{plane} kill@{kill_at}")
+
+
+def test_corrupted_resume_on_the_card(cuda_device, tmp_path):
+    """Kill at level 3, flip bytes in the newest checkpoint, resume: the
+    walk-back warns, regrows level 3 on the kernels and gives the
+    uninterrupted model bitwise."""
+    from repro_torch import train_prf
+    from repro_torch.launch.fault import CheckpointCorruptor
+
+    x, y, cfg = _resume_case(tmp_path, False)
+    baseline = train_prf(x, y, cfg, 0, device=cuda_device)
+    d = str(tmp_path / "c")
+    with pytest.raises(_Kill):
+        train_prf(x, y, cfg, 0, device=cuda_device, checkpoint_dir=d, on_level=_kill_at(3))
+    assert CheckpointCorruptor(seed=0).corrupt(d) == 3
+    levels = []
+    with pytest.warns(RuntimeWarning, match="skipping corrupt checkpoint"):
+        model = train_prf(x, y, cfg, 0, device=cuda_device, resume_from=d,
+                          on_level=lambda level, _: levels.append(level))
+    assert levels[0] == 3, levels
+    _assert_same_model(model, baseline, x, "corrupted resume")
+
+
+def _regression_case():
+    from repro_torch import ForestConfig
+    from repro_torch.data.tabular import make_regression, train_test_split
+
+    x, y = make_regression(n_samples=16000, n_features=20, n_informative=6, seed=5)
+    return train_test_split(x, y, 0.25, 0), ForestConfig(n_trees=6, max_depth=5, n_bins=32,
+                                                         regression=True)
+
+
+def _regression_agree(a, b, xtr, ytr, xte, dev, msg):
+    """Two regression models trained with seed 0 on the same data, their
+    float channels summed by atomics in run-dependent orders: every split
+    where their trees diverge is a tie to float rounding
+    (``test_torch_regression_ties.compare_regression_forests``: the two
+    choices' float64 gains within ``TIE_TOL * sqrt(m)`` of the node's sum
+    of ``w y^2``, m its in-bag rows),
+    matched leaves agree to rounding, the trees that did not diverge have
+    weights within 1e-6, and with no divergence the predictions agree
+    within 1e-5 of their scale. Returns the comparison."""
+    from repro_torch.core.dsi import bootstrap_counts
+    from test_torch_regression_ties import compare_regression_forests
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    w = bootstrap_counts(gen, a.forest.config.n_trees, xtr.shape[0], dev).cpu().numpy()
+    names = ("feature", "threshold", "left_child", "value")
+    fa, fb = ({n: getattr(m.forest, n).cpu().numpy() for n in names} for m in (a, b))
+    out = compare_regression_forests(fa, fb, a._binned(xtr).cpu().numpy(), ytr, w)
+    assert not out["untied"], f"{msg}: divergences that are not ties {out['untied'][:4]}"
+    assert not out["leaves_off"], f"{msg}: matched leaves differ {out['leaves_off'][:4]}"
+    same = ~out["divergent"].any(1)
+    torch.testing.assert_close(a.forest.tree_weight[same], b.forest.tree_weight[same], rtol=0, atol=1e-6)
+    if not out["divergences"]:
+        pa, pb = a.predict(xte), b.predict(xte)
+        np.testing.assert_allclose(pa, pb, rtol=1e-5, atol=1e-5 * np.abs(pb).max(), err_msg=msg)
+    print(f"{msg}: {len(out['divergences'])} tied divergences in {int((~same).sum())} of {len(same)} trees")
+    return out
+
+
+def test_train_prf_regression_kernel_path_close_to_plain_path(cuda_device):
+    """``train_prf(regression=True)`` on the three PRF kernels (float
+    channels in the histogram, variance gains in the split scan, a value
+    payload in the traversal) against the plain path (whose CUDA
+    ``index_add_`` sums floats by atomics too): ``_regression_agree``."""
+    from repro_torch import train_prf
+
+    (xtr, ytr, xte, _), cfg = _regression_case()
+    plain = type(cfg)(**{**cfg.__dict__, "hist_backend": "segment_sum", "split_backend": "xla",
+                         "predict_backend": "xla"})
+    n0 = (hist_ops.launches, scan_ops.launches, trav_ops.launches)
+    a = train_prf(xtr, ytr, cfg, 0, device=cuda_device)
+    pa = a.predict(xte)
+    torch.cuda.synchronize()
+    assert hist_ops.launches > n0[0] and scan_ops.launches > n0[1] and trav_ops.launches > n0[2]
+    assert pa.dtype == np.float32 and np.isfinite(pa).all()
+    _regression_agree(a, train_prf(xtr, ytr, plain, 0, device=cuda_device), xtr, ytr, xte, cuda_device,
+                      "kernel vs plain")
+
+
+def test_predict_regression_through_the_traversal_kernel(cuda_device):
+    """``predict_regression`` with a ``[k, P, 1]`` value payload on the
+    traversal kernel against the plain per-tree sum (trees added in the
+    same order), streamed equal to resident."""
+    from repro_torch import train_prf
+    from repro_torch.core import voting
+
+    (xtr, ytr, xte, _), cfg = _regression_case()
+    model = train_prf(xtr, ytr, cfg, 0, device=cuda_device)
+    xb = model._binned(xte)
+    n0 = trav_ops.launches
+    got = voting.predict_regression(model.forest, xb, backend="pallas")
+    torch.cuda.synchronize()
+    assert trav_ops.launches == n0 + 1
+    want = voting.predict_regression(model.forest, xb, backend="xla")
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+    streamed = voting.predict_regression_streamed(model.forest, xb.cpu().numpy(), sample_block=1000)
+    assert torch.equal(streamed, got)
+
+
+def test_regression_growth_twice_on_the_kernels(cuda_device):
+    """Two regression trainings with the same draws on the kernel path: the
+    float channels' atomics add in a run-dependent order, so the two
+    models are not bitwise equal in general and a split tied to float
+    rounding may go either way (ROADMAP Queue 3 item 6); every divergence
+    must be such a tie. Whether they are bitwise equal is printed."""
+    from repro_torch import train_prf
+
+    (xtr, ytr, xte, _), cfg = _regression_case()
+    a = train_prf(xtr, ytr, cfg, 0, device=cuda_device)
+    b = train_prf(xtr, ytr, cfg, 0, device=cuda_device)
+    _regression_agree(a, b, xtr, ytr, xte, cuda_device, "two kernel runs")
+    print("regression two runs bitwise equal:", all(
+        torch.equal(getattr(a.forest, n), getattr(b.forest, n)) for n in a.forest.FIELDS))

@@ -14,6 +14,7 @@ own resident path, on the CPU.
   labels and the ``quarantine`` report under "sanitize" and "quarantine".
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -192,7 +193,12 @@ def test_oob_and_predict_streamed_bitwise(case, reference_streamed):
         rtol=1e-6, atol=1e-6)
 
 
-def test_streamed_refusals(case):
+def test_streamed_refusals(case, tmp_path):
+    """Bad block sources still raise; the checkpoint arguments, which
+    raised before checkpoints were ported, now run (and give the same
+    forest)."""
+    from repro_torch.checkpoint import CheckpointManager, list_steps
+
     xb, y, w, _ = case
     cfg = _tc(_jcfg("off"))
     with pytest.raises(ValueError, match="empty block sequence"):
@@ -201,9 +207,14 @@ def test_streamed_refusals(case):
         tapi.grow_forest_streamed(xb, y, w, dataclasses.replace(cfg, sample_block=0), device="cpu")
     with pytest.raises(ValueError, match="cover"):
         tapi.grow_forest_streamed([xb[:100]], y, w, cfg, device="cpu")
-    for kw in (dict(manager=object()), dict(resume_from="ckpt"), dict(on_level=print)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tapi.grow_forest_streamed(xb, y, w, cfg, device="cpu", **kw)
+    want = tapi.grow_forest_streamed(xb, y, w, cfg, device="cpu")
+    d, levels = str(tmp_path / "ckpt"), []
+    for kw in (dict(manager=CheckpointManager(d, save_interval=1)), dict(resume_from=d),
+               dict(on_level=lambda level, forest: levels.append(level))):
+        got = tapi.grow_forest_streamed(xb, y, w, cfg, device="cpu", **kw)
+        for n in FIELDS:
+            assert torch.equal(getattr(want, n), getattr(got, n)), (n, list(kw))
+    assert list_steps(d) == [3, 4, 5] and levels == [1, 2, 3, 4, 5]
 
 
 # ---------------------------------------------------------------------------
@@ -289,11 +300,12 @@ def test_fit_from_draws_dirty_memmap_matches_reference(memmap_case, tmp_path, po
 
 
 def test_train_prf_memmap_own_draws_and_checkpoint_knobs(memmap_case, reference_memmap,
-                                                        class_data):
+                                                        class_data, tmp_path):
     """``train_prf`` reaches the streamed trainer with its own draws: the
     same model twice, accuracy near the reference's; the checkpoint
-    arguments still raise, naming ROADMAP item 8; ``feeder_opts`` reaches
-    the feeder (a fault hook that fails twice changes nothing)."""
+    arguments run (checkpoints written, a resume from them gives the same
+    model); ``feeder_opts`` reaches the feeder (a fault hook that fails
+    twice changes nothing)."""
     x, y, xte = memmap_case
     yte = class_data[3]
     cfg = _tc(_train_jcfg())
@@ -312,6 +324,9 @@ def test_train_prf_memmap_own_draws_and_checkpoint_knobs(memmap_case, reference_
         assert torch.equal(getattr(a.forest, name), getattr(b.forest, name)), name
     ref = reference_memmap["auto"]
     assert abs(a.accuracy(xte, yte) - ref.accuracy(xte, yte)) <= 0.05
-    for kw in (dict(checkpoint_dir="ckpt"), dict(resume_from="ckpt")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            train_prf(x, y, cfg, 0, device="cpu", **kw)
+    d = str(tmp_path / "ckpt")
+    for kw in (dict(checkpoint_dir=d, checkpoint_keep=2), dict(resume_from=d)):
+        c = train_prf(x, y, cfg, 1, device="cpu", **kw)
+        for name in Forest.FIELDS:
+            assert torch.equal(getattr(a.forest, name), getattr(c.forest, name)), (name, kw)
+    assert os.listdir(d) and sorted(os.listdir(d)) == ["step_00000004", "step_00000005"]
