@@ -57,15 +57,30 @@ tile plan (``traverse_batch_ab``). The first:
    resumed (a walk-back warning, the same forest), the same kill and
    resume streamed (phase 5b's exact-bins forest); one step's bytes, a
    save split into device-to-host copy, CRC32 and ``np.save``, a restore,
-   growth with a checkpoint every level against none in turns;
+   growth with a checkpoint every level against none in turns; a
+   regression growth killed at level 4 and resumed (in phase 5d, on its
+   data), bitwise the uninterrupted regression growth;
 5d. full size, regression (``regression_phase``): ``make_regression``
    on 2^20 training rows, F = 128, ``train_prf`` + ``predict`` on the three
    PRF kernels with their launch counts, held-out R^2 >= ``R2_FLOOR``,
-   stage times; the histogram at the level-0 regression slab (C 3) and
-   the split scan on it against their plain versions and bounds; at a
-   reduced size the kernel path against the plain path (predictions,
-   tree weights); two growths with the same draws, equal or not
-   (``regression_run_to_run_equal``, printed, not checked);
+   stage times; the histogram at the level-0 regression slab (C 3, the
+   ``y`` and ``y^2`` channels in fixed point) bitwise against its
+   fixed-point plain version, timed beside the float-atomic form, its
+   plain version, its bound and ``index_add_`` (over chunks of trees);
+   the split scan on it (also as direct launches); at a reduced size the
+   kernel path against the plain path; two growths with the same draws
+   bitwise equal (``regression_run_to_run_equal``, checked);
+5e. the mesh plane (``mesh_phase``): (a) an NCCL world of one process, mesh
+   (1, 1), at phase 5's full size with its draws: ``grow_sharded`` through
+   ``MeshPlane`` with ``hist_reduce`` psum and psum_scatter, each forest
+   bitwise phase 5's, growth timed twice beside phase 5's, histogram and split
+   scan launches; (b) a gloo world of 4 processes on ``cuda:0`` (mesh
+   (2, 2), spawned by ``launch.mesh.run_world``) on the first 2^18
+   training rows, 128 features, 32 trees, depth 6: resident, streamed
+   (``sample_block`` 65536) and checkpointed growth each bitwise the local
+   forest from the same draws, a kill at level 3 resumed on a (4, 1)
+   world bitwise, ``predict_sharded`` and the OOB weights equal to the
+   local ones, the histogram and the split scan launched on every rank;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
@@ -94,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import subprocess
 import sys
@@ -115,10 +131,14 @@ def log(*a):
 
 
 def sync_time(fn):
-    torch.cuda.synchronize()
+    """(fn(), host seconds around it, ending in a synchronise of the card)."""
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
@@ -1113,29 +1133,39 @@ def regression_phase(dev, timings):
         R^2 >= ``R2_FLOOR``; a staged replay's stage times (binning,
         bootstrap, growth, OOB R^2, predict);
     (b) the histogram at the level-0 regression slab (C 3: ``[1, y, y^2]``
-        channels, float atomics) beside its plain version and bound, within
-        1e-5 of the plain version's largest entry;
+        channels, ``y`` and ``y^2`` in the growth's fixed point) bitwise
+        equal to ``multi_tree_hist_fixed_ref``, within 1e-5 of the float
+        plain version's largest entry; timed beside the float-atomic form
+        (no fixed point), both plain versions, ``index_add_`` over chunks
+        of 8 trees and its bound;
     (c) the split scan on that carry (variance gains), winners equal to the
-        plain version's, gains within 1e-5;
+        plain version's, gains within 1e-5; timed also as direct launches;
     (d) reduced (N 65536, F 32, 8 trees, depth 6): the kernel path against
-        the plain path: every split where their trees diverge a tie to
-        float rounding (``tied_divergences``), and with no divergence the
+        the plain path (on CUDA the same fixed point): trees equal
+        (checked), every divergence a tie (``tied_divergences``),
         predictions within rtol 1e-5 and 1e-5 of their scale; tree weights
-        (of the trees that did not diverge) within 1e-6;
-    (e) two growths with the replay's draws: whether they are bitwise equal
-        (``regression_run_to_run_equal``, printed), whether their trees
-        are, and every divergence a tie (checked).
+        within 1e-6;
+    (e) two growths with the replay's draws bitwise equal
+        (``regression_run_to_run_equal``, checked), every divergence a
+        tie (checked), the replay's trees equal ``train_prf``'s; then
+        phase 5c on regression: the growth killed at level 4 and resumed,
+        bitwise equal to the uninterrupted one.
     """
     from repro_torch import ForestConfig, train_prf
     from repro_torch.core import engine
     from repro_torch.core.binning import apply_bins, bin_dataset
     from repro_torch.core.dsi import bootstrap_counts
     from repro_torch.core.forest import grow_forest
-    from repro_torch.core.histograms import hist_feature_slab, regression_channels, slot_order
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.forest import grow_forest_checkpointed
+    from repro_torch.core.histograms import (
+        hist_feature_slab, regression_channels, regression_fixed_point, slot_order,
+    )
     from repro_torch.core.voting import oob_r2, predict_regression
     from repro_torch.data.tabular import make_regression, train_test_split
+    from repro_torch.kernels import _build
     from repro_torch.kernels.gain_ratio import ops as hist_ops
-    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_fixed_ref, multi_tree_hist_ref
     from repro_torch.kernels.split_scan import ops as scan_ops
     from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
     from repro_torch.kernels.tree_traverse import ops as trav_ops
@@ -1183,8 +1213,9 @@ def regression_phase(dev, timings):
     _, stages["predict"] = sync_time(lambda: predict_regression(fa, xbe))
     log("regression stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
-    # (e) two growths with the same draws: bitwise equal or not; every
-    # split where they diverge must be a tie to float rounding
+    # (e) two growths with the same draws: bitwise equal (the histogram sums
+    # y and y^2 in fixed point); every split where they diverge would be a
+    # tie to float rounding, which is checked too
     fb, t_b = sync_time(lambda: grow_forest(xbt, yt, wt, rcfg, None, device=dev))
     structure = ("feature", "threshold", "left_child")
     run_to_run = all(torch.equal(getattr(fa, n), getattr(fb, n)) for n in type(fa).FIELDS[:-1])
@@ -1197,7 +1228,39 @@ def regression_phase(dev, timings):
         f"{cmp['diverged_trees']} of {rcfg.n_trees} trees, every one a tie to float rounding (largest gap "
         f"{cmp['tie_gap_share']:.3g} of its allowance; checked in {t_cmp:.1f} s on the host); matched leaves max "
         f"|d value| {cmp['leaf_value_max_abs']:.3g}; the replay's trees equal train_prf's: {main_trees_equal}")
+    check(run_to_run, "regression_run_to_run_equal: two regression growths with the same draws differ")
+    check(main_trees_equal, "regression: the staged replay's trees differ from train_prf's")
     del fb
+
+    # 5c on regression: a growth checkpointed every level, killed at level 4
+    # and resumed, bitwise the uninterrupted growth fa
+    ck_dir = ROOT / "build" / "chip_smoke_ckpt_regression"
+    import shutil
+    shutil.rmtree(ck_dir, ignore_errors=True)
+
+    def boom(level, _):
+        if level == 4:
+            raise _Kill
+
+    try:
+        try:
+            grow_forest_checkpointed(xbt, yt, wt, rcfg, None, device=dev, on_level=boom,
+                                     manager=CheckpointManager(str(ck_dir), keep=3, save_interval=1))
+            raise AssertionError("regression checkpoint: the kill at level 4 did not fire")
+        except _Kill:
+            pass
+        resumed_at = []
+        fr, t_res = sync_time(lambda: grow_forest_checkpointed(
+            xbt, yt, wt, rcfg, None, device=dev, resume_from=str(ck_dir),
+            on_level=lambda level, _: resumed_at.append(level)))
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    check(resumed_at[0] == 5, f"regression resume started at level {resumed_at[0]}, want 5")
+    for n in type(fa).FIELDS[:-1]:
+        check(torch.equal(getattr(fr, n), getattr(fa, n)), f"regression resume: {n} differs")
+    log(f"checkpoint phase (regression): growth killed at level 4, resumed at level {resumed_at[0]} "
+        f"({t_res:.3f} s): forest bitwise equal to the uninterrupted regression growth")
+    del fr
 
     # (b) the histogram at the level-0 regression slab
     k, Ntr, Fall = rcfg.n_trees, xtr.shape[0], xtr.shape[1]
@@ -1207,23 +1270,49 @@ def regression_phase(dev, timings):
     base = regression_channels(yt)
     slot0 = torch.zeros((k, Ntr), dtype=torch.int32, device=dev)
     order = slot_order(slot0, wt, S)
-    hk = hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B, order=order)
+    fp = regression_fixed_point(ytr, wt)          # the growth's own fixed point (host y, device w)
+    hk = hist_ops.multi_tree_hist(xs, base, wt, slot0, n_slots=S, n_bins=B, order=order, fixed=fp)
+    hf = multi_tree_hist_fixed_ref(xs, base, wt, slot0, n_slots=S, n_bins=B, fixed=fp)
+    check(torch.equal(hk, hf), f"regression histogram (fixed point {fp}) != its fixed-point plain version")
+    del hf
     hp = multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B)
     h_err, h_scale = max_abs(hk, hp), float(hp.abs().max())
     check(h_err <= 1e-5 * h_scale, f"regression histogram: max |d| {h_err} > 1e-5 x {h_scale}")
     t = timed("histogram, regression level 0", lambda: hist_ops.multi_tree_hist(
+        xs, base, wt, slot0, n_slots=S, n_bins=B, order=order, fixed=fp), "hist_kernel", timings)
+    t_float = timed("histogram, regression level 0, float atomics", lambda: hist_ops.multi_tree_hist(
         xs, base, wt, slot0, n_slots=S, n_bins=B, order=order), "hist_kernel", timings)
-    p_ms = cuda_ms(lambda: multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B), reps=2, warmup=1)
+    p_ms = cuda_ms(lambda: multi_tree_hist_fixed_ref(xs, base, wt, slot0, n_slots=S, n_bins=B, fixed=fp),
+                   reps=2, warmup=1)
+    pf_ms = cuda_ms(lambda: multi_tree_hist_ref(xs, base, wt, slot0, n_slots=S, n_bins=B), reps=2, warmup=1)
+    del hp
+    # the yardstick: index_add_ of the float channels' values over the flat
+    # index ((((t*S + s)*W + f)*B + b)*C + c), 8 trees at a time (the whole
+    # index would take 34 GB), summed over the chunks
+    lib_ms, tcn = 0.0, 8
+    for t0 in range(0, k, tcn):
+        wc = wt[t0:t0 + tcn]
+        ts_ = (torch.arange(wc.shape[0], device=dev)[:, None, None] * S) * W + torch.arange(W, device=dev)
+        flat = (ts_.expand(-1, Ntr, -1).mul(B).add(xs.long()[None]).mul(C)[..., None]
+                + torch.arange(C, device=dev)).reshape(-1)
+        vals = (wc[:, :, None, None] * base[None, :, None, :]).expand(-1, -1, W, -1).reshape(-1)
+        lib_ms += cuda_ms(lambda: torch.zeros(k * S * W * B * C, device=dev).index_add_(0, flat, vals),
+                          reps=3, warmup=1)
+        del ts_, flat, vals
     live = int((wt > 0).sum())
     nbytes = Ntr * W + Ntr * C * 4 + 2 * k * Ntr * 4 + hk.numel() * 4
     nops = 2 * live * W * C
     bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
-    hist_r = {**t, "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
-              nops / F32_OPS_PER_S else "operations", "max_abs_err": h_err, "scale": h_scale, "W": W}
-    log(f"regression histogram at [{k}, {Ntr}, {W}], S {S}, C {C}, level 0: call {t['ms']:.4f} ms, kernel "
-        f"{fmt_ms(t['kernel_ms'])} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms by {hist_r['bound_by']}, share "
-        f"{bound / t['ms']:.3f}; max |d| {h_err:.3g} of {h_scale:.4g}")
-    del hp
+    hist_r = {**t, "plain_ms": p_ms, "plain_float_ms": pf_ms, "library_ms": lib_ms,
+              "float_atomics": t_float, "fixed_point": list(fp), "bound_ms": bound,
+              "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / F32_OPS_PER_S else "operations",
+              "max_abs_err_vs_float": h_err, "scale": h_scale, "W": W}
+    log(f"regression histogram at [{k}, {Ntr}, {W}], S {S}, C {C}, level 0, fixed point {fp}: call "
+        f"{t['ms']:.4f} ms, kernel {fmt_ms(t['kernel_ms'])} ms (float atomics, as before: call "
+        f"{t_float['ms']:.4f} ms, kernel {fmt_ms(t_float['kernel_ms'])} ms), plain {p_ms:.4f} ms (float plain "
+        f"{pf_ms:.4f} ms), index_add_ {lib_ms:.4f} ms over {k // tcn} chunks, bound {bound:.4f} ms by "
+        f"{hist_r['bound_by']}, share {bound / t['ms']:.3f}; bitwise its fixed-point plain version, max |d| "
+        f"{h_err:.3g} of {h_scale:.4g} from the float version")
 
     # (c) the split scan on the regression carry
     mask = torch.ones((k, W), dtype=torch.bool, device=dev)
@@ -1236,6 +1325,12 @@ def regression_phase(dev, timings):
     torch.testing.assert_close(sk[0], sp[0], rtol=1e-5, atol=1e-5)
     ts = timed("split scan, regression level 0", lambda: scan_ops.split_scan_block(
         hk, mask, carry0, 0, regression=True), "split_scan_kernel", timings)
+    # the kernel alone without the profiler: CUDA events around direct
+    # launches of the C entry point on preallocated outputs
+    mask_u8, outs = mask.to(torch.uint8), [c.clone() for c in carry0]
+    ts["direct_ms"] = cuda_ms(lambda: _build.launch(
+        "prf_split_scan", hk.data_ptr(), mask_u8.data_ptr(), 0, *(o.data_ptr() for o in outs),
+        k, S, W, B, C, 1, scan_ops.class_tile(B, C)))
     sp_ms = cuda_ms(lambda: split_scan_block_ref(hk, mask, carry0, 0, regression=True), reps=1, warmup=1)
     scored = int((hk != 0).flatten(3).any(-1).sum())
     ops_per_candidate = 20               # two sums of squares, three subtractions, compares
@@ -1244,12 +1339,12 @@ def regression_phase(dev, timings):
     bound_s = max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S) * 1e3
     scan_r = {**ts, "plain_ms": sp_ms, "bound_ms": bound_s, "max_abs_err": g_err, "scored_features": scored}
     log(f"regression split scan at [{k}, {S}, {W}, {B}, {C}], level 0: call {ts['ms']:.4f} ms, kernel "
-        f"{fmt_ms(ts['kernel_ms'])} ms, plain {sp_ms:.4f} ms, bound {bound_s:.4f} ms, winners equal to the "
-        f"plain version, gain max |d| {g_err:.3g}")
+        f"{fmt_ms(ts['kernel_ms'])} ms (direct launches {ts['direct_ms']:.4f} ms), plain {sp_ms:.4f} ms, bound "
+        f"{bound_s:.4f} ms, winners equal to the plain version, gain max |d| {g_err:.3g}")
     del hk, sk, sp, xbt, xbe
 
-    # (d) reduced: kernel path against plain path (the plain path's CUDA
-    # index_add_ sums the float channels by atomics too)
+    # (d) reduced: kernel path against plain path (on CUDA the plain path
+    # sums the float channels in the same fixed point: trees equal)
     xr, yr = make_regression(n_samples=65_536, n_features=32, n_informative=8, noise=0.1, seed=2)
     cfg_k = ForestConfig(n_trees=8, max_depth=6, n_bins=64, regression=True)
     cfg_p = dataclasses.replace(cfg_k, hist_backend="segment_sum", split_backend="xla", predict_backend="xla")
@@ -1267,6 +1362,7 @@ def regression_phase(dev, timings):
         check(np.allclose(pk, pp, rtol=1e-5, atol=1e-5 * scale),
               f"reduced regression: predictions differ by {p_err}")
     red_trees = all(torch.equal(getattr(mk.forest, n), getattr(mp.forest, n)) for n in structure)
+    check(red_trees, "reduced regression: kernel path and plain path grew different trees")
     log(f"reduced regression (N 65536, F 32, k 8, depth 6), kernel path vs plain path: trees equal {red_trees} "
         f"({len(red['divergences'])} tied divergences), predictions max |d| {p_err:.3g} (scale {scale:.4g}"
         f"{', within rtol 1e-5' if not red['divergences'] else ', not compared: trees diverge at a tie'}), tree "
@@ -1278,8 +1374,208 @@ def regression_phase(dev, timings):
             "run_to_run_tie_gap_share": cmp["tie_gap_share"], "splits": n_split,
             "run_to_run_leaf_value_max_abs": cmp["leaf_value_max_abs"],
             "replay_trees_equal_main": main_trees_equal, "hist_level0": hist_r, "split_scan_level0": scan_r,
+            "resume_s": t_res,
             "reduced": {"pred_max_abs": p_err, "scale": scale, "tree_weight_max_abs": w_err,
                         "trees_equal": red_trees, "divergences": len(red["divergences"])}}
+
+
+MESH_ROWS = 1 << 18             # phase 5e(b): training rows of the gloo world
+MESH_BLOCK = 65_536             # its streamed growth's sample_block
+MESH_TEST_ROWS = 65_536         # test rows it predicts
+
+
+def mesh_rank(shape, xb, y, w, fmask, cfg_kw, xte, ckpt_dir, kill_at, device="cuda"):
+    """One rank of phase 5e(b), in its own process on ``cuda:0`` (gloo,
+    host-staged collectives): resident, streamed and checkpointed mesh
+    growth (the last killed after level ``kill_at`` on every rank),
+    ``predict_sharded`` and the OOB weights; numpy results."""
+    from repro_torch import ForestConfig
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import distributed as dist_prf
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(shape, device=device)
+    cfg = ForestConfig(**cfg_kw)
+    out = {"mesh": repr(mesh), "growth_s": {}, "launches": {}}
+
+    def run(tag, fn):
+        hist_ops.launches = scan_ops.launches = 0
+        f, t = sync_time(fn)
+        out["growth_s"][tag] = t
+        out["launches"][tag] = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}
+        return f
+
+    def arrays(f):
+        return {n: getattr(f, n).cpu().numpy() for n in type(f).FIELDS}
+
+    f = run("resident", lambda: dist_prf.grow_sharded(xb, y, w, cfg, mesh, fmask))
+    out["resident"] = arrays(f)
+    out["predict"] = dist_prf.predict_sharded(f, xte, mesh)
+    out["oob"] = dist_prf.oob_accuracy_sharded(f, xb, y, w, mesh).cpu().numpy()
+    scfg = dataclasses.replace(cfg, sample_block=MESH_BLOCK, hist_reduce="psum_scatter")
+    out["streamed"] = arrays(run("streamed", lambda: dist_prf.grow_forest_streamed_sharded(
+        xb, y, w, scfg, mesh, fmask)))
+
+    class Kill(Exception):
+        pass
+
+    def boom(level, _):
+        if level == kill_at:
+            raise Kill
+
+    try:
+        run("checkpointed", lambda: dist_prf.grow_sharded_checkpointed(
+            xb, y, w, cfg, mesh, fmask, on_level=boom,
+            manager=CheckpointManager(ckpt_dir, keep=3, save_interval=1)))
+        raise AssertionError(f"mesh phase: the kill at level {kill_at} did not fire")
+    except Kill:
+        pass
+    return out
+
+
+def mesh_resume_rank(shape, xb, y, w, fmask, cfg_kw, ckpt_dir, device="cuda"):
+    """One rank of phase 5e(b)'s elastic resume: the checkpoint a (2, 2)
+    world wrote, resumed on this world's mesh shape."""
+    from repro_torch import ForestConfig
+    from repro_torch.core import distributed as dist_prf
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(shape, device=device)
+    levels = []
+    f, t = sync_time(lambda: dist_prf.grow_sharded_checkpointed(
+        xb, y, w, ForestConfig(**cfg_kw), mesh, fmask, resume_from=ckpt_dir,
+        on_level=lambda level, _: levels.append(level)))
+    return {"mesh": repr(mesh), "forest": {n: getattr(f, n).cpu().numpy() for n in type(f).FIELDS},
+            "first_level": levels[0], "resume_s": t,
+            "launches": {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}}
+
+
+def mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, t_growth, xbe, backend="nccl"):
+    """5e. The mesh plane (``core/distributed.py`` over ``torch.distributed``).
+
+    (a) Full size, an NCCL world of one process (mesh (1, 1), a
+        ``FileStore`` under ``build/``), phase 5's binned data, weights and
+        mask: ``grow_sharded`` goes through ``MeshPlane`` (the histogram
+        built whole, combined by NCCL, then scored) with ``hist_reduce``
+        psum and psum_scatter; each forest bitwise phase 5's; growth timed twice
+        beside phase 5's (``t_growth``), the histogram and split-scan
+        launches counted.
+    (b) Several ranks on the one card: a gloo world of 4 processes on
+        ``cuda:0`` (mesh (2, 2); NCCL refuses two ranks on one GPU), on the
+        first ``MESH_ROWS`` training rows, all 128 features, 32 trees,
+        depth 6, the same draws: resident (psum), streamed (``sample_block``
+        ``MESH_BLOCK``, psum_scatter) and checkpointed growth each bitwise
+        the local forest; the checkpointed run killed after level 3 on every
+        rank and resumed by a gloo world of 4 on a (4, 1) mesh, bitwise;
+        ``predict_sharded`` of ``MESH_TEST_ROWS`` test rows and the OOB
+        weights equal to the local ones; the histogram and the split scan
+        launched on every rank. A failed rank fails the phase.
+    """
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist_prf
+    from repro_torch.core.forest import grow_forest
+    from repro_torch.core.voting import oob_accuracy, predict
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.launch.mesh import make_mesh, run_world
+
+    root = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    fields = type(forest).FIELDS[:-1]
+    res = {}
+    try:
+        # (a) NCCL, one rank, full size
+        tdist.init_process_group(backend, store=tdist.FileStore(str(root / "store"), 1), rank=0,
+                                 world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh((1, 1), device=dev)
+            y_host, w_host, m_host = yt.cpu().numpy(), wt.cpu().numpy(), fmask.cpu().numpy()
+            for hr in ("psum", "psum_scatter"):
+                cfg = dataclasses.replace(rcfg, hist_reduce=hr)
+                _, xl, base, wl, ml, fx = dist_prf._local_inputs(
+                    xbt, y_host, w_host, m_host, cfg, mesh, ("data",), "model")
+                hist_ops.launches = scan_ops.launches = 0
+                f, t = sync_time(lambda: dist_prf._grow_sharded(xl, base, wl, ml, cfg, mesh,
+                                                                hist_fixed=fx))
+                launches = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}
+                _, t2 = sync_time(lambda: dist_prf._grow_sharded(xl, base, wl, ml, cfg, mesh, hist_fixed=fx))
+                for name in fields:
+                    check(torch.equal(getattr(f, name), getattr(forest, name)),
+                          f"mesh phase (a), NCCL (1, 1), {hr}: {name} differs from phase 5's forest")
+                for name, n in launches.items():
+                    check(n > 0 or dev.type != "cuda", f"mesh phase (a), {hr}: {name} was not launched")
+                f2 = dist_prf.grow_sharded(xbt, y_host, w_host, cfg, mesh, m_host)
+                check(all(torch.equal(getattr(f2, n), getattr(forest, n)) for n in fields),
+                      f"mesh phase (a), {hr}: grow_sharded on the global arrays differs")
+                res[f"nccl_{hr}"] = {"growth_s": [t, t2], "launches": launches}
+                log(f"mesh phase (a): {backend} world of 1, mesh {mesh.shape}, {hr}: growth {t:.3f} s, again "
+                    f"{t2:.3f} s (phase 5's fused single-device growth {t_growth:.3f} s), launches {launches}; "
+                    "forest bitwise equal to phase 5's")
+                del f, f2, xl, base, wl
+        finally:
+            tdist.destroy_process_group()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (b) gloo, 4 ranks on cuda:0, reduced size
+        n = MESH_ROWS
+        cfg_kw = {**dataclasses.asdict(rcfg), "max_depth": 6}
+        cfg6 = type(rcfg)(**cfg_kw)
+        xb_h = xbt[:n].cpu().numpy()
+        y_h, w_h, m_h = yt[:n].cpu().numpy(), wt[:, :n].cpu().numpy(), fmask.cpu().numpy()
+        xte_h = xbe[:MESH_TEST_ROWS].cpu().numpy()
+        local = grow_forest(xb_h, y_h, w_h, cfg6, m_h, device=dev)
+        want = {n_: getattr(local, n_).cpu().numpy() for n_ in fields}
+        want_pred = predict(local, torch.from_numpy(xte_h).to(dev), backend="xla").cpu().numpy()
+        want_oob = oob_accuracy(local, torch.from_numpy(xb_h).to(dev), torch.from_numpy(y_h).to(dev),
+                                torch.from_numpy(w_h).to(dev)).cpu().numpy()
+        ckpt = str(root / "ckpt")
+        kill_at = 3
+        (ranks, t_world) = sync_time(lambda: run_world(
+            "chip_smoke:mesh_rank", 4, backend="gloo", timeout_s=420, collective_timeout_s=300,
+            args=((2, 2), xb_h, y_h, w_h, m_h, cfg_kw, xte_h, ckpt, kill_at, dev.type)))
+        for r, out in enumerate(ranks):
+            for tag in ("resident", "streamed"):
+                for name in fields:
+                    check(np.array_equal(out[tag][name], want[name]),
+                          f"mesh phase (b), rank {r}, {tag}: {name} differs from the local forest")
+            check(np.array_equal(out["predict"], want_pred), f"mesh phase (b), rank {r}: labels differ")
+            check(np.array_equal(out["oob"], want_oob), f"mesh phase (b), rank {r}: OOB weights differ")
+            for tag, counts in out["launches"].items():
+                for name, c in counts.items():
+                    check(c > 0 or dev.type != "cuda",
+                          f"mesh phase (b), rank {r}, {tag}: {name} was not launched")
+        (moved, t_world2) = sync_time(lambda: run_world(
+            "chip_smoke:mesh_resume_rank", 4, backend="gloo", timeout_s=420, collective_timeout_s=300,
+            args=((4, 1), xb_h, y_h, w_h, m_h, cfg_kw, ckpt, dev.type)))
+        for r, out in enumerate(moved):
+            check(out["first_level"] == kill_at + 1,
+                  f"mesh phase (b), rank {r}: the resume started at level {out['first_level']}")
+            for name in fields:
+                check(np.array_equal(out["forest"][name], want[name]),
+                      f"mesh phase (b), rank {r}: the (4, 1) resume of the (2, 2) checkpoint differs ({name})")
+        res["gloo"] = {"ranks": [{k_: v for k_, v in o.items() if k_ in ("mesh", "growth_s", "launches")}
+                                 for o in ranks],
+                       "resume": [{k_: v for k_, v in o.items() if k_ in ("mesh", "resume_s", "launches",
+                                                                         "first_level")} for o in moved],
+                       "world_s": t_world, "resume_world_s": t_world2}
+        log(f"mesh phase (b): gloo world of 4 on {dev} (mesh (2, 2), {ranks[0]['mesh']}), {n} rows, "
+            f"{xb_h.shape[1]} features, {cfg6.n_trees} trees, depth {cfg6.max_depth}: resident, streamed "
+            f"(sample_block {MESH_BLOCK}) and checkpointed "
+            f"growth bitwise the local forest on every rank, labels and OOB weights equal; a kill at level "
+            f"{kill_at} resumed by a (4, 1) world bitwise; rank 0 growth s {ranks[0]['growth_s']}, launches "
+            f"{ranks[0]['launches']}; worlds {t_world:.1f} s and {t_world2:.1f} s")
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def traverse_batch_ab(src: str) -> int:
@@ -1393,7 +1689,9 @@ def main() -> int:
     from repro_torch.data.tabular import make_classification, train_test_split
     from repro_torch.kernels import _build
     from repro_torch.kernels.gain_ratio import ops as hist_ops
-    from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+    from repro_torch.kernels.gain_ratio.ref import (
+        FixedPoint, fixed_shift, multi_tree_hist_fixed_ref, multi_tree_hist_ref,
+    )
     from repro_torch.kernels.split_scan import ops as scan_ops
     from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
     from repro_torch.kernels.tree_traverse import ops as trav_ops
@@ -1438,7 +1736,12 @@ def main() -> int:
     hk_r = hist_ops.multi_tree_hist(xb, base_r, w, slot, n_slots=S, n_bins=B)
     hp_r = multi_tree_hist_ref(xb, base_r, w, slot, n_slots=S, n_bins=B)
     torch.testing.assert_close(hk_r, hp_r, rtol=1e-5, atol=1e-3)
-    log(f"hist: bitwise (packed and unpacked), regression max|d| {max_abs(hk_r, hp_r):.3g}")
+    fp_r = FixedPoint(1, fixed_shift(N, 3.0, float((yr * yr).max())))
+    check(torch.equal(hist_ops.multi_tree_hist(xb, base_r, w, slot, n_slots=S, n_bins=B, fixed=fp_r),
+                      multi_tree_hist_fixed_ref(xb, base_r, w, slot, n_slots=S, n_bins=B, fixed=fp_r)),
+          "regression histogram in fixed point != its fixed-point plain version")
+    log(f"hist: bitwise (packed and unpacked; regression in fixed point {fp_r}), regression with float "
+        f"atomics max|d| {max_abs(hk_r, hp_r):.3g}")
 
     mask = torch.from_numpy(rng.random((tc, F)) > 0.3).to(dev)
     ck, cp = init_carry(tc, S, C, dev), init_carry(tc, S, C, dev)
@@ -1698,6 +2001,9 @@ def main() -> int:
     checkpoints = checkpoint_phase(dev, xbt, yt, wt, fmask, rcfg, forest)
     regression = regression_phase(dev, timings)
 
+    # 5e. the mesh plane ---------------------------------------------------------
+    mesh = mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, stages["growth"], xbe)
+
     # 6. full size, LM serving ----------------------------------------------------
     lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
@@ -1711,7 +2017,7 @@ def main() -> int:
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
-              "streamed": streamed, "checkpoints": checkpoints, "regression": regression,
+              "streamed": streamed, "checkpoints": checkpoints, "regression": regression, "mesh": mesh,
               "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
@@ -1720,6 +2026,8 @@ def main() -> int:
     log("launch counts on the streamed path: " + json.dumps(streamed["launches"]))
     log("launch counts on the resumed growth (5c): " + json.dumps(checkpoints["resume_launches"]))
     log("launch counts on the regression path (5d): " + json.dumps(regression["launches"]))
+    log("launch counts on the mesh (5e): " + json.dumps({k: v["launches"] for k, v in mesh.items()
+                                                        if k.startswith("nccl")}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ hand-written CUDA kernels (``csrc/``): the T_GR histogram, the T_NS
 split scan and the fused tree traversal, resident or streamed from host
 sample blocks (``config.sample_block > 0``,
 ``core.api.grow_forest_streamed``), with growth checkpointed every level
-and resumed after a crash (``checkpoint``, ``launch.fault``).
+and resumed after a crash (``checkpoint``, ``launch.fault``), on one
+device or on a vertical-partition mesh of processes over
+``torch.distributed`` (``core.distributed``, ``launch.mesh``).
 LM serving runs two more (attention, the Mamba-2 SSD scan). Every module mirrors its ``repro`` counterpart by name; the
 package imports ``torch`` and ``numpy`` only.
 """

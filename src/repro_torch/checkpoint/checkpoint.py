@@ -11,9 +11,13 @@ a crash mid-save never corrupts the latest checkpoint.
 Restore is *verified*: leaves are CRC / shape / dtype-checked against
 the manifest before they are trusted (a byte-flipped checkpoint raises
 :class:`CheckpointCorruptionError` instead of restoring garbage), then
-put on the device the caller names. ``restore_latest_valid`` walks back
-past corrupt or torn steps to the newest verifiable one; the resume
-paths of both growth drivers use it.
+put on the device the caller names, or where ``placement`` puts each
+leaf (a mesh rank takes its rows of a global slot table).
+``restore_latest_valid`` walks back past corrupt or torn steps to the
+newest verifiable one; the resume paths of every growth driver use it.
+A step saved with ``layout="global"`` (the mesh drivers: sharded leaves
+gathered, one writer) holds whole arrays and restores under any process
+count and mesh shape.
 
 Leaves are keyed as the reference's ``jax.tree_util`` paths key them
 (``_flatten``), so the port's growth carries are saved under the
@@ -67,7 +71,10 @@ def _process_count() -> int:
 
 def _check_topology(manifest: dict, path: str) -> None:
     """Refuse to restore across a changed process count. Single-process
-    manifests carry no ``topology`` key and imply one process."""
+    manifests carry no ``topology`` key and imply one process; a global
+    step (``layout="global"``) restores under any."""
+    if manifest.get("topology", {}).get("layout") == "global":
+        return
     saved = manifest.get("topology", {}).get("process_count", 1)
     now = _process_count()
     if int(saved) != now:
@@ -141,9 +148,12 @@ def _to_host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _from_host(arr: np.ndarray, like, device):
-    """A restored array in the form of its template leaf: a tensor on
-    ``device`` (None: the template's device), an int, or a numpy array."""
+def _from_host(arr: np.ndarray, like, device, placed=None):
+    """A restored array in the form of its template leaf: ``placed`` when
+    the caller's placement gave one, else a tensor on ``device`` (None: the
+    template's device), an int, or a numpy array."""
+    if placed is not None:
+        return placed
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(arr).to(like.device if device is None else device)
     if isinstance(like, int):
@@ -160,19 +170,23 @@ def save_checkpoint(
     tree, directory: str, step: int,
     *,
     fault_hook: Optional[Callable[[str], None]] = None,
+    layout: Optional[str] = None,
 ) -> str:
     """Atomic save with a checksummed manifest. Returns the final path.
 
     ``fault_hook`` is a deterministic chaos hook (see
     ``launch.fault.FaultInjector``) called at ``"leaf[i]"`` before each
     leaf write and at ``"pre_rename"`` between the complete tmp write
-    and the atomic rename (the torn-write window).
+    and the atomic rename (the torn-write window). ``layout="global"``
+    marks a step of whole arrays written by one rank for a whole mesh.
     """
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(dir=directory, prefix=_TMP_PREFIX)
     manifest = {"step": step, "leaves": []}
-    if _process_count() > 1:
+    if layout == "global":
+        manifest["topology"] = {"layout": "global", "process_count": _process_count()}
+    elif _process_count() > 1:
         manifest["topology"] = {"process_count": _process_count()}
     for i, (key, leaf) in enumerate(_flatten(tree)):
         if fault_hook is not None:
@@ -264,14 +278,17 @@ def verify_checkpoint(directory: str, step: int) -> None:
 
 def restore_checkpoint(
     tree_like, directory: str, step: Optional[int] = None,
-    *, device=None, verify: bool = True,
+    *, device=None, verify: bool = True, placement=None,
 ):
     """Restore into the structure of ``tree_like`` (values ignored).
     Returns ``(tree, step)``.
 
     Each leaf comes back in its template leaf's form: a tensor on
     ``device`` (``None``: on the template tensor's own device), an int,
-    or a numpy array. With ``verify`` (the default) every leaf is checked
+    or a numpy array. ``placement(key, array, like)``, when given, is
+    asked first for every leaf and may return the leaf to use (a mesh
+    rank's slice of a global array on its device), or None for the
+    default (the reference's ``shardings``). With ``verify`` (the default) every leaf is checked
     against the manifest's CRC32 / shape / dtype before it is used; a
     failed check raises :class:`CheckpointCorruptionError` (use
     ``restore_latest_valid`` to fall back past corrupt steps).
@@ -293,7 +310,8 @@ def restore_checkpoint(
                 f"leaf {key!r} missing from manifest in {path}"
             )
         arr = _load_leaf(path, entry) if verify else np.load(os.path.join(path, entry["file"]))
-        leaves[key] = _from_host(arr, like, device)
+        leaves[key] = _from_host(arr, like, device,
+                                 None if placement is None else placement(key, arr, like))
     return _unflatten(tree_like, leaves), step
 
 
@@ -302,6 +320,7 @@ def restore_latest_valid(
     *,
     device=None,
     on_skip: Optional[Callable[[int, Exception], None]] = None,
+    placement=None,
 ) -> Optional[Tuple[Any, int]]:
     """Restore the newest *verifiable* checkpoint, walking back past
     corrupt or torn steps.
@@ -315,7 +334,8 @@ def restore_latest_valid(
     """
     for step in reversed(list_steps(directory)):
         try:
-            return restore_checkpoint(tree_like, directory, step, device=device, verify=True)
+            return restore_checkpoint(tree_like, directory, step, device=device, verify=True,
+                                      placement=placement)
         except (CheckpointCorruptionError, OSError, ValueError, KeyError) as e:
             if on_skip is not None:
                 on_skip(step, e)
@@ -351,10 +371,11 @@ class CheckpointManager:
                 if d.startswith(_TMP_PREFIX):
                     shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
 
-    def maybe_save(self, tree, step: int) -> Optional[str]:
+    def maybe_save(self, tree, step: int, *, layout: Optional[str] = None) -> Optional[str]:
         if step % self.save_interval != 0:
             return None
-        path = save_checkpoint(tree, self.directory, step, fault_hook=self.fault_hook)
+        path = save_checkpoint(tree, self.directory, step, fault_hook=self.fault_hook,
+                               layout=layout)
         self._gc()
         return path
 

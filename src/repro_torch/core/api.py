@@ -37,7 +37,7 @@ from .engine import (
 )
 from .forest import grow_forest, grow_forest_checkpointed
 from .gain import SplitScores, level_scores, sibling_plan
-from .histograms import class_channels, regression_channels
+from .histograms import class_channels, regression_channels, regression_fixed_point
 from .types import Forest, ForestConfig
 from .voting import (
     oob_accuracy, oob_accuracy_streamed, oob_r2, oob_r2_streamed, predict, predict_regression,
@@ -541,6 +541,7 @@ def grow_forest_streamed(
     reuse = resolve_hist_reuse(config, F)
     n_rows = config.max_splits_per_level if reuse else S
     sizes = np.diff(offsets).tolist()
+    plane = LocalPlane(hist_fixed=regression_fixed_point(y_np, w_np) if config.regression else None)
 
     try:
         # Per-block constants, on the device once for the whole growth (none
@@ -575,7 +576,7 @@ def grow_forest_streamed(
             for i, xb_b in zip(feeder.live_blocks, feeder.sweep()):
                 _, slot_dev[i] = stream_block_step(
                     hist, xb_b, base_dev[i], w_dev[i], slot_dev[i], slot_node,
-                    split_rank, scores, config, LocalPlane(), route=route,
+                    split_rank, scores, config, plane, route=route,
                     small_right=cache["small_right"] if reuse else None,
                 )
             return hist

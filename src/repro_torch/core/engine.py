@@ -1,10 +1,14 @@
-"""Level-synchronous growth engine (paper §4.2), single-device plane.
+"""Level-synchronous growth engine (paper §4.2).
 
-Counterpart of ``repro/core/engine.py`` restricted to the ``LocalPlane``.
-One level step is: T_GR histograms -> T_NS split scoring
-(``chunked_level_scores``) -> ``plan_level`` -> ``write_level`` ->
-``route_level`` -> ``next_frontier``. ``grow`` runs it in a Python loop
-with one host sync per level (the early-exit test).
+Counterpart of ``repro/core/engine.py``. One level step is: T_GR
+histograms -> T_NS split scoring (``chunked_level_scores``) ->
+``plan_level`` -> ``write_level`` -> ``route_level`` ->
+``next_frontier``. ``grow`` runs it in a Python loop with one host sync
+per level (the early-exit test). The step asks a ``CollectivePlane``
+what it cannot answer alone: ``LocalPlane`` (one device, identities) or
+``core/distributed.MeshPlane`` (the vertical-partition mesh over
+``torch.distributed``), whose histogram combine (``combine_hist``) makes
+the level histogram whole before it is scored.
 
 On CUDA the default backends run the fused path (``fused_level_scores``):
 the histogram kernel and the split-scan kernel alternate feature slab by
@@ -26,9 +30,8 @@ With ``config.sample_block > 0`` every level histogram is accumulated
 over row blocks (``blocked_level_histograms``), and the streaming data
 plane (``core/api.grow_forest_streamed``) runs one ``stream_block_step``
 per (block, level). ``grow_checkpointed`` is the same loop with a
-checkpoint after every level and resume from the newest valid one. Not
-ported here: the mesh and multi-process planes (ROADMAP.md Queue 1
-items 9-10).
+checkpoint after every level and resume from the newest valid one. The
+multi-process plane is not ported (ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import torch
 
 from .gain import SplitScores, level_scores, node_counts, resolve_split_backend, sibling_plan
 from .histograms import (
-    blocked_level_histograms, block_slot_orders, hist_feature_slab, level_histograms,
+    FixedPoint, blocked_level_histograms, block_slot_orders, hist_feature_slab, level_histograms,
     sibling_expand, sibling_perm, sibling_segments, slot_order,
 )
 from .types import Forest, ForestConfig, GrowthState
@@ -87,10 +90,23 @@ def _rank_splits(gain: torch.Tensor, valid: torch.Tensor, n_max: int) -> torch.T
 
 
 class CollectivePlane:
-    """The engine's collective protocol — identity ops on a single device."""
+    """The engine's collective protocol — identity ops on a single device
+    (reference: ``repro/core/engine.py:CollectivePlane``).
+
+    ``combine_hist`` (None: no combine, which lets the single-device
+    growth score feature slab by feature slab) makes a shard's histogram
+    whole; ``merge_winners`` merges per-shard split leaders;
+    ``broadcast_route`` gives every sample shard the winning feature's
+    go-right bit; ``reduce_root`` combines the root counts once;
+    ``level_mask`` is the feature mask as the scorer sees it;
+    ``hist_width`` the feature width of a combined histogram (what the
+    reuse cache allocates). ``hist_fixed`` is the growth's fixed point of
+    non-integer histogram channels (``histograms.regression_fixed_point``),
+    None for classification."""
 
     combine_hist = None
     level_mask = None
+    hist_fixed: Optional[FixedPoint] = None
 
     def reduce_root(self, root_counts: torch.Tensor) -> torch.Tensor:
         return root_counts
@@ -101,22 +117,28 @@ class CollectivePlane:
     def broadcast_route(self, x_binned, f_i, thr_i) -> torch.Tensor:
         return (_gather_feature_bins(x_binned, f_i) > thr_i).to(torch.int32)
 
+    def hist_width(self, n_features: int) -> int:
+        return n_features
+
 
 class LocalPlane(CollectivePlane):
     """Single-device plane: the whole ``[N, F]`` block lives on one device."""
 
-    def __init__(self, feature_mask: Optional[torch.Tensor] = None):
+    def __init__(self, feature_mask: Optional[torch.Tensor] = None,
+                 hist_fixed: Optional[FixedPoint] = None):
         self.level_mask = feature_mask
+        self.hist_fixed = hist_fixed
 
 
 def _level_hists(x_binned, base_channels, w_c, slot_c, config: ForestConfig,
-                 order=None, n_slots: Optional[int] = None):
+                 order=None, n_slots: Optional[int] = None, fixed: Optional[FixedPoint] = None):
     """One chunk's level histogram, accumulated over sample blocks when
     ``config.sample_block`` asks for it (``order`` is then the list of
     per-block groupings). ``n_slots`` overrides the frontier width (the
     reuse path histograms into R rank segments instead)."""
     kw = dict(n_slots=config.frontier if n_slots is None else n_slots, n_bins=config.n_bins,
-              packed=config.packed_hist and not config.regression, backend=config.hist_backend)
+              packed=config.packed_hist and not config.regression, backend=config.hist_backend,
+              fixed=fixed)
     if config.sample_block > 0:
         return blocked_level_histograms(x_binned, base_channels, w_c, slot_c,
                                         sample_block=config.sample_block, orders=order, **kw)
@@ -131,6 +153,7 @@ def fused_level_scores(
     feature_mask: Optional[torch.Tensor],  # [tc, F] bool or None
     config: ForestConfig,
     cache: Optional[dict] = None,
+    fixed: Optional[FixedPoint] = None,
 ):
     """T_GR -> T_NS per feature slab: histogram of one slab, then the
     split scan folds it into the running-best carry. Peak histogram
@@ -169,7 +192,7 @@ def fused_level_scores(
     for f0 in range(0, F, W):
         f1 = min(f0 + W, F)
         hist = _level_hists(x_binned[:, f0:f1], base_channels, weights, sample_slot, config, order,
-                            n_slots=n_slots)
+                            n_slots=n_slots, fixed=fixed)
         if cache is not None:
             hist = sibling_expand(hist, cache["hist"][:, :, f0:f1], cache["perm"], cache["parent"], S)
             hist2[:, :, f0:f1] = hist
@@ -189,21 +212,32 @@ def chunked_level_scores(
     sample_slot: torch.Tensor,    # [k, N]
     feature_mask: Optional[torch.Tensor],  # [k, F] bool or None
     config: ForestConfig,
+    *,
+    hist_reduce=None,             # fn(hist) -> hist, e.g. the mesh's psum over samples
+    fixed: Optional[FixedPoint] = None,
 ):
     """T_GR + T_NS stage 1 for all k trees, ``tree_chunk`` trees at a time.
 
-    A remainder chunk is padded with zero-weight, all-parked dummy trees
-    whose rows are dropped from the result. Returns (SplitScores [k, S,
-    ...], n_node [k, S]).
+    Without ``hist_reduce`` on CUDA the chunk runs ``fused_level_scores``
+    (the histogram never exists beyond one feature slab); with it (the
+    mesh plane) the chunk's histogram is built whole, combined, then
+    scored. A remainder chunk is padded with zero-weight, all-parked
+    dummy trees whose rows are dropped from the result. The mask's
+    feature width may be narrower than the bins' (a reduce-scatter
+    combine scores a slice). Returns (SplitScores [k, S, ...], n_node
+    [k, S]).
     """
     k = config.n_trees
     tc = min(config.tree_chunk if config.tree_chunk > 0 else k, k)
     split_be = resolve_split_backend(config.split_backend, x_binned.device)
 
     def score_chunk(w_c, slot_c, mask_c):
-        if split_be == "pallas":
-            return fused_level_scores(x_binned, base_channels, w_c, slot_c, mask_c, config)
-        hist = _level_hists(x_binned, base_channels, w_c, slot_c, config)
+        if hist_reduce is None and split_be == "pallas":
+            return fused_level_scores(x_binned, base_channels, w_c, slot_c, mask_c, config,
+                                      fixed=fixed)
+        hist = _level_hists(x_binned, base_channels, w_c, slot_c, config, fixed=fixed)
+        if hist_reduce is not None:
+            hist = hist_reduce(hist)          # the T_GR combine over the sample shards
         return level_scores(hist, mask_c, regression=config.regression, backend=split_be)
 
     if tc >= k:
@@ -289,15 +323,20 @@ def reuse_level_task_group(x_binned, base_channels, weights, sample_slot, slot_n
     tree_live = (slot_node >= 0).any(dim=1)
     w_level = weights * tree_live[:, None].to(weights.dtype)
     seg = sibling_segments(sample_slot, cache["small_right"])
-    if resolve_split_backend(config.split_backend, x_binned.device) == "pallas":
+    split_be = resolve_split_backend(config.split_backend, x_binned.device)
+    if plane.combine_hist is None and split_be == "pallas":
         perm = sibling_perm(cache["small_right"], S)
         scores_r, n_r, hist2 = fused_level_scores(
-            x_binned, base_channels, w_level, seg, plane.level_mask, config, cache
+            x_binned, base_channels, w_level, seg, plane.level_mask, config, cache,
+            fixed=plane.hist_fixed,
         )
         scores = SplitScores(*(_permute_rows(perm, a) for a in scores_r))
         n_node = _permute_rows(perm, n_r)
     else:
-        packed_h = _level_hists(x_binned, base_channels, w_level, seg, config, n_slots=R)
+        packed_h = _level_hists(x_binned, base_channels, w_level, seg, config, n_slots=R,
+                                fixed=plane.hist_fixed)
+        if plane.combine_hist is not None:
+            packed_h = plane.combine_hist(packed_h)   # half the bytes of the off path
         scores, n_node, hist2, perm = reuse_expand_scores(
             packed_h, cache, plane.level_mask, config
         )
@@ -332,7 +371,7 @@ def init_growth_state(
     slot_node[:, 0] = 0
     hist_cache = None
     if n_features is not None and resolve_hist_reuse(config, n_features):
-        hist_cache = init_hist_cache(config, n_features, dev)
+        hist_cache = init_hist_cache(config, plane.hist_width(n_features), dev)
     return GrowthState(
         forest=forest,
         slot_node=slot_node,
@@ -351,7 +390,8 @@ def level_task_group(
     tree_live = (slot_node >= 0).any(dim=1)
     w_level = weights * tree_live[:, None].to(weights.dtype)
     scores, n_node = chunked_level_scores(
-        x_binned, base_channels, w_level, sample_slot, plane.level_mask, config
+        x_binned, base_channels, w_level, sample_slot, plane.level_mask, config,
+        hist_reduce=plane.combine_hist, fixed=plane.hist_fixed,
     )
     return plane.merge_winners(scores, n_node)
 
@@ -430,7 +470,7 @@ def stream_block_step(hist_acc, xb_b, base_b, w_b, slot_b, slot_node, split_rank
     level_histograms(
         xb_b, base_b, w_lvl, slots, n_slots=n_slots, n_bins=config.n_bins,
         packed=config.packed_hist and not config.regression, backend=config.hist_backend,
-        out=hist_acc,
+        out=hist_acc, fixed=plane.hist_fixed,
     )
     return hist_acc, slot_b
 

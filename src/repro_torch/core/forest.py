@@ -14,18 +14,21 @@ import torch
 
 from ..device import as_tensor, resolve_device
 from .engine import LocalPlane, _gather_feature_bins, grow, grow_checkpointed
-from .histograms import class_channels, regression_channels
+from .histograms import class_channels, regression_channels, regression_fixed_point
 from .types import Forest, ForestConfig
 
 
 def _growth_inputs(x_binned, y, weights, config: ForestConfig, feature_mask, device):
+    """Tensors on the device and the growth's ``LocalPlane``; regression's
+    fixed point is read off the given ``y`` and ``weights`` once here."""
     dev = resolve_device(device)
     xb = as_tensor(x_binned, dev, torch.uint8).contiguous()
     y_t = as_tensor(y, dev)
     w = as_tensor(weights, dev, torch.float32).contiguous()
     mask = None if feature_mask is None else as_tensor(feature_mask, dev, torch.bool)
     base = regression_channels(y_t) if config.regression else class_channels(y_t, config.n_classes)
-    return xb, base, w, LocalPlane(mask)
+    fixed = regression_fixed_point(y, weights) if config.regression else None
+    return xb, base, w, LocalPlane(mask, fixed)
 
 
 def grow_forest(

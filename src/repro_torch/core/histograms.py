@@ -21,14 +21,23 @@ equals the slice of the full one, since every feature is independent.
 The kernel walks each tree's live samples grouped by slot
 (``slot_order``); a caller that builds several slabs from one level
 makes the grouping once and passes it to each.
+
+Regression's ``y`` and ``y^2`` channels are not integers. On CUDA they
+are summed in fixed point (``fixed``, a ``FixedPoint`` from
+``regression_fixed_point``, one per growth), by the kernel and by the
+plain version alike, so the histogram does not depend on the order of
+the atomics and two growths from the same draws are bitwise equal. On
+the CPU the plain float version runs, in the reference's order.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels.gain_ratio.ops import SlotOrder, slot_order  # slot_order: re-exported
+from ..kernels.gain_ratio.ref import FixedPoint, fixed_shift
 
 BACKENDS = ("auto", "pallas", "segment_sum")
 
@@ -68,12 +77,14 @@ def level_histograms(
     backend: str = "auto",
     order: Optional[SlotOrder] = None,   # slot_order(sample_slot, weights, n_slots)
     out: Optional[torch.Tensor] = None,  # [k, S, F, B, C] float32 to add into
+    fixed: Optional[FixedPoint] = None,  # non-integer channels in fixed point (CUDA)
 ) -> torch.Tensor:
     """hist[t,s,f,b,c] = sum_i w[t,i] * base[i,c] * [slot_i = s] * [x_if = b].
 
     Returns [k, S, F, B, C] float32, or ``out`` with the histogram added
     into it. ``order`` only steers the kernel; the plain version gives
-    the same histogram without it.
+    the same histogram without it. ``fixed`` sums channels ``[c0, C)`` in
+    fixed point on CUDA (kernel and plain version); the CPU ignores it.
     """
     backend = resolve_backend(backend, x_binned.device)
     if backend == "pallas":
@@ -81,14 +92,20 @@ def level_histograms(
 
         return multi_tree_hist(
             x_binned, base_channels, weights, sample_slot,
-            n_slots=n_slots, n_bins=n_bins, packed=packed, order=order, out=out,
+            n_slots=n_slots, n_bins=n_bins, packed=packed, order=order, out=out, fixed=fixed,
         )
-    from ..kernels.gain_ratio.ref import multi_tree_hist_ref
+    from ..kernels.gain_ratio.ref import multi_tree_hist_fixed_ref, multi_tree_hist_ref
 
-    hist = multi_tree_hist_ref(
-        x_binned, base_channels, weights, sample_slot,
-        n_slots=n_slots, n_bins=n_bins, packed=packed,
-    )
+    if fixed is not None and x_binned.is_cuda:
+        hist = multi_tree_hist_fixed_ref(
+            x_binned, base_channels, weights, sample_slot,
+            n_slots=n_slots, n_bins=n_bins, fixed=fixed,
+        )
+    else:
+        hist = multi_tree_hist_ref(
+            x_binned, base_channels, weights, sample_slot,
+            n_slots=n_slots, n_bins=n_bins, packed=packed,
+        )
     return hist if out is None else out.add_(hist)
 
 
@@ -104,6 +121,7 @@ def blocked_level_histograms(
     packed: bool = False,
     backend: str = "auto",
     orders: Optional[Sequence[SlotOrder]] = None,   # block_slot_orders(...)
+    fixed: Optional[FixedPoint] = None,
 ) -> torch.Tensor:
     """``level_histograms`` accumulated over ``[sample_block, F]`` row
     blocks, each added into one carry (``out=``): the resumable
@@ -124,7 +142,7 @@ def blocked_level_histograms(
         level_histograms(
             x_binned[r0:r1], base_channels[r0:r1], weights[:, r0:r1], sample_slot[:, r0:r1],
             n_slots=n_slots, n_bins=n_bins, packed=packed, backend=backend,
-            order=None if orders is None else orders[j], out=acc,
+            order=None if orders is None else orders[j], out=acc, fixed=fixed,
         )
     return acc
 
@@ -214,3 +232,21 @@ def regression_channels(y: torch.Tensor) -> torch.Tensor:
     """[1, y, y^2] -> [N, 3] float32."""
     y = y.to(torch.float32)
     return torch.stack([torch.ones_like(y), y, y * y], dim=-1)
+
+
+def regression_fixed_point(y, weights) -> FixedPoint:
+    """The fixed point of a regression growth's ``[1, y, y^2]`` channels:
+    channels 1 and 2, at the ``fixed_shift`` of ``N`` samples of weight at
+    most ``max(weights)`` and value at most ``max(|y|, y^2)`` in float32.
+    ``y`` and ``weights`` are the growth's whole arrays (every shard of a
+    mesh passes the global ones), so every call of the growth shares it.
+    Host arrays cost no device sync; a device tensor costs one."""
+    def abs_max(a) -> float:
+        if isinstance(a, torch.Tensor):
+            return float(a.to(torch.float32).abs().max()) if a.numel() else 0.0
+        a = np.asarray(a, dtype=np.float32)
+        return float(np.abs(a).max()) if a.size else 0.0
+
+    ymax = abs_max(y)
+    vmax = max(ymax, float(np.float32(ymax) * np.float32(ymax)))   # y^2 as float32 rounds it
+    return FixedPoint(1, fixed_shift(weights.shape[1], abs_max(weights), vmax))

@@ -50,7 +50,7 @@ class ForestConfig:
     bin_fit: str = "auto"             # exact | blocked (streaming sketch) | auto
     regression: bool = False
     packed_hist: bool = False         # class index folded into the histogram index
-    hist_reduce: str = "psum"         # mesh plane only (not ported)
+    hist_reduce: str = "psum"         # mesh plane's T_GR combine: psum | psum_scatter
     hist_reuse: str = "auto"          # sibling-subtraction histogram reuse: auto | on | off
     hist_reuse_budget_mb: int = 256
     # "pallas" = CUDA kernel, "segment_sum"/"xla" = plain PyTorch,

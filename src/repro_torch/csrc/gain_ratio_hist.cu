@@ -49,9 +49,27 @@
 // Arbitrary N and W need no padding; x may be a column slice of a wider
 // matrix (row stride ld); bin ids >= B are ignored. The DSI weights are
 // integers, so every entry is an exact float below 2^24 and any atomic
-// order gives bitwise the plain PyTorch version's histogram; non-integer
-// channels (regression) agree to rounding only.
+// order gives bitwise the plain PyTorch version's histogram.
+//
+// Fixed point (fx_out set; hist_kernel<false, kTiled, true>): channels
+// [fx_c0, C) are not integers (regression's y and y^2), and float atomics
+// would round their sums in an order that changes from run to run. Each
+// contribution p = w[t, i] * base[i, c] (one float32 product) is quantised
+// to llrint(p * 2^s), rounding to nearest even, and added with native
+// 64-bit integer atomics: into the block's shared histogram, whose cells
+// are then 64-bit for every channel (the integer channels keep the path
+// above, in wider cells), and at each flush into the int64 scratch fx_out
+// [tc, S, W, B, C - fx_c0]. Integer addition does not depend on order. One
+// more kernel adds (float)((double)acc * 2^-s) into out. The caller picks s
+// so that no sum can pass 2^62 (kernels/gain_ratio/ref.fixed_shift), the
+// same s for every call of one growth; fixed_point_convert and the plain
+// version multi_tree_hist_fixed_ref round the same way, so the kernel
+// equals it bitwise. XGBoost's GPU histogram (GradientQuantiser) quantises
+// gradients into int64 the same way. Without fx_out non-integer values go
+// to global float atomics and agree with the plain version to rounding.
+#include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,16 +90,31 @@ __device__ __forceinline__ void add(int* cell, float* gcell, float v, float int_
   else atomicAdd(gcell, v);
 }
 
+// The same in a fixed-point block's 64-bit cells (two's complement sums).
+__device__ __forceinline__ void add(unsigned long long* cell, float* gcell, float v, float int_max) {
+  if (v == rintf(v) && fabsf(v) <= int_max) atomicAdd(cell, (unsigned long long)(long long)(int)v);
+  else atomicAdd(gcell, v);
+}
+
+// A fixed-point channel's contribution: v * 2^s rounded to nearest even.
+__device__ __forceinline__ void add_fixed(unsigned long long* cell, float v, double scale) {
+  atomicAdd(cell, (unsigned long long)llrint((double)v * scale));
+}
+
 // kTiled: the block holds classes [c0, c0 + nc) of C (z picks the tile);
-// else every class (z is the feature tile alone).
-template <bool kPacked, bool kTiled>
+// else every class (z is the feature tile alone). kFixed: channels
+// [fx_c0, C) add in fixed point (see the note above), every cell 64-bit.
+template <bool kPacked, bool kTiled, bool kFixed>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict__ base,
             const float* __restrict__ w, const int* __restrict__ slot,
             const int* __restrict__ order, const int* __restrict__ seg,
-            float* __restrict__ out, int N, int W, int S, int B, int C, int chunk, int wt,
+            float* __restrict__ out, unsigned long long* __restrict__ fx_out, int fx_c0,
+            double fx_scale, int N, int W, int S, int B, int C, int chunk, int wt,
             int ct, int nct, int z0, float int_max) {
-  extern __shared__ int sh[];                     // [wt][B * ct + 1]
+  using Acc = typename std::conditional<kFixed, unsigned long long, int>::type;
+  extern __shared__ __align__(16) unsigned char sh_raw[];
+  Acc* sh = reinterpret_cast<Acc*>(sh_raw);       // [wt][B * ct + 1]
   const int t = blockIdx.x;
   const int p0 = blockIdx.y * chunk;
   const float* wt_t = w + (long long)t * N;
@@ -114,7 +147,7 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
   const int* st = slot + (long long)t * N;
   const bool active = lane < nf;
   const int f = f0 + (active ? lane : 0);
-  int* my_row = sh + lane * row;
+  Acc* my_row = sh + lane * row;
   for (int a = p0;;) {
     const int a_end = sg ? min(p1, sg[s + 1]) : p1;
     float* og = out + (((long long)t * S + s) * W + f0) * BC;
@@ -170,12 +203,21 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
         for (int u = 0; u < 8; ++u) {
           if (b[u] >= B) continue;
           if (cj[u] >= 0) {
-            add(my_row + b[u] * nc + cj[u] - c0, my_g + b[u] * C + cj[u], vj[u], int_max);
+            if (kFixed && cj[u] >= fx_c0)
+              add_fixed(reinterpret_cast<unsigned long long*>(my_row + b[u] * nc + cj[u] - c0),
+                        vj[u], fx_scale);
+            else
+              add(my_row + b[u] * nc + cj[u] - c0, my_g + b[u] * C + cj[u], vj[u], int_max);
           } else {
             const float* bi = base + (long long)ij[u] * C;
             for (int c = c0; c < c0 + nc; ++c) {
               const float vc = vj[u] * bi[c];
-              if (vc != 0.0f) add(my_row + b[u] * nc + c - c0, my_g + b[u] * C + c, vc, int_max);
+              if (vc == 0.0f) continue;
+              if (kFixed && c >= fx_c0)
+                add_fixed(reinterpret_cast<unsigned long long*>(my_row + b[u] * nc + c - c0), vc,
+                          fx_scale);
+              else
+                add(my_row + b[u] * nc + c - c0, my_g + b[u] * C + c, vc, int_max);
             }
           }
         }
@@ -185,10 +227,23 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
     // flush this slot's cells: one global atomic per nonzero cell (per four
     // when four shared cells are four aligned output cells); shared cell r
     // of a feature is output cell r, or in a class tile bin r / nc, class c0 + r % nc
-    if (!kTiled ? BC % 4 == 0 : nc % 4 == 0 && C % 4 == 0 && c0 % 4 == 0) {
+    if constexpr (kFixed) {
+      const int Cf = C - fx_c0;
+      unsigned long long* fg = fx_out + (((long long)t * S + s) * W + f0) * B * Cf;
+      for (int e = threadIdx.x; e < nf * BCt; e += kThreads) {
+        const int fe = e / BCt, r = e - fe * BCt;
+        Acc& c = sh[fe * row + r];
+        if (c != 0) {
+          const int bb = r / nc, cc = c0 + r % nc;
+          if (cc >= fx_c0) atomicAdd(fg + ((long long)fe * B + bb) * Cf + cc - fx_c0, c);
+          else atomicAdd(og + (long long)fe * BC + bb * C + cc, (float)(long long)c);
+          c = 0;
+        }
+      }
+    } else if (!kTiled ? BC % 4 == 0 : nc % 4 == 0 && C % 4 == 0 && c0 % 4 == 0) {
       for (int e = threadIdx.x; e < nf * BCt / 4; e += kThreads) {
         const int fe = e / (BCt / 4), r = 4 * (e - fe * (BCt / 4));
-        int* c = sh + fe * row + r;
+        Acc* c = sh + fe * row + r;
         if (c[0] | c[1] | c[2] | c[3]) {
           const int o = kTiled ? (r / nc) * C + c0 + r % nc : r;
           atomicAdd(reinterpret_cast<float4*>(og + (long long)fe * BC + o),
@@ -199,7 +254,7 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
     } else {
       for (int e = threadIdx.x; e < nf * BCt; e += kThreads) {
         const int fe = e / BCt, r = e - fe * BCt;
-        int& c = sh[fe * row + r];
+        Acc& c = sh[fe * row + r];
         if (c != 0) {
           const int o = kTiled ? (r / nc) * C + c0 + r % nc : r;
           atomicAdd(og + (long long)fe * BC + o, (float)c);
@@ -214,29 +269,49 @@ hist_kernel(const uint8_t* __restrict__ x, long long ld, const float* __restrict
   }
 }
 
+// out[cell, fx_c0 + j] += (float)((double)acc[cell, j] * 2^-s): the one
+// rounding of each fixed-point sum to float32, as the plain version rounds it.
+__global__ void __launch_bounds__(kThreads)
+fixed_point_convert(const long long* __restrict__ acc, float* __restrict__ out, long long n,
+                    int C, int fx_c0, double inv_scale) {
+  const int Cf = C - fx_c0;
+  for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const long long cell = e / Cf;
+    float* o = out + cell * C + fx_c0 + (e - cell * Cf);
+    *o = *o + (float)((double)acc[e] * inv_scale);
+  }
+}
+
 }  // namespace
 
 // x [N, ld] uint8 (W columns used), base [N, C], w and slot [tc, N], out
 // [tc, S, W, B, C] zeroed by the caller (or a carry to add into). order
 // [tc, N] and seg [tc, S + 1] (int32) group the live samples by slot; both
 // null: index order, S must be 1. ct: classes a block holds (C, or a tile
-// of a class axis too wide for shared memory).
+// of a class axis too wide for shared memory). fx_out: null, or the int64
+// scratch [tc, S, W, B, C - fx_c0] zeroed by the caller: channels [fx_c0, C)
+// then add in fixed point at scale 2^fx_shift (not with packed).
 extern "C" int prf_hist(const void* x, long long ld, const void* base, const void* w,
                         const void* slot, const void* order, const void* seg, void* out, int N,
-                        int W, int tc, int S, int B, int C, int packed, int ct, void* stream) {
+                        int W, int tc, int S, int B, int C, int packed, int ct, void* fx_out,
+                        int fx_c0, int fx_shift, void* stream) {
   if (N <= 0 || W <= 0 || tc <= 0) return (int)cudaGetLastError();
   if ((order == nullptr) != (seg == nullptr) || (order == nullptr && S != 1) || ct < 1 || ct > C)
     return (int)cudaErrorInvalidValue;
+  const bool fixed = fx_out != nullptr;
+  if (fixed && (packed || fx_c0 < 0 || fx_c0 >= C)) return (int)cudaErrorInvalidValue;
   const int nct = (C + ct - 1) / ct;
-  const size_t row_bytes = ((size_t)B * ct + 1) * sizeof(int);
+  const size_t row_bytes = ((size_t)B * ct + 1) * (fixed ? sizeof(long long) : sizeof(int));
   int wt = W < kMaxTile ? W : kMaxTile;
   if (wt * row_bytes > kSmemTarget) wt = (int)(kSmemTarget / row_bytes);
   if (wt < 1) wt = 1;
   const size_t smem = wt * row_bytes;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   const bool tiled = nct > 1;
-  auto kernel = packed ? (tiled ? hist_kernel<true, true> : hist_kernel<true, false>)
-                       : (tiled ? hist_kernel<false, true> : hist_kernel<false, false>);
+  auto kernel = fixed ? (tiled ? hist_kernel<false, true, true> : hist_kernel<false, false, true>)
+               : packed ? (tiled ? hist_kernel<true, true, false> : hist_kernel<true, false, false>)
+                        : (tiled ? hist_kernel<false, true, false> : hist_kernel<false, false, false>);
   if (smem > kSmemTarget) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -256,10 +331,18 @@ extern "C" int prf_hist(const void* x, long long ld, const void* base, const voi
     dim3 grid((unsigned)tc, (unsigned)((N + chunk - 1) / chunk), (unsigned)nz);
     kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)x, ld, (const float*)base, (const float*)w, (const int*)slot,
-        (const int*)order, (const int*)seg, (float*)out, N, W, S, B, C, (int)chunk, wt, ct, nct,
-        (int)z0, int_max);
+        (const int*)order, (const int*)seg, (float*)out, (unsigned long long*)fx_out, fx_c0,
+        ldexp(1.0, fx_shift), N, W, S, B, C, (int)chunk, wt, ct, nct, (int)z0, int_max);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+  }
+  if (fixed) {
+    const long long n = (long long)tc * S * W * B * (C - fx_c0);
+    const long long blocks = (n + kThreads - 1) / kThreads;
+    fixed_point_convert<<<(unsigned)(blocks < 65535 ? blocks : 65535), kThreads, 0,
+                          (cudaStream_t)stream>>>((const long long*)fx_out, (float*)out, n, C, fx_c0,
+                                                  ldexp(1.0, -fx_shift));
+    return (int)cudaGetLastError();
   }
   return (int)cudaSuccess;
 }

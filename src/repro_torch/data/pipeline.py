@@ -14,8 +14,11 @@ non-blocking copy on its own stream; an event marks the copy's end. The
 consumer's stream waits on that event before it touches the block
 (``_Sweep.__next__``), and a pinned buffer is written again only after
 the event of its last copy has completed. On the CPU the thread makes a
-plain copy. The reference's mesh (``NamedSharding``) and multi-process
-(callable) placements are not ported: ROADMAP.md Queue 1 items 9 and 10.
+plain copy. A mesh placement (an object with a ``device`` and a
+``local(block)``, ``core/distributed._BlockPlacement``) feeds each rank
+its own ``(sample x feature)`` slice of every block, as the reference's
+``NamedSharding`` placement does. The multi-process (callable) placement
+is not ported: ROADMAP.md Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -537,18 +540,19 @@ class _Sweep:
         return False
 
 
-def _resolve_placement(placement) -> torch.device:
+def _resolve_placement(placement) -> Tuple[torch.device, Optional[Callable]]:
+    """``(device, local)``: where blocks go, and the slice of each block
+    this rank feeds (None: the whole block)."""
     if placement is None or isinstance(placement, (str, torch.device)):
-        return resolve_device(placement)
+        return resolve_device(placement), None
+    if hasattr(placement, "device") and callable(getattr(placement, "local", None)):
+        return torch.device(placement.device), placement.local
     if callable(placement):
         raise NotImplementedError(
             "a callable placement (each process feeding its own rows) is not ported "
             "yet: ROADMAP.md Queue 1 item 10"
         )
-    raise NotImplementedError(
-        f"placement {placement!r}: the port feeds one torch.device; a mesh sharding "
-        "is not ported yet: ROADMAP.md Queue 1 item 9"
-    )
+    raise ValueError(f"placement {placement!r}: a torch.device, its name, or a mesh placement")
 
 
 class BlockFeeder:
@@ -566,7 +570,8 @@ class BlockFeeder:
       buffers on their own stream (module docstring).
 
     ``placement`` is a ``torch.device`` (or its name); ``None`` is the
-    port's default device, ``cuda``.
+    port's default device, ``cuda``; a mesh placement feeds this rank's
+    slice of each swept block (``pin`` uploads its array as it is).
 
     **Fault tolerance.** Every transfer (``pin`` and each sweep block)
     runs in a bounded retry loop: a ``retryable`` exception (default
@@ -634,7 +639,7 @@ class BlockFeeder:
             raise ValueError("backoff/max_backoff must be >= 0 and backoff_factor >= 1")
         if join_timeout <= 0:
             raise ValueError(f"join_timeout must be > 0, got {join_timeout}")
-        self.placement = _resolve_placement(placement)
+        self.placement, self._local = _resolve_placement(placement)
         self.max_retries = int(max_retries)
         self.backoff = float(backoff)
         self.backoff_factor = float(backoff_factor)
@@ -663,6 +668,8 @@ class BlockFeeder:
              ring: Optional[_PinnedRing] = None):
         """One host-to-device transfer under the bounded retry policy."""
         self._last_site = site
+        if index is not None and self._local is not None:
+            block = self._local(block)             # this rank's slice of a swept block
         attempt = 0
         while True:
             try:

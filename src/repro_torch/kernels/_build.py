@@ -39,8 +39,10 @@ FMAD_SOURCES = ("flash_attention.cu", "ssd_scan.cu")
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every exported launcher (all return cudaGetLastError()).
 SIGNATURES = {
-    # x, ld, base, w, slot, order, seg, out, N, W, tc, S, B, C, packed, class_tile, stream
-    "prf_hist": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, ld, base, w, slot, order, seg, out, N, W, tc, S, B, C, packed, class_tile,
+    # fx_out, fx_c0, fx_shift, stream
+    "prf_hist": [_P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P, _I, _I, _P],
     # hist, mask, f_base, gain, feat, thr, left, right, tc, S, W, B, C, regression,
     # class_tile, stream
     "prf_split_scan": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -15,21 +15,23 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .ref import multi_tree_hist_ref
+from .ref import FixedPoint, multi_tree_hist_ref
 
 launches = 0   # kernel launches in this process (the CPU path does not count)
 MAX_ROW_BYTES = 227 * 1024    # shared memory a block may take
 TILE_ROW_BYTES = 48 * 1024    # a class tile's [B, Ct] int histogram (+ pad): several blocks an SM
 
 
-def class_tile(n_bins: int, n_channels: int) -> int:
+def class_tile(n_bins: int, n_channels: int, fixed: bool = False) -> int:
     """Classes a block holds at once: all C while one feature's ``[B, C]``
     int histogram, plus its pad word, fits ``MAX_ROW_BYTES`` (C < 227 at
     B 256), else tiles of a multiple of 4 classes (whole float4 flushes)
-    whose row fits ``TILE_ROW_BYTES`` (44 at B 256)."""
-    if (n_bins * n_channels + 1) * 4 <= MAX_ROW_BYTES:
+    whose row fits ``TILE_ROW_BYTES`` (44 at B 256). In fixed point every
+    cell is 64-bit, so a row takes twice the bytes (C < 114 at B 256)."""
+    cell = 8 if fixed else 4
+    if (n_bins * n_channels + 1) * cell <= MAX_ROW_BYTES:
         return n_channels
-    ct = (TILE_ROW_BYTES // 4 - 1) // n_bins
+    ct = (TILE_ROW_BYTES // cell - 1) // n_bins
     return max(1, ct - ct % 4 if ct >= 8 else ct)
 
 
@@ -107,6 +109,7 @@ def multi_tree_hist(
     packed: bool = False,
     order: Optional[SlotOrder] = None,   # slot_order(slot, w, n_slots); made here if None
     out: Optional[torch.Tensor] = None,  # [tc, S, W, B, C] float32 to add into
+    fixed: Optional[FixedPoint] = None,  # channels [c0, C) in fixed point at 2^shift
 ) -> torch.Tensor:
     """Multi-tree histograms [tc, S, W, B, C] float32 (bins must be < n_bins).
 
@@ -114,9 +117,17 @@ def multi_tree_hist(
     returned: the kernel's atomics flush into it as into its own zeroed
     output, the plain version does ``out += hist``. With integer counts
     the sum is exact, so a histogram accumulated over sample blocks is
-    bitwise the one-shot histogram."""
+    bitwise the one-shot histogram.
+
+    With ``fixed`` the kernel sums channels ``[fixed.c0, C)`` in fixed
+    point (an int64 scratch, then one conversion added into the output)
+    and equals ``ref.multi_tree_hist_fixed_ref`` bitwise, whatever the
+    order of its atomics. On a CPU tensor ``fixed`` is not read: the CPU
+    path is the float version, which sums in the reference's order."""
     global launches
     _check(x_bins, base, w, slot)
+    if fixed is not None and (packed or not 0 <= fixed.c0 < base.shape[1]):
+        raise ValueError(f"fixed point {fixed} needs unpacked channels, c0 in [0, {base.shape[1]})")
     if order is not None:
         _check_order(order, slot, n_slots)
     N, W = x_bins.shape
@@ -143,10 +154,16 @@ def multi_tree_hist(
         order_ptr, seg_ptr = order.order.data_ptr(), order.seg.data_ptr()
     if out is None:
         out = torch.zeros((tc, n_slots, W, n_bins, C), dtype=torch.float32, device=base.device)
+    fx_out, fx_c0, fx_shift = None, 0, 0
+    if fixed is not None:
+        scratch = torch.zeros((tc, n_slots, W, n_bins, C - fixed.c0), dtype=torch.int64,
+                              device=base.device)
+        fx_out, fx_c0, fx_shift = scratch.data_ptr(), fixed.c0, fixed.shift
     launch(
         "prf_hist", x_bins.data_ptr(), x_bins.stride(0), base.data_ptr(),
         w.data_ptr(), slot.data_ptr(), order_ptr, seg_ptr, out.data_ptr(), N, W, tc,
-        n_slots, n_bins, C, int(packed), class_tile(n_bins, C),
+        n_slots, n_bins, C, int(packed), class_tile(n_bins, C, fixed is not None),
+        fx_out, fx_c0, fx_shift,
     )
     launches += 1
     return out

@@ -1,1 +1,2 @@
-"""Fault injection and supervision of training loops (``repro.launch``'s counterpart)."""
+"""Fault injection, supervision of training loops and the process mesh
+(``repro.launch``'s counterpart)."""

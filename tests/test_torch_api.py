@@ -191,13 +191,19 @@ def test_import_hygiene_subprocess():
         "import sys, repro_torch, repro_torch.convert, repro_torch.core.engine, "
         "repro_torch.kernels.split_scan.ops, repro_torch.kernels.tree_traverse.ops, "
         "repro_torch.kernels.gain_ratio.ops, repro_torch.kernels._build, "
-        "repro_torch.checkpoint, repro_torch.launch.fault\n"
+        "repro_torch.checkpoint, repro_torch.launch.fault, repro_torch.launch.mesh, "
+        "repro_torch.core.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.') or m == 'msgpack' or m.startswith('msgpack.')]\n"
         "assert not bad, bad\n"
+        # a rank that run_world spawns (this test process has loaded jax and repro)
+        "from repro_torch.launch.mesh import run_world\n"
+        "out = run_world('torch_mesh_ranks:loaded_modules', 2, timeout_s=120)\n"
+        "assert out == [[], []], out\n"
     )
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
-    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT, timeout=120)
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
+           "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT, timeout=180)
 
 
 def test_import_hygiene_text_scan():

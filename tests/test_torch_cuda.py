@@ -15,7 +15,9 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
 from repro_torch.kernels.gain_ratio import ops as hist_ops
-from repro_torch.kernels.gain_ratio.ref import multi_tree_hist_ref
+from repro_torch.kernels.gain_ratio.ref import (
+    FixedPoint, fixed_shift, multi_tree_hist_fixed_ref, multi_tree_hist_ref,
+)
 from repro_torch.kernels.split_scan import ops as scan_ops
 from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -615,10 +617,11 @@ def _regression_agree(a, b, xtr, ytr, xte, dev, msg):
 
 
 def test_train_prf_regression_kernel_path_close_to_plain_path(cuda_device):
-    """``train_prf(regression=True)`` on the three PRF kernels (float
+    """``train_prf(regression=True)`` on the three PRF kernels (fixed-point
     channels in the histogram, variance gains in the split scan, a value
-    payload in the traversal) against the plain path (whose CUDA
-    ``index_add_`` sums floats by atomics too): ``_regression_agree``."""
+    payload in the traversal) against the plain path (on CUDA the same
+    fixed point through int64 ``index_add_``): the forests bitwise, the
+    predictions by ``_regression_agree``."""
     from repro_torch import train_prf
 
     (xtr, ytr, xte, _), cfg = _regression_case()
@@ -630,8 +633,10 @@ def test_train_prf_regression_kernel_path_close_to_plain_path(cuda_device):
     torch.cuda.synchronize()
     assert hist_ops.launches > n0[0] and scan_ops.launches > n0[1] and trav_ops.launches > n0[2]
     assert pa.dtype == np.float32 and np.isfinite(pa).all()
-    _regression_agree(a, train_prf(xtr, ytr, plain, 0, device=cuda_device), xtr, ytr, xte, cuda_device,
-                      "kernel vs plain")
+    b = train_prf(xtr, ytr, plain, 0, device=cuda_device)
+    for n in ("feature", "threshold", "left_child", "class_counts", "value", "tree_weight"):
+        assert torch.equal(getattr(a.forest, n), getattr(b.forest, n)), f"kernel vs plain: {n}"
+    _regression_agree(a, b, xtr, ytr, xte, cuda_device, "kernel vs plain")
 
 
 def test_predict_regression_through_the_traversal_kernel(cuda_device):
@@ -655,16 +660,58 @@ def test_predict_regression_through_the_traversal_kernel(cuda_device):
 
 
 def test_regression_growth_twice_on_the_kernels(cuda_device):
-    """Two regression trainings with the same draws on the kernel path: the
-    float channels' atomics add in a run-dependent order, so the two
-    models are not bitwise equal in general and a split tied to float
-    rounding may go either way (ROADMAP Queue 3 item 6); every divergence
-    must be such a tie. Whether they are bitwise equal is printed."""
+    """Two regression trainings with the same draws on the kernel path are
+    bitwise equal: the histogram sums the float channels in fixed point,
+    so the order of its atomics does not matter (ROADMAP Queue 3 item 6,
+    closed). Their predictions are equal too."""
     from repro_torch import train_prf
 
     (xtr, ytr, xte, _), cfg = _regression_case()
+    n0 = hist_ops.launches
     a = train_prf(xtr, ytr, cfg, 0, device=cuda_device)
     b = train_prf(xtr, ytr, cfg, 0, device=cuda_device)
-    _regression_agree(a, b, xtr, ytr, xte, cuda_device, "two kernel runs")
-    print("regression two runs bitwise equal:", all(
-        torch.equal(getattr(a.forest, n), getattr(b.forest, n)) for n in a.forest.FIELDS))
+    assert hist_ops.launches > n0
+    for n in a.forest.FIELDS:
+        assert torch.equal(getattr(a.forest, n), getattr(b.forest, n)), f"two runs differ in {n}"
+    np.testing.assert_array_equal(a.predict(xte), b.predict(xte))
+
+
+@pytest.mark.parametrize("case", ["slots", "one slot", "carry", "class tiles", "big y"])
+def test_hist_kernel_fixed_point_bitwise(cuda_device, case):
+    """The kernel's fixed-point channels against ``multi_tree_hist_fixed_ref``,
+    bitwise: slot-grouped samples; one slot in index order; added into a
+    carry (``out=``); a class axis in tiles (64-bit cells, C 150 at B 256);
+    targets of 1e6 (a coarse scale)."""
+    dev = cuda_device
+    N, F, S, B, tc = 20_011, 9, 6, 32, 3
+    if case == "class tiles":
+        N, F, S, B = 5003, 4, 3, 256
+    if case == "one slot":
+        S = 1
+    xb = torch.from_numpy(RNG.integers(0, B, (N, F)).astype(np.uint8)).to(dev)
+    y = torch.from_numpy(RNG.normal(size=N).astype(np.float32) * (1e6 if case == "big y" else 1.0))
+    base = torch.stack([torch.ones_like(y), y, y * y], -1)
+    if case == "class tiles":
+        base = torch.from_numpy(RNG.normal(size=(N, 150)).astype(np.float32))
+        base[:, 0] = 1.0
+    base = base.to(dev)
+    w = torch.from_numpy(RNG.integers(0, 4, (tc, N)).astype(np.float32)).to(dev)
+    slot = torch.from_numpy(RNG.integers(-1, S, (tc, N)).astype(np.int32)).to(dev)
+    vmax = float(base[:, 1:].abs().max())
+    fp = FixedPoint(1, fixed_shift(N, 3.0, vmax))
+    if case == "class tiles":
+        assert hist_ops.class_tile(B, 150, True) < 150
+    want = multi_tree_hist_fixed_ref(xb, base, w, slot, n_slots=S, n_bins=B, fixed=fp)
+    out = None
+    if case == "carry":
+        out = torch.from_numpy(RNG.normal(size=tuple(want.shape)).astype(np.float32)).to(dev)
+        out[..., 0] = torch.round(out[..., 0] * 50)
+        want = out + want
+    n0 = hist_ops.launches
+    got = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=S, n_bins=B, fixed=fp, out=out)
+    torch.cuda.synchronize()
+    assert hist_ops.launches == n0 + 1
+    assert torch.equal(got, want), f"{case}: max |d| {float((got - want).abs().max())}"
+    again = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=S, n_bins=B, fixed=fp)
+    assert torch.equal(again, multi_tree_hist_fixed_ref(xb, base, w, slot, n_slots=S, n_bins=B,
+                                                        fixed=fp))

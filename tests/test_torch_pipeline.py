@@ -175,11 +175,24 @@ def test_feeder_knobs_validated():
 
 
 def test_feeder_placements_not_ported_and_device_rule(monkeypatch):
-    blocks = [np.zeros((8, 2), np.uint8)]
+    blocks = [np.arange(16, dtype=np.uint8).reshape(8, 2)]
     with pytest.raises(NotImplementedError, match="item 10"):
         BlockFeeder(blocks, placement=lambda a, i: a)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="placement"):
         BlockFeeder(blocks, placement=object())
+
+    class FirstRows:                    # a mesh placement: this rank's slice of each block
+        device = CPU
+
+        @staticmethod
+        def local(block):
+            return block[:4, 1:]
+
+    for prefetch in (0, 2):
+        with BlockFeeder(blocks, placement=FirstRows(), prefetch=prefetch) as feeder:
+            got = list(feeder.sweep())
+            assert torch.equal(feeder.pin(blocks[0]), torch.from_numpy(blocks[0]))   # pins are whole
+        assert len(got) == 1 and torch.equal(got[0], torch.from_numpy(blocks[0][:4, 1:]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         BlockFeeder(blocks)             # the port's default device is the card
