@@ -81,6 +81,24 @@ tile plan (``traverse_batch_ab``). The first:
    forest from the same draws, a kill at level 3 resumed on a (4, 1)
    world bitwise, ``predict_sharded`` and the OOB weights equal to the
    local ones, the histogram and the split scan launched on every rank;
+5f. the multi-process plane (``multiproc_phase``): a gloo world of 2
+   processes on ``cuda:0`` (mesh (2, 1)), each calling ``train_prf`` (the
+   dispatch to ``train_prf_multiproc``) on phase 5's 2^20 x 128 training
+   rows written once to an ``np.memmap`` under ``build/``, phase 5's
+   configuration streamed (``sample_block`` 131072), importance mode,
+   weighted voting: both ranks' models bitwise equal; the edges the
+   shard-ordered merge of the two shards' sketches made in this process;
+   the forest a single-device streamed growth here on those edges with
+   the same draws; accuracy >= 0.90; the histogram and the split scan
+   launched on each rank; each rank fed half the binned bytes a sweep; a
+   kill at level 4 under ``MultiprocCheckpointManager`` resumed bitwise;
+   that directory restored in this one process raises
+   ``CheckpointTopologyError``; per rank a staged replay's stage times
+   (screen, sketch, binning, dimension reduction, growth, OOB), the
+   launches, the host memory (resident set at entry, around each run and
+   sampled every 2 ms, each stage's peak, the pinned allocator, the
+   largest host-staged collective) against the file's bytes, and the
+   world's time;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
@@ -1578,6 +1596,264 @@ def mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, t_growth, xbe, backend="nc
         shutil.rmtree(root, ignore_errors=True)
 
 
+MP_BLOCK = STREAM_BLOCK          # phase 5f: the streamed phase's sample_block (8 training blocks)
+MP_KILL_AT = 4                   # phase 5f: the level after which the checkpointed run is killed
+
+
+def multiproc_rank(mm_path, y_path, shape, cfg_kw, ckpt_dir, kill_at, device="cuda"):
+    """One process of phase 5f, on ``cuda:0`` in a gloo world of 2: the
+    training rows from the memmap at ``mm_path``. (1) ``train_prf`` (the
+    dispatch to ``train_prf_multiproc``) with the histogram and split-scan
+    launch counts set to 0 just before and read just after; (2) a staged
+    replay (``train_prf_multiproc`` with ``stats``: stage times and fed
+    bytes); (3) a run checkpointed every level through
+    ``MultiprocCheckpointManager``, killed after level ``kill_at``, then
+    its resume. The host memory: the resident set at entry (with
+    ``ru_maxrss``, which a spawned process inherits from its parent, so it
+    is not this rank's peak) and after the CUDA context, around each run
+    (``_host_memory``: the resident set and the pinned allocator), and the
+    resident set sampled every 2 ms by a thread during each run, whose
+    maximum is the run's peak and, split at the replay's stage times, each
+    stage's. Numpy results and host clocks."""
+    import resource
+    import threading
+
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.core import distributed as dist_prf
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.launch.multiproc import MultiHostMesh
+
+    x = np.memmap(mm_path, dtype=np.float32, mode="r", shape=tuple(shape))
+    y = np.load(y_path)
+    cfg = ForestConfig(**cfg_kw)
+    dev = torch.device(device)
+    out = {"launches": {}, "host_memory": {},
+           "rss_at_entry": dist_prf._host_memory(dev).get("VmRSS"),
+           "maxrss_at_entry": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+    torch.zeros(1, device=dev)
+    out["rss_with_context"] = dist_prf._host_memory(dev).get("VmRSS")
+    samples = {}
+
+    def memory(tag, fn):
+        trace, stop = [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                trace.append((time.perf_counter(), dist_prf._host_memory(dev).get("VmRSS", 0)))
+                stop.wait(0.002)
+
+        before = dist_prf._host_memory(dev)
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        try:
+            return fn()
+        finally:
+            stop.set()
+            sampler.join()
+            samples[tag] = trace
+            out["host_memory"][tag] = {
+                "before": before, "after": dist_prf._host_memory(dev),
+                "sampled_peak": max(r for _, r in trace), "samples": len(trace)}
+
+    def arrays(model):
+        return {**{n: getattr(model.forest, n).cpu().numpy() for n in type(model.forest).FIELDS},
+                "edges": np.asarray(model.bin_edges)}
+
+    def counted(tag, fn):
+        hist_ops.launches = scan_ops.launches = 0
+        result, t = sync_time(fn)
+        out["launches"][tag] = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}
+        return result, t
+
+    model, out["train_s"] = memory("train_prf", lambda: counted(
+        "train_prf", lambda: train_prf(x, y, cfg, 0, device=device)))
+    out["model"] = arrays(model)
+    del model
+    runtime = MultiHostMesh(device=device)
+    stats = {}
+    replay, out["replay_s"] = memory("replay", lambda: counted(
+        "replay", lambda: dist_prf.train_prf_multiproc(x, y, cfg, 0, runtime=runtime, stats=stats)))
+    out["replay"] = arrays(replay)
+    del replay
+    out["feed_bytes"] = stats.pop("feed_bytes")
+    out["stage_host_memory"] = stats.pop("host_memory")
+    end, peaks = samples["replay"][-1][0], {}
+    for stage in reversed(["screen", "sketch", "binning", "dimension_reduction", "growth", "oob"]):
+        start = end - stats[stage]
+        peaks[stage] = max((r for t, r in samples["replay"] if start <= t <= end), default=0)
+        end = start
+    out["stage_sampled_peak"] = peaks
+    out["host_tensor_bytes"] = stats.pop("host_tensor_bytes")
+    out["staged_bytes"] = runtime.mesh.staged_bytes
+    out["draws_bytes"] = cfg.n_trees * x.shape[0] * 4
+    out["stages_s"], out["runtime"] = stats, repr(runtime)
+
+    def boom(level, _):
+        if level == kill_at:
+            raise _Kill
+
+    def killed():
+        t0 = time.perf_counter()
+        try:
+            train_prf(x, y, cfg, 0, device=device, checkpoint_dir=ckpt_dir, on_level=boom)
+            raise AssertionError(f"multi-process phase: the kill at level {kill_at} did not fire")
+        except _Kill:
+            out["killed_run_s"] = time.perf_counter() - t0
+
+    memory("killed", killed)
+    levels = []
+    resumed, out["resume_s"] = memory("resume", lambda: counted("resume", lambda: train_prf(
+        x, y, cfg, 0, device=device, resume_from=ckpt_dir,
+        on_level=lambda level, _: levels.append(level))))
+    out["resumed"], out["first_resumed_level"] = arrays(resumed), levels[0]
+    out["peak_rss_bytes"] = max(m["sampled_peak"] for m in out["host_memory"].values())
+    return out
+
+
+def multiproc_phase(dev, xtr, ytr, xte, yte, wt, u, cfg):
+    """5f. The multi-process plane (``launch/multiproc.py``,
+    ``train_prf_multiproc``) at full width and size: a gloo world of 2
+    processes on ``cuda:0`` (mesh (2, 1); NCCL refuses two ranks on one
+    card, so every collective is staged through the host: a test of the
+    plane, not of its speed), each calling ``train_prf`` on the 2^20 x 128
+    training rows written once to an ``np.memmap`` under ``build/``, with
+    phase 5's configuration streamed (``sample_block`` ``MP_BLOCK``),
+    importance mode, weighted voting (``multiproc_rank``). Fails unless:
+    both ranks' models (forest and edges) are bitwise equal, and equal to
+    each rank's staged replay and to its kill-at-level-4 resume (first
+    resumed level 5); the edges equal the shard-ordered merge of the two
+    shards' sketches made here; the forest equals a single-device
+    streamed growth here on those edges with the same draws (``wt``,
+    ``u``: ``train_prf``'s for seed 0), its dimension reduction and OOB
+    weights included; test accuracy >= 0.90; the histogram and the split
+    scan were launched on each rank; each rank fed about half the binned
+    bytes in a sweep; restoring the world's checkpoint directory in this
+    one process raises ``CheckpointTopologyError``. Logs per rank the
+    stage times, launches, the host-memory breakdown (``multiproc_rank``)
+    against the file's bytes, and the world's wall time. ``run_world``'s
+    deadline bounds a hang."""
+    import resource
+    import shutil
+
+    from repro_torch import PRFModel
+    from repro_torch.checkpoint import CheckpointTopologyError
+    from repro_torch.core import api
+    from repro_torch.core import distributed as dist_prf
+    from repro_torch.core.binning import StreamingQuantileSketch, apply_bins
+    from repro_torch.core.dimred import dimension_reduction_streamed
+    from repro_torch.core.types import Forest
+    from repro_torch.core.voting import oob_accuracy_streamed
+    from repro_torch.data.pipeline import sample_blocks
+    from repro_torch.launch.mesh import run_world
+
+    root = ROOT / "build" / "chip_smoke_multiproc"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    nb, (N, F) = MP_BLOCK, xtr.shape
+    mcfg = dataclasses.replace(cfg, sample_block=nb)
+    fields = Forest.FIELDS
+    try:
+        mm_path, y_path, ckpt = root / "train.f32", root / "train_y.npy", root / "ckpt"
+        mm = np.memmap(mm_path, np.float32, "w+", shape=xtr.shape)
+        mm[:] = xtr
+        mm.flush()
+        del mm
+        np.save(y_path, ytr)
+        file_bytes = mm_path.stat().st_size
+        parent_rss = {"VmRSS": dist_prf._host_memory(dev).get("VmRSS"),
+                      "maxrss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+        ranks, t_world = sync_time(lambda: run_world(
+            "chip_smoke:multiproc_rank", 2, backend="gloo", timeout_s=900, collective_timeout_s=600,
+            args=(str(mm_path), str(y_path), xtr.shape, dataclasses.asdict(mcfg), str(ckpt),
+                  MP_KILL_AT, dev.type)))
+        want = ranks[0]["model"]
+        for r, out in enumerate(ranks):
+            for tag in ("model", "replay", "resumed"):
+                for name, a in out[tag].items():
+                    check(np.array_equal(a, want[name]),
+                          f"multi-process phase, rank {r}: {tag} {name} differs from rank 0's model")
+            check(out["first_resumed_level"] == MP_KILL_AT + 1,
+                  f"multi-process phase, rank {r}: the resume started at level {out['first_resumed_level']}")
+            for tag, counts in out["launches"].items():
+                for name, c in counts.items():
+                    check(c > 0 or dev.type != "cuda",
+                          f"multi-process phase, rank {r}, {tag}: {name} was not launched")
+            fed = out["feed_bytes"]["dimension_reduction"]
+            check(abs(fed - N * F / 2) <= F * (N // nb + 1),
+                  f"multi-process phase, rank {r}: one sweep fed {fed} bytes, not half of {N * F}")
+
+        x_mm = np.memmap(mm_path, np.float32, "r", shape=xtr.shape)
+        blocks = sample_blocks(x_mm, nb)
+        parts = np.array_split(np.arange(len(blocks)), 2)
+
+        def shard_sketch(part):
+            sk = StreamingQuantileSketch(F)
+            for i in part:
+                sk.update(blocks[int(i)])
+            return sk
+
+        merged, t_sketch = sync_time(lambda: shard_sketch(parts[0]).merge(shard_sketch(parts[1])))
+        edges = merged.edges(mcfg.n_bins)
+        check(np.array_equal(edges, want["edges"]),
+              "multi-process phase: the edges differ from the shard-ordered merge of the shards' sketches")
+        edges_t = torch.from_numpy(edges).to(dev)
+        xb_blocks = [torch.empty((b.shape[0], F), dtype=torch.uint8, pin_memory=dev.type == "cuda").copy_(
+            apply_bins(torch.from_numpy(np.array(b)).to(dev), edges_t)) for b in blocks]
+        fm = dimension_reduction_streamed(xb_blocks, ytr, wt, mcfg, u, device=dev)
+        local, t_local = sync_time(lambda: api.grow_forest_streamed(xb_blocks, ytr, wt, mcfg, fm,
+                                                                   device=dev))
+        local.tree_weight = oob_accuracy_streamed(local, xb_blocks, ytr, wt)
+        for name in fields:
+            check(np.array_equal(getattr(local, name).cpu().numpy(), want[name]),
+                  f"multi-process phase: {name} differs from the single-device streamed growth")
+        world_forest = Forest(**{n: torch.from_numpy(want[n]).to(dev) for n in fields}, config=mcfg)
+        acc = float(np.mean(PRFModel(world_forest, edges).predict(xte) == yte))
+        check(acc >= 0.90, f"multi-process phase: test accuracy {acc} < 0.90")
+        try:
+            api.grow_forest_streamed(xb_blocks, ytr, wt, mcfg, fm, device=dev, resume_from=str(ckpt))
+            raise AssertionError("multi-process phase: a world of one restored the 2-process checkpoint")
+        except CheckpointTopologyError as e:
+            refused = str(e)
+        del x_mm, xb_blocks, local, world_forest
+
+        per_rank = [{k_: v for k_, v in o.items() if k_ not in ("model", "replay", "resumed")}
+                    for o in ranks]
+        gib = lambda b: f"{(b or 0) / 2**30:.3f}"    # noqa: E731
+        log(f"multi-process phase, parent before the world: RSS {gib(parent_rss['VmRSS'])} GiB, "
+            f"ru_maxrss {gib(parent_rss['maxrss'])} GiB")
+        for r, o in enumerate(per_rank):
+            log(f"multi-process phase, rank {r}: RSS at entry {gib(o['rss_at_entry'])} GiB "
+                f"(ru_maxrss {gib(o['maxrss_at_entry'])}), with the CUDA context "
+                f"{gib(o['rss_with_context'])} GiB")
+            for tag, m in o["host_memory"].items():
+                b, a = m["before"], m["after"]
+                log(f"multi-process phase, rank {r}, {tag}: RSS {gib(b.get('VmRSS'))} -> "
+                    f"{gib(a.get('VmRSS'))} GiB, sampled peak {gib(m['sampled_peak'])} GiB "
+                    f"({m['samples']} samples); pinned allocator "
+                    f"{gib(a.get('pinned_allocated_bytes.current'))} GiB")
+            log(f"multi-process phase, rank {r}, replay stages' RSS at the end / sampled peak (GiB): "
+                + ", ".join(f"{st} {gib(m.get('VmRSS'))} / {gib(o['stage_sampled_peak'][st])}"
+                            for st, m in o["stage_host_memory"].items())
+                + f"; binned windows {gib(o['host_tensor_bytes'])} GiB, draws {gib(o['draws_bytes'])} "
+                f"GiB, largest host-staged collective {gib(o['staged_bytes'])} GiB")
+            log(f"multi-process phase, rank {r} ({o['runtime']}): train_prf {o['train_s']:.3f} s, staged "
+                "replay stages (s) " + ", ".join(f"{k_} {v:.3f}" for k_, v in o["stages_s"].items())
+                + f"; fed bytes {o['feed_bytes']}; killed run {o['killed_run_s']:.3f} s, resume from level "
+                f"{o['first_resumed_level']} {o['resume_s']:.3f} s; launches {o['launches']}; sampled peak RSS "
+                f"{o['peak_rss_bytes'] / 2**30:.3f} GiB against the file's {file_bytes / 2**30:.3f} GiB")
+        log(f"multi-process phase: gloo world of 2 on {dev} (mesh (2, 1)), {N} x {F} rows from a memmap, "
+            f"sample_block {nb}: both ranks' models bitwise equal, equal to their staged replays and "
+            f"kill-at-level-{MP_KILL_AT} resumes; edges = the shard-ordered sketch merge ({t_sketch:.3f} s "
+            f"here); forest = the single-device streamed growth on them ({t_local:.3f} s); accuracy "
+            f"{acc:.7f}; a world of one refused the checkpoint ({refused[:80]}...); world {t_world:.1f} s")
+        return {"ranks": per_rank, "parent_memory": parent_rss, "world_s": t_world, "accuracy": acc, "file_bytes": file_bytes,
+                "sample_block": nb, "kill_at": MP_KILL_AT, "parent_sketch_s": t_sketch,
+                "parent_streamed_growth_s": t_local}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def traverse_batch_ab(src: str) -> int:
     """``--traverse-ab``: the traversal at a 256-row request batch, alone
     (F 128, 32 trees, depth 8, P 2050, C 4: the smoke forest's shape, a
@@ -2004,6 +2280,13 @@ def main() -> int:
     # 5e. the mesh plane ---------------------------------------------------------
     mesh = mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, stages["growth"], xbe)
 
+    # 5f. the multi-process plane -------------------------------------------------
+    multiproc = multiproc_phase(dev, xtr, ytr, xte, yte, wt, u, rcfg)
+    for row in rows:
+        if row["name"] in ("gain_ratio_hist", "split_scan"):
+            row["launches_multiproc"] = [o["launches"]["train_prf"][row["name"]]
+                                         for o in multiproc["ranks"]]
+
     # 6. full size, LM serving ----------------------------------------------------
     lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
@@ -2018,7 +2301,7 @@ def main() -> int:
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
               "streamed": streamed, "checkpoints": checkpoints, "regression": regression, "mesh": mesh,
-              "timings": timings}
+              "multiproc": multiproc, "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
@@ -2028,6 +2311,8 @@ def main() -> int:
     log("launch counts on the regression path (5d): " + json.dumps(regression["launches"]))
     log("launch counts on the mesh (5e): " + json.dumps({k: v["launches"] for k, v in mesh.items()
                                                         if k.startswith("nccl")}))
+    log("launch counts per rank on the multi-process path (5f): " + json.dumps(
+        [o["launches"]["train_prf"] for o in multiproc["ranks"]]))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

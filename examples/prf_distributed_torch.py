@@ -4,6 +4,7 @@ in miniature (counterpart of ``examples/prf_distributed.py``).
     python examples/prf_distributed_torch.py --nproc 8 --data 4 --model 2 --device cpu
     python examples/prf_distributed_torch.py --nproc 4 --data 2 --model 2 --device cuda
     torchrun --nproc-per-node 4 examples/prf_distributed_torch.py --data 2 --model 2
+    python examples/prf_distributed_torch.py --multiproc 2 --device cpu
 
 Vertical partitioning: features shard over ``model``, samples over
 ``data``; the T_GR histogram is summed over the sample axis only, the T_NS
@@ -17,6 +18,14 @@ edges come from per-shard quantile sketches merged over the mesh
 (``fit_bins_sharded``), then ``make_prf_train_fn`` trains and
 ``predict_sharded`` votes; rank 0 prints the accuracy and every rank the
 same forest hash.
+
+``--multiproc N`` is the cluster layout on one machine (counterpart of
+``prf_distributed.py --multiproc``): the training rows are written once
+to an ``np.memmap``, N processes are spawned, and each calls
+``train_prf_multiproc`` through a ``launch.multiproc.MultiHostMesh``,
+reading, binning and feeding only its own rows of every sample block.
+Each process reports the bytes it fed to its device and the hash of the
+model (forest and edges); the example checks that the hashes agree.
 """
 import argparse
 import hashlib
@@ -58,6 +67,67 @@ def rank_main(args: dict) -> dict:
             "forest_sha256": h.hexdigest()}
 
 
+def multiproc_rank(args: dict) -> dict:
+    """One process of ``--multiproc``: ``train_prf_multiproc`` on its rows of
+    the memmap."""
+    import numpy as np
+
+    from repro_torch.core.distributed import train_prf_multiproc
+    from repro_torch.core.types import ForestConfig
+    from repro_torch.launch.multiproc import MultiHostMesh
+
+    runtime = MultiHostMesh(device=args["device"])
+    n = args["rows"]
+    x = np.memmap(args["memmap"], dtype=np.float32, mode="r", shape=(n, args["features"]))
+    y = np.load(args["memmap"] + ".y.npy")
+    cfg = ForestConfig(n_trees=args["trees"], max_depth=6, n_bins=32, n_classes=4,
+                       feature_mode="importance", weighted_voting=True, sample_block=n // 4)
+    model = train_prf_multiproc(x, y, cfg, seed=0, runtime=runtime)
+    h = hashlib.sha256()
+    for f in model.forest.FIELDS:
+        h.update(getattr(model.forest, f).cpu().numpy().tobytes())
+    h.update(np.asarray(model.bin_edges).tobytes())
+    nb = cfg.sample_block
+    lo, hi = runtime.local_row_range(nb + runtime.pad(nb))
+    who = f"[process {runtime.process_index}/{runtime.process_count}]"
+    return {"report": f"{who} sample shard {runtime.shard_lo} of {runtime.n_data_shards}: rows "
+                      f"[{lo}, {hi}) of each block of {nb}, fed "
+                      f"{runtime.feed_bytes / 2**20:.2f} MiB host->device on {runtime.mesh.device}",
+            "hash": h.hexdigest()}
+
+
+def run_multiproc(a) -> None:
+    """Write the training rows to a memmap, spawn the processes, check that
+    their models agree."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.data.tabular import make_classification
+    from repro_torch.launch.mesh import default_backend, run_world
+
+    x, y = make_classification(n_samples=a.rows, n_features=a.features, n_classes=4, seed=1)
+    with tempfile.TemporaryDirectory(prefix="prf_multiproc_") as tmp:
+        path = os.path.join(tmp, "train.f32")
+        mm = np.memmap(path, dtype=np.float32, mode="w+", shape=x.shape)
+        mm[:] = x.astype(np.float32)
+        mm.flush()
+        del mm
+        np.save(path + ".y.npy", y)
+        args = {"memmap": path, "rows": a.rows, "features": a.features, "trees": a.trees,
+                "device": a.device}
+        backend = a.backend or default_backend(a.multiproc, a.device)
+        outs = run_world("prf_distributed_torch:multiproc_rank", a.multiproc, args=(args,),
+                         backend=backend, timeout_s=900)
+    for o in outs:
+        print(o["report"])
+        print(f"{o['report'].split(']')[0]}] model sha256={o['hash']}")
+    if len({o["hash"] for o in outs}) != 1:
+        raise SystemExit(f"the processes' models differ: {[o['hash'] for o in outs]}")
+    print(f"one model on all {a.multiproc} processes ({backend}, {a.device}): "
+          f"{outs[0]['hash'][:16]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nproc", type=int, default=4, help="ranks to spawn on this host")
@@ -69,17 +139,21 @@ def main():
     ap.add_argument("--trees", type=int, default=16)
     ap.add_argument("--rows", type=int, default=4096)
     ap.add_argument("--features", type=int, default=64)
+    ap.add_argument("--multiproc", type=int, default=0,
+                    help="spawn N processes, each training on its own rows of a memmap")
     a = ap.parse_args()
+    if a.multiproc:
+        run_multiproc(a)
+        return
     args = {k: getattr(a, k) for k in ("data", "model", "device", "trees", "rows", "features")}
 
-    import torch
+    from repro_torch.launch.mesh import default_backend
 
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:            # under torchrun
         import torch.distributed as dist
 
-        backend = a.backend or ("nccl" if a.device == "cuda" and torch.cuda.device_count()
-                                >= int(os.environ["WORLD_SIZE"]) else "gloo")
-        dist.init_process_group(backend)
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+        dist.init_process_group(a.backend or default_backend(local, a.device))
         try:
             out = rank_main(args)
         finally:
@@ -90,8 +164,7 @@ def main():
 
     if a.nproc != a.data * a.model:
         raise SystemExit(f"--nproc {a.nproc} != --data {a.data} x --model {a.model}")
-    backend = a.backend or ("nccl" if a.device == "cuda" and torch.cuda.device_count() >= a.nproc
-                            else "gloo")
+    backend = a.backend or default_backend(a.nproc, a.device)
     outs = run_world("prf_distributed_torch:rank_main", a.nproc, args=(args,), backend=backend,
                      timeout_s=900)
     for o in outs:

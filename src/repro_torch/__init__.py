@@ -8,8 +8,10 @@ split scan and the fused tree traversal, resident or streamed from host
 sample blocks (``config.sample_block > 0``,
 ``core.api.grow_forest_streamed``), with growth checkpointed every level
 and resumed after a crash (``checkpoint``, ``launch.fault``), on one
-device or on a vertical-partition mesh of processes over
-``torch.distributed`` (``core.distributed``, ``launch.mesh``).
+device, on a vertical-partition mesh of processes over
+``torch.distributed`` (``core.distributed``, ``launch.mesh``), or across
+the processes of several hosts, each reading and feeding only its own
+rows (``launch.multiproc``, ``train_prf`` in a world of several).
 LM serving runs two more (attention, the Mamba-2 SSD scan). Every module mirrors its ``repro`` counterpart by name; the
 package imports ``torch`` and ``numpy`` only.
 """

@@ -366,18 +366,27 @@ class CheckpointManager:
         self.keep = keep
         self.save_interval = save_interval
         self.fault_hook = fault_hook
-        if os.path.isdir(directory):
-            for d in os.listdir(directory):
-                if d.startswith(_TMP_PREFIX):
-                    shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+        self._remove_orphans()
 
-    def maybe_save(self, tree, step: int, *, layout: Optional[str] = None) -> Optional[str]:
+    def _remove_orphans(self):
+        if os.path.isdir(self.directory):
+            for d in os.listdir(self.directory):
+                if d.startswith(_TMP_PREFIX):
+                    shutil.rmtree(os.path.join(self.directory, d), ignore_errors=True)
+
+    def maybe_save(self, tree, step: int, **save_kw) -> Optional[str]:
+        """Save ``tree`` as ``step`` when ``save_interval`` divides it, then
+        drop all but the newest ``keep`` steps. ``save_kw`` goes to the
+        save (here ``layout``)."""
         if step % self.save_interval != 0:
             return None
-        path = save_checkpoint(tree, self.directory, step, fault_hook=self.fault_hook,
-                               layout=layout)
+        path = self._save(tree, step, **save_kw)
         self._gc()
         return path
+
+    def _save(self, tree, step: int, *, layout: Optional[str] = None) -> str:
+        return save_checkpoint(tree, self.directory, step, fault_hook=self.fault_hook,
+                               layout=layout)
 
     def _gc(self):
         for s in list_steps(self.directory)[: -self.keep]:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import as_tensor, host_array, resolve_device
+from ..launch.multiproc import is_multiprocess
 from .binning import apply_bins, bin_dataset, fit_bins, fit_bins_blocked
 from .dimred import dimension_reduction, dimension_reduction_streamed, random_feature_mask
 from .dsi import bootstrap_counts
@@ -106,14 +107,6 @@ class PRFModel:
         )
 
 
-def _check_supported() -> None:
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process training is not ported yet: ROADMAP.md Queue 1 item 10"
-        )
-
-
 def _checkpoint_manager(checkpoint_dir: Optional[str], checkpoint_every: int,
                         checkpoint_keep: int):
     if checkpoint_dir is None:
@@ -156,11 +149,27 @@ def train_prf(
     uninterrupted one bitwise. An empty or all-corrupt ``resume_from``
     is a fresh start. ``on_level(level, _)`` fires after each completed
     (checkpointed) level.
+
+    **Several processes.** In an initialised world of more than one
+    process every process makes the same call, and it runs
+    ``distributed.train_prf_multiproc``: the same draws, then each
+    process screens, bins and feeds only its rows of every sample block;
+    the model equals this single-process one bitwise while the per-shard
+    quantile sketches stay uncompressed (``fit_prf_from_draws`` likewise
+    runs ``fit_prf_multiproc_from_draws``).
     """
     dev = resolve_device(device)
     N, F = np.shape(x)
     config = config.resolved(F)
-    _check_supported()
+    if is_multiprocess():
+        from .distributed import train_prf_multiproc
+
+        return train_prf_multiproc(
+            x, y, config, seed, device=dev, feeder_opts=feeder_opts,
+            bad_block_policy=bad_block_policy, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            resume_from=resume_from, on_level=on_level,
+        )
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     weights = bootstrap_counts(gen, config.n_trees, N, dev)          # DSI §4.1.2
@@ -198,7 +207,16 @@ def fit_prf_from_draws(
     dev = resolve_device(device)
     y = np.asarray(y)
     config = config.resolved(np.shape(x)[1])
-    _check_supported()
+    if is_multiprocess():
+        from ..launch.multiproc import MultiHostMesh
+        from .distributed import fit_prf_multiproc_from_draws
+
+        return fit_prf_multiproc_from_draws(
+            x, y, config, weights, u, runtime=MultiHostMesh(device=dev), feeder_opts=feeder_opts,
+            bad_block_policy=bad_block_policy, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
+            resume_from=resume_from, on_level=on_level,
+        )
     weights = as_tensor(weights, dev, torch.float32)
     u = as_tensor(u, dev, torch.float32)
     k, (N, F) = config.n_trees, np.shape(x)

@@ -41,19 +41,28 @@ Checkpoints are global: the sample-sharded slot tables and the
 feature-sharded reuse cache are gathered, rank 0 writes the step, and
 every rank waits at a barrier; a restore reads the step on every rank and
 takes this rank's rows and features, so a run resumes onto another mesh
-shape. The multi-process plane (``train_prf_multiproc``, ``runtime=``)
-is ROADMAP.md Queue 1 item 10.
+shape.
+
+The multi-process plane (``train_prf_multiproc``, and the ``runtime=``
+forms of the streamed drivers, over a ``launch.multiproc.MultiHostMesh``)
+drops the global arrays: every process screens, sketches, bins and feeds
+only its own window of each sample block (an ``np.memmap`` pages in only
+those rows), the validator's
+verdicts are summed over the processes, checkpoints are per-host shard
+steps, and the model equals single-process ``train_prf``'s bitwise while
+the per-shard sketches stay uncompressed.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import as_tensor, host_array
-from ..launch.mesh import Mesh
+from ..launch.mesh import Mesh, shard_rows
 from .api import _channels, _stream_state_like
 from .dsi import bootstrap_counts
 from .engine import (
@@ -210,9 +219,8 @@ class _Shard:
 
     def rows(self, n: int):
         """``(lo, hi, n_local)``: this shard's rows of ``n`` padded to a
-        multiple of D, and how many local rows there are."""
-        nl = -(-n // self.D)
-        return self.d * nl, (self.d + 1) * nl, nl
+        multiple of D, and how many local rows there are (``shard_rows``)."""
+        return shard_rows(n, self.D, self.d)
 
     def local_rows(self, a, n: int, axis: int = 0, fill=0) -> np.ndarray:
         """Rows ``[lo, hi)`` of ``a`` (length ``n`` along ``axis``), zero-
@@ -326,8 +334,13 @@ def _gather_cache_hist(mesh: Mesh, h: torch.Tensor, plane: MeshPlane) -> torch.T
     return torch.cat(list(pieces), dim=2)
 
 
+def _cache_lo(plane: MeshPlane) -> int:
+    """The first global feature of this rank's piece of the reuse cache."""
+    return plane.midx * plane.Fl + (plane.didx * plane.fl_sub if plane.use_rs else 0)
+
+
 def _local_cache_hist(h: torch.Tensor, plane: MeshPlane) -> torch.Tensor:
-    lo = plane.midx * plane.Fl + (plane.didx * plane.fl_sub if plane.use_rs else 0)
+    lo = _cache_lo(plane)
     return h[:, :, lo:lo + plane.hist_width(plane.Fl)].contiguous()
 
 
@@ -413,7 +426,7 @@ class _BlockPlacement:
         self.device = mesh.device
         self.shard = shard
 
-    def local(self, block) -> np.ndarray:
+    def local(self, block, index: int) -> np.ndarray:
         return self.shard.local_block(block)
 
 
@@ -423,11 +436,39 @@ def _stream_geometry(blocks):
     return sizes, offsets
 
 
+def _padded_rows(sh: _Shard, sizes: Sequence[int]):
+    """Each block's rows padded to the sample-axis multiple."""
+    return [sh.rows(n)[2] * sh.D for n in sizes]
+
+
+def _block_sizes(n_rows: int, sample_block: int):
+    """The global unpadded sizes of the ``sample_block``-row blocks of
+    ``n_rows`` rows, and their offsets."""
+    sizes = [min(sample_block, n_rows - o) for o in range(0, n_rows, sample_block)]
+    return sizes, np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+
+def _local_geometry(what: str, x_binned, sample_block: int, n_y: int, n_w: int):
+    """``(blocks, sizes, offsets)`` of a ``runtime=`` call: this process's
+    windows of the blocks, and the global unpadded sizes they were cut
+    from, which follow from the global ``y`` and ``sample_block``."""
+    if sample_block <= 0:
+        raise ValueError(f"{what}(runtime=...) needs sample_block > 0: the host-local windows "
+                         "are cut from sample_block-row blocks")
+    blocks = list(x_binned)
+    sizes, offsets = _block_sizes(n_y, sample_block)
+    if len(blocks) != len(sizes) or n_w != n_y:
+        raise ValueError(f"{what}: {len(blocks)} block windows, but y's {n_y} rows make "
+                         f"{len(sizes)} blocks of {sample_block} and weights have {n_w}")
+    return blocks, sizes, offsets
+
+
 def grow_forest_streamed_sharded(
     x_binned, y, weights, config: ForestConfig, mesh: Mesh, feature_mask=None, *,
     sample_axes: Sequence[str] = ("data",), feature_axis: str = "model", prefetch: int = 2,
     manager=None, resume_from: Optional[str] = None, on_level=None,
     feeder_opts: Optional[dict] = None, quarantined: Sequence[int] = (),
+    runtime=None,
 ) -> Forest:
     """Out-of-core growth on the mesh: the streaming data plane composed
     with ``MeshPlane`` (reference: ``grow_forest_streamed_sharded``).
@@ -446,8 +487,19 @@ def grow_forest_streamed_sharded(
     ``manager`` / ``resume_from`` / ``on_level`` checkpoint the loop's
     carry (``api._stream_state_like``) as global steps (per-block slot
     tables gathered, pad rows dropped); ``quarantined`` blocks leave every
-    sweep. The multi-process form (``runtime=``) is not ported (ROADMAP
-    Queue 1 item 10).
+    sweep.
+
+    **Multi-process plane.** With ``runtime`` (a
+    ``launch.multiproc.MultiHostMesh`` over ``mesh``) each process holds
+    only its own rows: ``x_binned`` is the list of this process's windows
+    (``runtime.local_row_range``, all features) of the padded
+    ``config.sample_block``-row blocks of the global rows;
+    ``runtime.block_placement`` feeds the window's feature columns. ``y``
+    and ``weights`` stay global. Checkpoints are then per-host steps:
+    ``manager`` is a ``MultiprocCheckpointManager`` (each process writes
+    its slot tables and its piece of the reuse cache, rank 0 the rest),
+    and ``resume_from`` restores through ``restore_latest_valid_multiproc``
+    on the same process count and layout. The forest is the same.
     """
     from ..checkpoint.checkpoint import restore_latest_valid
     from ..data.pipeline import BlockFeeder, stream_blocks
@@ -456,11 +508,16 @@ def grow_forest_streamed_sharded(
     dev = mesh.device
     y_np = host_array(y).astype(_y_dtype(config), copy=False)
     w_np = host_array(weights).astype(np.float32, copy=False)
-    blocks = stream_blocks(x_binned, config.sample_block, what="grow_forest_streamed_sharded",
-                           n_y=y_np.shape[0], n_w=w_np.shape[1])
+    if runtime is not None:
+        blocks, sizes, offsets = _local_geometry("grow_forest_streamed_sharded", x_binned,
+                                                 config.sample_block, y_np.shape[0],
+                                                 w_np.shape[1])
+    else:
+        blocks = stream_blocks(x_binned, config.sample_block, what="grow_forest_streamed_sharded",
+                               n_y=y_np.shape[0], n_w=w_np.shape[1])
+        sizes, offsets = _stream_geometry(blocks)
     F = int(blocks[0].shape[1])
     sh = _shard(mesh, F, sample_axes, feature_axis)
-    sizes, offsets = _stream_geometry(blocks)
     k, S, B = config.n_trees, config.frontier, config.n_bins
     C = 3 if config.regression else config.n_classes
     fixed = regression_fixed_point(y_np, w_np) if config.regression else None
@@ -471,9 +528,24 @@ def grow_forest_streamed_sharded(
                       feature_axis=feature_axis, hist_fixed=fixed)
     reuse = resolve_hist_reuse(config, sh.Fl)
     n_rows = config.max_splits_per_level if reuse else S
+    width = plane.hist_width(sh.Fl)
 
-    feeder = BlockFeeder(blocks, placement=_BlockPlacement(mesh, sh), prefetch=prefetch,
-                         quarantined=quarantined, **(feeder_opts or {}))
+    def shard_boxes():
+        """This process's box of each per-host leaf of a ``runtime`` step."""
+        out = {}
+        for i, n in enumerate(sizes):
+            lo, hi, nl = sh.rows(n)
+            out[f"slots/{i}"] = ((k, nl * sh.D), ((0, k), (lo, hi)))
+        if reuse:
+            f0 = _cache_lo(plane)
+            out["hist_cache/hist"] = ((k, S, F, B, C),
+                                      ((0, k), (0, S), (f0, f0 + width), (0, B), (0, C)))
+        return out
+
+    placement = (runtime.block_placement(_padded_rows(sh, sizes), F) if runtime is not None
+                 else _BlockPlacement(mesh, sh))
+    feeder = BlockFeeder(blocks, placement=placement, prefetch=prefetch, quarantined=quarantined,
+                         **(feeder_opts or {}))
     try:
         base_dev, w_dev = {}, {}
         for i in feeder.live_blocks:
@@ -488,7 +560,16 @@ def grow_forest_streamed_sharded(
             return s0
 
         state = None
-        if resume_from is not None:
+        if resume_from is not None and runtime is not None:
+            from ..launch.multiproc import restore_latest_valid_multiproc
+
+            like = _stream_state_like([sh.rows(n)[2] for n in sizes], config,
+                                      width if reuse else 0, dev)
+            restored = restore_latest_valid_multiproc(like, resume_from, runtime=runtime,
+                                                      boxes=shard_boxes(), device=dev)
+            if restored is not None:
+                state = restored[0]
+        elif resume_from is not None:
             def place(key, arr, like):
                 parts = key.split("/")
                 if parts[0] == "slots":
@@ -512,7 +593,7 @@ def grow_forest_streamed_sharded(
             slot_node = torch.full((k, S), -1, dtype=torch.int32, device=dev)
             slot_node[:, 0] = 0
             forest = scores = split_rank = None
-            cache = init_hist_cache(config, plane.hist_width(sh.Fl), dev) if reuse else None
+            cache = init_hist_cache(config, width, dev) if reuse else None
             start = 0
 
         def level_sweep(route: bool) -> torch.Tensor:
@@ -570,7 +651,12 @@ def grow_forest_streamed_sharded(
                 cache = {"hist": hist2, "perm": perm, "parent": parent,
                          "small_right": small_right}
             slot_node = next_frontier(is_split, child_base, config.frontier)
-            if manager is not None:
+            if manager is not None and runtime is not None:
+                manager.maybe_save({"forest": forest, "slot_node": slot_node, "scores": scores,
+                                    "split_rank": split_rank, "level": level + 1,
+                                    "hist_cache": cache, "slots": slot_dev},
+                                   level + 1, boxes=shard_boxes())
+            elif manager is not None:
                 _save_global(manager, mesh, level + 1, lambda: global_state(level))
             if on_level is not None:
                 on_level(level + 1, forest)
@@ -681,31 +767,50 @@ def oob_accuracy_streamed_sharded(forest: Forest, x_binned, y, weights, mesh: Me
                                   sample_block: int = 0, sample_axes=("data",),
                                   feature_axis: str = "model", prefetch: int = 2,
                                   feeder_opts: Optional[dict] = None,
-                                  quarantined: Sequence[int] = ()) -> torch.Tensor:
+                                  quarantined: Sequence[int] = (), runtime=None,
+                                  invalid_masks: Optional[dict] = None) -> torch.Tensor:
     """Eq. (8) over host sample blocks on the mesh: per block each rank
     routes its slice and the ``[k]`` counts are summed over the sample
     axes; the counts add over blocks (exact integers), so the result is
-    ``oob_accuracy``'s bitwise. Pad rows leave both sums (validity 0)."""
+    ``oob_accuracy``'s bitwise. Pad rows leave both sums (validity 0).
+
+    With ``runtime`` (``launch.multiproc.MultiHostMesh``) ``x_binned`` is
+    this process's window of every padded ``sample_block``-row block, as in
+    ``grow_forest_streamed_sharded``.
+    ``invalid_masks[i]``, a bool mask over this process's window of block
+    ``i``, takes those rows out of both sums too: with exact sums that
+    equals dropping them, which is how the single-process trainer leaves
+    out samples whose labels were imputed."""
     from ..data.pipeline import BlockFeeder, stream_blocks
 
     sample_axes = tuple(sample_axes)
     y_np = host_array(y).astype(np.int64)
     w_np = host_array(weights).astype(np.float32, copy=False)
-    blocks = stream_blocks(x_binned, sample_block, what="oob_accuracy_streamed_sharded",
-                           n_y=y_np.shape[0], n_w=w_np.shape[1])
-    sh = _shard(mesh, int(blocks[0].shape[1]), sample_axes, feature_axis)
-    sizes, offsets = _stream_geometry(blocks)
+    if runtime is not None:
+        blocks, sizes, offsets = _local_geometry("oob_accuracy_streamed_sharded", x_binned,
+                                                 sample_block, y_np.shape[0], w_np.shape[1])
+    else:
+        blocks = stream_blocks(x_binned, sample_block, what="oob_accuracy_streamed_sharded",
+                               n_y=y_np.shape[0], n_w=w_np.shape[1])
+        sizes, offsets = _stream_geometry(blocks)
+    F = int(blocks[0].shape[1])
+    sh = _shard(mesh, F, sample_axes, feature_axis)
+    placement = (runtime.block_placement(_padded_rows(sh, sizes), F) if runtime is not None
+                 else _BlockPlacement(mesh, sh))
     dev = mesh.device
     k = w_np.shape[0]
     correct = torch.zeros((k,), dtype=torch.float32, device=dev)
     total = torch.zeros_like(correct)
-    with BlockFeeder(blocks, placement=_BlockPlacement(mesh, sh), prefetch=prefetch,
-                     quarantined=quarantined, **(feeder_opts or {})) as feeder:
+    with BlockFeeder(blocks, placement=placement, prefetch=prefetch, quarantined=quarantined,
+                     **(feeder_opts or {})) as feeder:
         for i, xb_b in zip(feeder.live_blocks, feeder.sweep()):
             o0, n = offsets[i], sizes[i]
+            valid = sh.local_rows(np.ones(n, np.float32), n)
+            if invalid_masks and i in invalid_masks:
+                valid[np.asarray(invalid_masks[i], bool)] = 0.0
             c, t = _oob_counts_sharded(
                 forest, xb_b, feeder.pin(sh.local_rows(y_np[o0:o0 + n], n)),
-                feeder.pin(sh.local_rows(w_np[:, o0:o0 + n], n, axis=1)), _valid_rows(sh, n, dev),
+                feeder.pin(sh.local_rows(w_np[:, o0:o0 + n], n, axis=1)), feeder.pin(valid),
                 mesh, sample_axes=sample_axes, feature_axis=feature_axis)
             correct, total = correct + c, total + t
     return _oob_ratio(correct, total)
@@ -742,20 +847,30 @@ def _dimred_sharded(xb_loc, base_loc, w_loc, config: ForestConfig, u, mesh: Mesh
     root histogram summed over the sample axes), gathered over the feature
     axis for the global VI ranking with the uniform draws ``u [k, F]``;
     returns this rank's ``[k, Fl]`` slice of the mask."""
-    from .dimred import select_features
-
     k, Nl = w_loc.shape
     Fl = xb_loc.shape[1]
     slot0 = torch.zeros((k, Nl), dtype=torch.int32, device=w_loc.device)
     hist = level_histograms(xb_loc, base_loc, w_loc, slot0, n_slots=1, n_bins=config.n_bins,
                             backend=config.hist_backend)
-    hist = mesh.all_reduce(hist, sample_axes)
-    gr_loc = multiway_gain_ratio(hist[:, 0])                               # [k, Fl]
-    gr = mesh.all_gather(gr_loc, feature_axis).permute(1, 0, 2).reshape(k, -1)   # [k, F]
-    cfg = config.resolved(gr.shape[1])
-    mask = select_features(gr, u, n_selected=cfg.n_selected, n_important=cfg.n_important)
+    mask = _select_from_root(hist, config, u, mesh, sample_axes, feature_axis)
     midx = mesh.index(feature_axis)
     return mask[:, midx * Fl:(midx + 1) * Fl].contiguous()
+
+
+def _select_from_root(hist_loc, config: ForestConfig, u, mesh: Mesh, sample_axes,
+                      feature_axis) -> torch.Tensor:
+    """Alg. 3.1's selection from this rank's root histogram ``[k, 1, Fl, B,
+    C]``: summed over the sample axes, its gain ratios gathered over the
+    feature axis, the ``[k, F]`` mask from the uniforms ``u``."""
+    from .dimred import select_features
+
+    hist = mesh.all_reduce(hist_loc, sample_axes)
+    gr_loc = multiway_gain_ratio(hist[:, 0])                               # [k, Fl]
+    k = gr_loc.shape[0]
+    gr = mesh.all_gather(gr_loc, feature_axis).permute(1, 0, 2).reshape(k, -1)   # [k, F]
+    cfg = config.resolved(gr.shape[1])
+    return select_features(gr, as_tensor(u, gr.device, torch.float32), n_selected=cfg.n_selected,
+                           n_important=cfg.n_important)
 
 
 def _fit_local(xb, y_loc, w_loc, mask_loc, valid, config: ForestConfig, mesh: Mesh,
@@ -865,7 +980,13 @@ def fit_bins_sharded(x, n_bins: int, mesh: Mesh, *, sample_block: int,
     are merged in shard order on every rank. While every summary is
     uncompressed the edges equal ``fit_bins_blocked``'s over the same
     blocks bitwise. ``exclude_masks`` (sequence, dict by block index, or
-    callable) carries the validator's imputed-cell masks."""
+    callable, which a process calls only for the blocks it sketches)
+    carries the validator's imputed-cell masks.
+
+    A memmap source pages in only the blocks of this rank's sample shard,
+    so on the multi-process plane each host reads only its shard's
+    blocks. The counts and metadata ride the gathered payload, so every
+    rank rebuilds every shard's sketch from the gather alone."""
     from ..data.pipeline import stream_blocks
     from .binning import DEFAULT_SKETCH_SIZE, StreamingQuantileSketch, validate_n_bins
 
@@ -919,3 +1040,296 @@ def fit_bins_sharded(x, n_bins: int, mesh: Mesh, *, sample_block: int,
         })
         merged = sk_d if merged is None else merged.merge(sk_d)
     return merged.edges(n_bins)
+
+
+# ---------------------------------------------------------------------------
+# The multi-process training plane (``launch.multiproc`` runtime)
+# ---------------------------------------------------------------------------
+
+
+def _dimred_streamed_multiproc(local_blocks, y_np, w_np, config: ForestConfig, u, runtime, *,
+                               quarantined: Sequence[int] = (),
+                               prefetch: int = 2, feeder_opts: Optional[dict] = None):
+    """``dimension_reduction_streamed`` on the multi-process plane: each
+    process adds its window of every live block into a ``[k, 1, Fl, B, C]``
+    root histogram, which is summed over the sample axes (exact integer
+    DSI counts), so the gain ratios and the ``[k, F]`` mask equal the
+    single-process sweep's bitwise. The mask comes back on every rank."""
+    from ..data.pipeline import BlockFeeder
+
+    mesh = runtime.mesh
+    F = int(local_blocks[0].shape[1])
+    cfg = config.resolved(F)
+    sh = _shard(mesh, F, runtime.sample_axes, runtime.feature_axis)
+    k, B, C = w_np.shape[0], cfg.n_bins, cfg.n_classes
+    sizes, offsets = _block_sizes(y_np.shape[0], cfg.sample_block)
+    hist = torch.zeros((k, 1, sh.Fl, B, C), dtype=torch.float32, device=mesh.device)
+    with BlockFeeder(local_blocks, placement=runtime.block_placement(_padded_rows(sh, sizes), F),
+                     prefetch=prefetch, quarantined=quarantined,
+                     **(feeder_opts or {})) as feeder:
+        for i, xb_b in zip(feeder.live_blocks, feeder.sweep()):
+            o0, n = offsets[i], sizes[i]
+            w_b = feeder.pin(sh.local_rows(w_np[:, o0:o0 + n], n, axis=1))
+            base = class_channels(feeder.pin(sh.local_rows(y_np[o0:o0 + n], n)), C)
+            slot0 = torch.zeros(w_b.shape, dtype=torch.int32, device=mesh.device)
+            level_histograms(xb_b, base, w_b, slot0, n_slots=1, n_bins=B,
+                             backend=cfg.hist_backend, out=hist)
+    return _select_from_root(hist, cfg, u, mesh, runtime.sample_axes, runtime.feature_axis)
+
+
+def _host_memory(dev: torch.device) -> dict:
+    """This process's host memory in bytes: the resident set now and its
+    peak so far, split into anonymous, file-backed and shared pages
+    (``/proc/self/status``; empty where there is none), and on CUDA the
+    pinned host allocator's bytes (``torch.cuda.host_memory_stats``)."""
+    out = {}
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                if key in ("VmRSS", "VmHWM", "RssAnon", "RssFile", "RssShmem"):
+                    out[key] = int(val.split()[0]) * 1024
+    except OSError:
+        pass
+    if dev.type == "cuda":
+        out.update({f"pinned_{k}": v for k, v in torch.cuda.host_memory_stats().items()
+                    if k.startswith(("allocated_bytes.", "active_bytes."))
+                    and k.endswith((".current", ".peak"))})
+    return out
+
+
+def train_prf_multiproc(x, y, config: ForestConfig, seed: int = 0, *, runtime=None, device=None,
+                        **kw):
+    """End-to-end ``train_prf`` across the processes of a world (reference:
+    ``repro/core/distributed.py:train_prf_multiproc``); every process
+    calls it with the same arguments. ``api.train_prf`` calls it in a
+    world of more than one process.
+
+    Draws exactly as single-process ``train_prf`` does, identically on
+    every process: ``torch.Generator(device).manual_seed(seed)``, the full
+    ``[k, N]`` DSI counts, then the uniforms ``u [k, F]``; then
+    ``fit_prf_multiproc_from_draws`` (``kw``: its options). The model
+    equals single-process ``train_prf``'s on the same ``(x, y, config,
+    seed)`` bitwise, edges included, while every per-shard sketch stays
+    uncompressed. ``runtime`` (a ``launch.multiproc.MultiHostMesh``)
+    defaults to a ``(world, 1)`` mesh on ``device`` (``cuda:{local
+    rank}`` unless ``"cpu"``)."""
+    from ..launch.multiproc import MultiHostMesh
+
+    runtime = runtime if runtime is not None else MultiHostMesh(device=device)
+    dev = runtime.mesh.device
+    N, F = np.shape(x)
+    config = config.resolved(F)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    weights = bootstrap_counts(gen, config.n_trees, N, dev)
+    u = torch.rand((config.n_trees, F), generator=gen, device=dev)
+    return fit_prf_multiproc_from_draws(x, y, config, weights, u, runtime=runtime, **kw)
+
+
+def fit_prf_multiproc_from_draws(
+    x, y, config: ForestConfig, weights, u, *, runtime,
+    checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1, checkpoint_keep: int = 3,
+    resume_from: Optional[str] = None, on_level=None, feeder_opts: Optional[dict] = None,
+    bad_block_policy: Optional[str] = "raise", sketch_max_size: Optional[int] = None,
+    stats: Optional[dict] = None,
+):
+    """Everything of ``train_prf_multiproc`` after the draws (DSI
+    ``weights [k, N]``, uniforms ``u [k, F]``, the same on every process)
+    on ``runtime`` (a ``launch.multiproc.MultiHostMesh``, whose mesh and
+    axes it runs on), with every process touching only its own window of
+    each sample block
+    of ``x`` (an ``np.memmap`` pages in nothing else, except that the edge
+    fit reads the whole blocks of this process's sample shard):
+
+    * the validator counts non-finite cells per (block, column) on the
+      local rows and sums them over the processes (``psum_hosts``), so
+      every process reaches the same verdicts (and, under ``"raise"``,
+      the same ``DataIntegrityError``); labels are screened on the global
+      ``y`` that every process holds;
+    * edges come from per-shard quantile sketches merged in shard order
+      (``fit_bins_sharded``);
+    * each process bins its windows (imputed cells to bin 0) and keeps
+      them on the host, pinned on CUDA;
+    * dimension reduction, growth (``grow_forest_streamed_sharded``) and
+      the OOB weights add exact integer counts, so the shard order never
+      matters.
+
+    ``checkpoint_dir`` / ``resume_from`` use per-host steps
+    (``MultiprocCheckpointManager``); another process count refuses them
+    with ``CheckpointTopologyError``. Refused like the reference:
+    ``sample_block <= 0``, a source that is not 2-D, and weighted voting
+    for regression (``NotImplementedError``). ``sketch_max_size`` caps the
+    per-shard summaries (exact edges below their compression). ``stats``,
+    a dict, receives the host seconds of each stage (``screen``,
+    ``sketch``, ``binning``, ``dimension_reduction``, ``growth``, ``oob``;
+    each ends in a synchronise of the device), the bytes each stage fed
+    to the device (``feed_bytes``), the host memory at the end of each
+    stage (``host_memory``: ``_host_memory``), and the bytes of the torch
+    host tensors the run keeps, the binned windows (``host_tensor_bytes``;
+    ``tracemalloc`` sees only the numpy side)."""
+    from ..data.pipeline import BlockIssue, BlockValidator, DataIntegrityError, QuarantineReport
+    from ..launch.multiproc import MultiprocCheckpointManager
+    from .api import PRFModel
+    from .binning import apply_bins
+    from .dimred import random_feature_mask
+
+    if getattr(x, "ndim", None) != 2:
+        raise ValueError("train_prf_multiproc needs a 2-D [N, F] array-like source (np.memmap / "
+                         f"np.ndarray) so every process can slice its own rows; got "
+                         f"{type(x).__name__}")
+    config = config.resolved(x.shape[1])
+    if config.sample_block <= 0:
+        raise ValueError("train_prf_multiproc needs config.sample_block > 0: the multi-process "
+                         "plane is streaming-only (each process feeds its rows of every block)")
+    if config.weighted_voting and config.regression:
+        raise NotImplementedError("weighted_voting for regression (OOB R^2) is not wired on the "
+                                  "multi-process plane, as in the reference: set "
+                                  "weighted_voting=False, or train in one process")
+    mesh, dev = runtime.mesh, runtime.mesh.device
+    sample_axes, feature_axis = runtime.sample_axes, runtime.feature_axis
+    N, F = int(x.shape[0]), int(x.shape[1])
+    k, nb = config.n_trees, config.sample_block
+    weights = as_tensor(weights, dev, torch.float32)
+    u = as_tensor(u, dev, torch.float32)
+    y_host = np.asarray(y)
+    if tuple(weights.shape) != (k, N) or tuple(u.shape) != (k, F) or y_host.shape != (N,):
+        raise ValueError(f"need weights [{k}, {N}], u [{k}, {F}] and y [{N}]; got weights "
+                         f"{tuple(weights.shape)}, u {tuple(u.shape)}, y {y_host.shape}")
+    sizes, offsets = _block_sizes(N, nb)
+    n_blocks = len(sizes)
+    sh = _shard(mesh, F, sample_axes, feature_axis)
+    windows = [sh.rows(n)[:2] for n in sizes]
+
+    def local_view(i):
+        """(x's real rows of this process's window of block i, their count)."""
+        lo, hi = windows[i]
+        nreal = max(min(hi, sizes[i]) - lo, 0)
+        return x[offsets[i] + lo:offsets[i] + lo + nreal], nreal
+
+    clock = [time.perf_counter(), runtime.feed_bytes]
+
+    def lap(stage: str) -> None:
+        if stats is None:
+            return
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        stats[stage] = now - clock[0]
+        stats.setdefault("feed_bytes", {})[stage] = runtime.feed_bytes - clock[1]
+        stats.setdefault("host_memory", {})[stage] = _host_memory(dev)
+        clock[:] = [now, runtime.feed_bytes]
+
+    # -- the screen: per-(block, column) counts summed over the processes ----
+    report, cell_cols, label_masks, quar = None, None, {}, frozenset()
+    if bad_block_policy not in (None, "off"):
+        validator = BlockValidator(bad_block_policy, n_features=F,
+                                   n_classes=None if config.regression else config.n_classes,
+                                   regression=config.regression)
+        counts = np.zeros((n_blocks, F), np.int64)
+        if np.issubdtype(np.asarray(x[:0]).dtype, np.inexact):
+            for i in range(n_blocks):
+                view, nreal = local_view(i)
+                if nreal:
+                    counts[i] = (~np.isfinite(np.asarray(view))).sum(axis=0)
+        cell_cols = runtime.psum_hosts(counts.ravel()).reshape(n_blocks, F)
+        for i in range(n_blocks):
+            lm = validator._label_mask(y_host[offsets[i]:offsets[i + 1]])
+            if lm.any():
+                label_masks[i] = lm
+        report = QuarantineReport(policy=bad_block_policy, blocks_checked=n_blocks)
+        for i in range(n_blocks):
+            bad_cells = int(cell_cols[i].sum())
+            bad_labels = int(label_masks[i].sum()) if i in label_masks else 0
+            if not bad_cells and not bad_labels:
+                continue
+            issue = BlockIssue(index=i, reason="nonfinite" if bad_cells else "label",
+                               columns=tuple(int(c) for c in np.flatnonzero(cell_cols[i])),
+                               bad_cells=bad_cells, bad_labels=bad_labels)
+            report.issues.append(issue)
+            if bad_block_policy == "raise":
+                raise DataIntegrityError(issue.describe(), block_index=i, columns=issue.columns,
+                                         reason=issue.reason)
+            report.sanitized_cells += bad_cells
+            report.sanitized_labels += bad_labels
+            if bad_block_policy == "quarantine":
+                report.quarantined.append(i)
+        quar = frozenset(report.quarantined)
+        if len(quar) == n_blocks:
+            raise DataIntegrityError(f"every block quarantined ({n_blocks} of {n_blocks}) — "
+                                     "nothing left to train on", reason="quarantine")
+        if label_masks:
+            y_host = y_host.copy()
+            for i, lm in label_masks.items():
+                y_host[offsets[i]:offsets[i + 1]][lm] = 0
+    good = [i for i in range(n_blocks) if i not in quar]
+    flagged = set() if cell_cols is None else {i for i in range(n_blocks) if cell_cols[i].any()}
+    lap("screen")
+
+    # -- edges: per-shard sketches of the good blocks, merged in shard order --
+    good_views = [x[offsets[i]:offsets[i + 1]] for i in good]
+
+    def exclude(j):
+        # the imputed cells of the j-th good block, for the shard that sketches it
+        return ~np.isfinite(np.asarray(good_views[j])) if good[j] in flagged else None
+
+    edges = fit_bins_sharded(good_views, config.n_bins, mesh, sample_block=nb,
+                             sample_axes=sample_axes, max_size=sketch_max_size,
+                             exclude_masks=exclude if flagged else None)
+    lap("sketch")
+
+    # -- this process's windows, binned on the device, kept on the host ------
+    edges_dev = torch.from_numpy(edges).to(dev)
+    xb_local = []
+    for i in range(n_blocks):
+        lo, hi = windows[i]
+        xbl = torch.zeros((hi - lo, F), dtype=torch.uint8, pin_memory=dev.type == "cuda")
+        view, nreal = local_view(i)
+        if i not in quar and nreal:              # a quarantined window stays zeros, never fed
+            raw = np.asarray(view)
+            xb = apply_bins(as_tensor(raw, dev), edges_dev)
+            if i in flagged:                     # imputed cells -> bin 0
+                xb[torch.from_numpy(~np.isfinite(raw)).to(dev)] = 0
+            xbl[:nreal].copy_(xb)
+        xb_local.append(xbl)
+    if label_masks:
+        bad_rows = np.zeros(N, dtype=bool)
+        for i, lm in label_masks.items():
+            bad_rows[offsets[i]:offsets[i + 1]][lm] = True
+        weights = torch.where(torch.from_numpy(bad_rows).to(dev)[None, :], 0.0, weights)
+    w_np = weights.cpu().numpy()
+    if stats is not None:
+        stats["host_tensor_bytes"] = sum(t.numel() * t.element_size() for t in xb_local)
+    lap("binning")
+
+    feature_mask = None
+    if config.feature_mode == "importance" and not config.regression:     # §3.2
+        feature_mask = _dimred_streamed_multiproc(xb_local, y_host, w_np, config, u, runtime,
+                                                  quarantined=sorted(quar),
+                                                  feeder_opts=feeder_opts)
+    elif config.feature_mode == "random":
+        feature_mask = random_feature_mask(u, n_selected=config.n_selected)
+    lap("dimension_reduction")
+
+    manager = None
+    if checkpoint_dir is not None:
+        manager = MultiprocCheckpointManager(checkpoint_dir, keep=checkpoint_keep,
+                                             save_interval=checkpoint_every, runtime=runtime)
+    forest = grow_forest_streamed_sharded(                                 # §4.2
+        xb_local, y_host, w_np, config, mesh, feature_mask, sample_axes=sample_axes,
+        feature_axis=feature_axis, manager=manager, resume_from=resume_from, on_level=on_level,
+        feeder_opts=feeder_opts, quarantined=sorted(quar), runtime=runtime)
+    lap("growth")
+
+    if config.weighted_voting:                                             # §3.3
+        invalid = {}
+        for i, lm in label_masks.items():
+            m = sh.local_rows(lm, sizes[i])                 # this window's rows, pad rows False
+            if i not in quar and m.any():
+                invalid[i] = m
+        forest.tree_weight = oob_accuracy_streamed_sharded(
+            forest, xb_local, y_host, w_np, mesh, sample_block=nb, sample_axes=sample_axes,
+            feature_axis=feature_axis, feeder_opts=feeder_opts, quarantined=sorted(quar),
+            runtime=runtime, invalid_masks=invalid or None)
+    lap("oob")
+    return PRFModel(forest=forest, bin_edges=edges, quarantine=report)

@@ -31,7 +31,8 @@ over row blocks (``blocked_level_histograms``), and the streaming data
 plane (``core/api.grow_forest_streamed``) runs one ``stream_block_step``
 per (block, level). ``grow_checkpointed`` is the same loop with a
 checkpoint after every level and resume from the newest valid one. The
-multi-process plane is not ported (ROADMAP.md Queue 1 item 10).
+mesh and multi-process planes (``core/distributed.py``) run the same
+steps on a ``MeshPlane``.
 """
 from __future__ import annotations
 

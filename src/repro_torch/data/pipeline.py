@@ -15,10 +15,13 @@ consumer's stream waits on that event before it touches the block
 (``_Sweep.__next__``), and a pinned buffer is written again only after
 the event of its last copy has completed. On the CPU the thread makes a
 plain copy. A mesh placement (an object with a ``device`` and a
-``local(block)``, ``core/distributed._BlockPlacement``) feeds each rank
-its own ``(sample x feature)`` slice of every block, as the reference's
-``NamedSharding`` placement does. The multi-process (callable) placement
-is not ported: ROADMAP.md Queue 1 item 10.
+``local(block, index)``) feeds each rank its own slice of every swept
+block: its ``(sample x feature)`` block of a global one
+(``core/distributed._BlockPlacement``, as the reference's
+``NamedSharding`` placement does), or its feature columns of the
+host-local rows this process read (the multi-process plane's
+``launch/multiproc.MultiHostMesh.block_placement``, the reference's
+callable placement).
 """
 from __future__ import annotations
 
@@ -541,17 +544,13 @@ class _Sweep:
 
 
 def _resolve_placement(placement) -> Tuple[torch.device, Optional[Callable]]:
-    """``(device, local)``: where blocks go, and the slice of each block
-    this rank feeds (None: the whole block)."""
+    """``(device, local)``: where blocks go, and ``local(block, index)``,
+    the slice of swept block ``index`` this rank feeds (None: the whole
+    block)."""
     if placement is None or isinstance(placement, (str, torch.device)):
         return resolve_device(placement), None
     if hasattr(placement, "device") and callable(getattr(placement, "local", None)):
         return torch.device(placement.device), placement.local
-    if callable(placement):
-        raise NotImplementedError(
-            "a callable placement (each process feeding its own rows) is not ported "
-            "yet: ROADMAP.md Queue 1 item 10"
-        )
     raise ValueError(f"placement {placement!r}: a torch.device, its name, or a mesh placement")
 
 
@@ -570,8 +569,9 @@ class BlockFeeder:
       buffers on their own stream (module docstring).
 
     ``placement`` is a ``torch.device`` (or its name); ``None`` is the
-    port's default device, ``cuda``; a mesh placement feeds this rank's
-    slice of each swept block (``pin`` uploads its array as it is).
+    port's default device, ``cuda``; a mesh or multi-process placement
+    feeds this rank's slice of each swept block (``pin`` uploads its
+    array as it is).
 
     **Fault tolerance.** Every transfer (``pin`` and each sweep block)
     runs in a bounded retry loop: a ``retryable`` exception (default
@@ -669,7 +669,7 @@ class BlockFeeder:
         """One host-to-device transfer under the bounded retry policy."""
         self._last_site = site
         if index is not None and self._local is not None:
-            block = self._local(block)             # this rank's slice of a swept block
+            block = self._local(block, index)      # this rank's slice of a swept block
         attempt = 0
         while True:
             try:

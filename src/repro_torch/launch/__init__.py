@@ -1,2 +1,2 @@
-"""Fault injection, supervision of training loops and the process mesh
-(``repro.launch``'s counterpart)."""
+"""Fault injection, supervision of training loops, the process mesh and
+the multi-process plane (``repro.launch``'s counterpart)."""

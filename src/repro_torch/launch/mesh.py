@@ -20,7 +20,8 @@ card, which NCCL refuses ("Duplicate GPU detected").
 
 ``run_world`` starts a world of ``nproc`` ranks as processes on this
 host (``python -m repro_torch.launch.mesh``), each calling one function,
-with a wall-clock limit so that a deadlock fails instead of hanging. The
+with a wall-clock limit so that a deadlock fails instead of hanging;
+``default_backend`` is the one choice between NCCL and gloo. The
 production meshes (``make_production_mesh``, 16 x 16 and 2 x 16 x 16)
 are not ported: ROADMAP.md Queue 1 item 20.
 """
@@ -60,6 +61,7 @@ class Mesh:
         self.backend = dist.get_backend()
         # the one place the transport is chosen: gloo reduces CUDA tensors on the host
         self.host_staged = self.backend == "gloo" and device.type == "cuda"
+        self.staged_bytes = 0           # the largest tensor staged through the host so far
 
     @property
     def rank(self) -> int:
@@ -85,7 +87,10 @@ class Mesh:
         return self._groups[tuple(a for a in self.axis_names if a in _axes(axes))]
 
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
-        return t.cpu() if self.host_staged and t.is_cuda else t.contiguous()
+        if self.host_staged and t.is_cuda:
+            self.staged_bytes = max(self.staged_bytes, t.numel() * t.element_size())
+            return t.cpu()
+        return t.contiguous()
 
     def all_reduce(self, t: torch.Tensor, axes: Axes, op=dist.ReduceOp.SUM) -> torch.Tensor:
         """Sum (``op``) of ``t`` over ``axes``, a new tensor on ``t``'s device
@@ -152,6 +157,9 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = ("data", "model"), *,
     dev = torch.device(device) if device is not None else None
     if dev is None or (dev.type == "cuda" and dev.index is None):
         dev = _default_device()
+    if dist.get_backend() == "nccl" and dev.type != "cuda":
+        raise ValueError(f"a mesh on {dev} needs a gloo process group: NCCL reduces CUDA "
+                         "tensors only")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
@@ -176,9 +184,28 @@ def dp_axes(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a != "model")
 
 
+def shard_rows(n_rows: int, n_shards: int, shard: int) -> Tuple[int, int, int]:
+    """``(lo, hi, n_local)``: sample shard ``shard``'s rows of ``n_rows``
+    padded to a multiple of ``n_shards``, and how many rows each shard
+    holds. The one row layout of the mesh plane and the multi-process
+    plane: the pad rows are the last shards' tail."""
+    nl = -(-n_rows // n_shards)
+    return shard * nl, (shard + 1) * nl, nl
+
+
 # ---------------------------------------------------------------------------
 # Worlds of processes on this host
 # ---------------------------------------------------------------------------
+
+
+def default_backend(local_processes: int, device_type: str = "cuda") -> str:
+    """NCCL when every process on this host has a card of its own, else
+    gloo (the CPU, or several processes sharing a card, which NCCL
+    refuses; ``Mesh.host_staged`` then stages the collectives)."""
+    if device_type == "cuda" and torch.cuda.is_available() \
+            and torch.cuda.device_count() >= local_processes:
+        return "nccl"
+    return "gloo"
 
 
 def init_rank(rank: int, world_size: int, init_method: str, backend: str = "gloo", *,

@@ -166,16 +166,27 @@ def test_reuse_on_matches_reference_labels(class_data, reference):
                                 dict(hist_reuse="off", checkpoint_dir="ckpt"),
                                 dict(world_size=2)])
 def test_unported_paths_raise(class_data, kw, tmp_path, monkeypatch):
-    """Regression and checkpointing, which raised before they were ported,
-    now train; multi-process training still raises, naming ROADMAP."""
+    """Regression, checkpointing and multi-process training, which raised
+    before they were ported, now train: in a world of more than one process
+    ``train_prf`` hands its call to ``train_prf_multiproc`` (whose worlds
+    ``tests/test_torch_multiproc.py`` runs)."""
     xtr, ytr, xte, _ = class_data
     kw = dict(kw)
     call = {"checkpoint_dir": str(tmp_path / kw.pop("checkpoint_dir"))} if "checkpoint_dir" in kw else {}
     if kw.pop("world_size", 1) > 1:
+        from repro_torch.core import distributed
+
         monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-            train_prf(xtr, ytr, TConfig(n_trees=2, max_depth=2, n_bins=8, n_classes=4), 0, device="cpu")
+        calls = []
+        monkeypatch.setattr(distributed, "train_prf_multiproc",
+                            lambda *a, **k: calls.append((a, k)) or "multi-process model")
+        cfg = TConfig(n_trees=2, max_depth=2, n_bins=8, n_classes=4)
+        assert train_prf(xtr, ytr, cfg, 7, device="cpu", bad_block_policy="sanitize") == \
+            "multi-process model"
+        ((args, kwargs),) = calls
+        assert args[2:] == (cfg.resolved(xtr.shape[1]), 7) and args[0] is xtr
+        assert kwargs["device"] == torch.device("cpu") and kwargs["bad_block_policy"] == "sanitize"
         return
     cfg = TConfig(n_trees=2, max_depth=2, n_bins=8, n_classes=4, **kw)
     model = train_prf(xtr, ytr.astype(np.float32) if cfg.regression else ytr, cfg, 0, device="cpu", **call)

@@ -5,8 +5,10 @@ reference's behaviour (``tests/test_binning_blocked.py``,
 refusals, the ``BlockFeeder``'s bounded retry, ``FeedError`` with the
 thread joined, close and context manager, a stuck producer escalated,
 knob validation, validator quarantine, a fully quarantined feed, and the
-placements that are not ported. The fault hook is a plain deterministic
-callable."""
+placements: a device, a mesh placement's ``local(block, index)``, and the
+refusal of anything else (a bare callable, the reference's multi-process
+form, is a ``local`` here: ``tests/test_torch_multiproc.py``). The fault
+hook is a plain deterministic callable."""
 import threading
 import time
 
@@ -176,16 +178,16 @@ def test_feeder_knobs_validated():
 
 def test_feeder_placements_not_ported_and_device_rule(monkeypatch):
     blocks = [np.arange(16, dtype=np.uint8).reshape(8, 2)]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        BlockFeeder(blocks, placement=lambda a, i: a)
-    with pytest.raises(ValueError, match="placement"):
-        BlockFeeder(blocks, placement=object())
+    for other in (lambda a, i: a, object()):
+        with pytest.raises(ValueError, match="placement"):
+            BlockFeeder(blocks, placement=other)
 
     class FirstRows:                    # a mesh placement: this rank's slice of each block
         device = CPU
 
         @staticmethod
-        def local(block):
+        def local(block, index):
+            assert index == 0
             return block[:4, 1:]
 
     for prefetch in (0, 2):
