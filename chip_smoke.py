@@ -79,8 +79,11 @@ tile plan (``traverse_batch_ab``). The first:
    training rows, 128 features, 32 trees, depth 6: resident, streamed
    (``sample_block`` 65536) and checkpointed growth each bitwise the local
    forest from the same draws, a kill at level 3 resumed on a (4, 1)
-   world bitwise, ``predict_sharded`` and the OOB weights equal to the
-   local ones, the histogram and the split scan launched on every rank;
+   world bitwise, ``predict_sharded``, the OOB weights and the labels of
+   ``serving.make_sharded_vote_fn`` (the trees split over ``"data"``, one
+   host-staged ``all_reduce`` of the ``[N, C]`` partials) equal to the
+   local ones, the histogram, the split scan and (in the vote) the
+   traversal launched on every rank;
 5f. the multi-process plane (``multiproc_phase``): a gloo world of 2
    processes on ``cuda:0`` (mesh (2, 1)), each calling ``train_prf`` (the
    dispatch to ``train_prf_multiproc``) on phase 5's 2^20 x 128 training
@@ -99,6 +102,20 @@ tile plan (``traverse_batch_ab``). The first:
    sampled every 2 ms, each stage's peak, the pinned allocator, the
    largest host-staged collective) against the file's bytes, and the
    world's time;
+5g. serving (``serving_phase``) on phase 5's model through ``"auto"`` (the
+   traversal kernel): ``PRFService(max_batch=1024, min_bucket=8)`` answers
+   batches of 1-33, 255-257, 1000, 1024, 1025 and 4096 rows, labels
+   bitwise equal to ``model.predict`` and to a ``backend="xla"`` service,
+   one traversal launch per bucket-chunk (``launches_serving`` on the
+   traversal row); buckets 8, 64, 256, 1024 timed (median host clock of
+   200 calls, the card's busy share, binning and the forward pass apart,
+   the traversal in it from the profiler, rows/s); 4 threads x 64
+   requests of 1-32 rows,
+   every future equal to ``model.predict`` of its rows; a
+   ``ModelRegistry`` hot-swap to phase 5b's model under a concurrent
+   submitter, every future resolved; ``train_rf`` and
+   ``train_mlrf_like(sample_budget=2000)`` on phase 5's data, time and
+   accuracy beside PRF's;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
    (48 layers, d 1536) at their published widths, bf16 compute, f32
    params from a seed: batch 8, prompt 2048, 32 greedy tokens through
@@ -924,7 +941,8 @@ def streamed_phase(dev, xtr, ytr, xte, yte, wt, u, cfg, model, pred):
             f"to the plain version; one block {root_ms:.4f} ms")
         del root, root_want, xb_dev, base_dev, w_dev, deep
         torch.cuda.empty_cache()
-        return {"launches": counts, "main_path_s": t_main, "exact_replay_s": t_exact, "accuracy": acc,
+        return {"model": model_s, "launches": counts, "main_path_s": t_main, "exact_replay_s": t_exact,
+                "accuracy": acc,
                 "peak_bytes": peak, "bytes_held_before": base_bytes, "stages_s": stages,
                 "growth_levels_s": gstats["levels_s"], "feed_wait_s": gstats["feed_wait_s"],
                 "feed_retries": gstats["retries"], "feed_turns": feed_turns, "block_hist": block_hist,
@@ -1406,13 +1424,17 @@ def mesh_rank(shape, xb, y, w, fmask, cfg_kw, xte, ckpt_dir, kill_at, device="cu
     """One rank of phase 5e(b), in its own process on ``cuda:0`` (gloo,
     host-staged collectives): resident, streamed and checkpointed mesh
     growth (the last killed after level ``kill_at`` on every rank),
-    ``predict_sharded`` and the OOB weights; numpy results."""
+    ``predict_sharded``, the OOB weights and the tree-sharded vote of the
+    resident forest (``serving.make_sharded_vote_fn`` over ``"data"``,
+    the traversal launches counted around it); numpy results."""
     from repro_torch import ForestConfig
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import distributed as dist_prf
     from repro_torch.kernels.gain_ratio import ops as hist_ops
     from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import make_sharded_vote_fn
 
     mesh = make_mesh(shape, device=device)
     cfg = ForestConfig(**cfg_kw)
@@ -1432,6 +1454,11 @@ def mesh_rank(shape, xb, y, w, fmask, cfg_kw, xte, ckpt_dir, kill_at, device="cu
     out["resident"] = arrays(f)
     out["predict"] = dist_prf.predict_sharded(f, xte, mesh)
     out["oob"] = dist_prf.oob_accuracy_sharded(f, xb, y, w, mesh).cpu().numpy()
+    vote = make_sharded_vote_fn(f, mesh, tree_axis="data")
+    trav_ops.launches = 0
+    labels, out["vote_s"] = sync_time(lambda: vote(xte))
+    out["sharded_vote"] = labels.cpu().numpy()
+    out["vote_launches"] = trav_ops.launches
     scfg = dataclasses.replace(cfg, sample_block=MESH_BLOCK, hist_reduce="psum_scatter")
     out["streamed"] = arrays(run("streamed", lambda: dist_prf.grow_forest_streamed_sharded(
         xb, y, w, scfg, mesh, fmask)))
@@ -1567,6 +1594,10 @@ def mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, t_growth, xbe, backend="nc
                           f"mesh phase (b), rank {r}, {tag}: {name} differs from the local forest")
             check(np.array_equal(out["predict"], want_pred), f"mesh phase (b), rank {r}: labels differ")
             check(np.array_equal(out["oob"], want_oob), f"mesh phase (b), rank {r}: OOB weights differ")
+            check(np.array_equal(out["sharded_vote"], want_pred),
+                  f"mesh phase (b), rank {r}: tree-sharded vote labels differ from the single-device labels")
+            check(out["vote_launches"] > 0 or dev.type != "cuda",
+                  f"mesh phase (b), rank {r}: the sharded vote did not launch the traversal")
             for tag, counts in out["launches"].items():
                 for name, c in counts.items():
                     check(c > 0 or dev.type != "cuda",
@@ -1580,7 +1611,8 @@ def mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, t_growth, xbe, backend="nc
             for name in fields:
                 check(np.array_equal(out["forest"][name], want[name]),
                       f"mesh phase (b), rank {r}: the (4, 1) resume of the (2, 2) checkpoint differs ({name})")
-        res["gloo"] = {"ranks": [{k_: v for k_, v in o.items() if k_ in ("mesh", "growth_s", "launches")}
+        res["gloo"] = {"ranks": [{k_: v for k_, v in o.items()
+                                  if k_ in ("mesh", "growth_s", "launches", "vote_s", "vote_launches")}
                                  for o in ranks],
                        "resume": [{k_: v for k_, v in o.items() if k_ in ("mesh", "resume_s", "launches",
                                                                          "first_level")} for o in moved],
@@ -1588,7 +1620,9 @@ def mesh_phase(dev, xbt, yt, wt, fmask, rcfg, forest, t_growth, xbe, backend="nc
         log(f"mesh phase (b): gloo world of 4 on {dev} (mesh (2, 2), {ranks[0]['mesh']}), {n} rows, "
             f"{xb_h.shape[1]} features, {cfg6.n_trees} trees, depth {cfg6.max_depth}: resident, streamed "
             f"(sample_block {MESH_BLOCK}) and checkpointed "
-            f"growth bitwise the local forest on every rank, labels and OOB weights equal; a kill at level "
+            f"growth bitwise the local forest on every rank, labels, OOB weights and the tree-sharded vote's "
+            f"labels ({cfg6.n_trees // 2} trees a rank, {ranks[0]['vote_launches']} traversal launch(es), "
+            f"{ranks[0]['vote_s']:.3f} s on rank 0) equal; a kill at level "
             f"{kill_at} resumed by a (4, 1) world bitwise; rank 0 growth s {ranks[0]['growth_s']}, launches "
             f"{ranks[0]['launches']}; worlds {t_world:.1f} s and {t_world2:.1f} s")
         return res
@@ -1852,6 +1886,234 @@ def multiproc_phase(dev, xtr, ytr, xte, yte, wt, u, cfg):
                 "parent_streamed_growth_s": t_local}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+SERVE_SIZES = list(range(1, 34)) + [255, 256, 257, 1000, 1024, 1025, 4096]   # phase 5g's batches
+SERVE_BUCKETS = (8, 64, 256, 1024)      # the buckets timed
+SERVE_CALLS = 200                       # host-clock calls per timed bucket
+SERVE_THREADS, SERVE_REQUESTS = 4, 64   # the thread drill: threads, requests a thread
+
+
+def serving_phase(dev, model, model_b, xtr, ytr, xte, yte, cfg, prf, timings):
+    """5g. Serving (``repro_torch.serving``) on phase 5's full-size model
+    (32 trees, depth 8, F 128, C 4, ``"auto"``: the traversal kernel).
+
+    (a) ``PRFService(model, max_batch=1024, min_bucket=8)`` answers each
+        batch of ``SERVE_SIZES``, the traversal's launch count set to 0
+        just before and read just after: one launch per bucket-chunk (and
+        tree chunk); labels bitwise equal to ``model.predict`` of the same
+        rows and to a ``backend="xla"`` service (the plain path, no launch);
+    (b) buckets ``SERVE_BUCKETS``: the median host clock of
+        ``SERVE_CALLS`` ``svc.predict`` calls (and their 90th percentile),
+        CUDA events around 10 calls, the card's busy share of 20 calls
+        (profiler), binning alone, the bucket's forward pass alone (binned
+        rows in, labels out) and in it the traversal kernel and the node
+        packing (profiler; and CUDA events around direct launches of the
+        C entry point, its scores equal to the wrapper's); rows/s;
+    (c) ``SERVE_THREADS`` threads submit ``SERVE_REQUESTS`` requests each
+        of 1-32 rows (a seeded numpy generator), auto-draining as they go,
+        then one drain: every future resolves to ``model.predict`` of its
+        rows;
+    (d) ``ModelRegistry`` hot-swap from phase 5's model to phase 5b's
+        under a concurrent submitter: every future it got resolves,
+        to one of the two models' labels for its rows;
+    (e) the paper's baselines on phase 5's data and configuration:
+        ``train_rf`` and ``train_mlrf_like(sample_budget=2000)``, time and
+        test accuracy beside PRF's (``prf``), the histogram and the split
+        scan launched by each.
+    """
+    import threading
+
+    from repro_torch.core.baselines import train_mlrf_like, train_rf
+    from repro_torch.core.binning import apply_bins
+    from repro_torch.core.forest import fused_vote_scores
+    from repro_torch.device import as_tensor
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gain_ratio import ops as hist_ops
+    from repro_torch.kernels.split_scan import ops as scan_ops
+    from repro_torch.kernels.tree_traverse import ops as trav_ops
+    from repro_torch.serving import ModelRegistry, PRFService, ServiceClosedError
+
+    res = {}
+    svc = PRFService(model, max_batch=1024, min_bucket=8)
+    k = model.forest.n_trees
+    tree_chunks = -(-k // (cfg.tree_chunk if cfg.tree_chunk > 0 else k))
+
+    # (a) the served batches
+    trav_ops.launches = 0
+    got, t_served = sync_time(lambda: [svc.predict(xte[:n]) for n in SERVE_SIZES])
+    launches = trav_ops.launches
+    want_launches = tree_chunks * sum(-(-n // 1024) for n in SERVE_SIZES)
+    check(launches == want_launches,
+          f"serving: {launches} traversal launches for {len(SERVE_SIZES)} batches, want {want_launches} "
+          "(one a bucket-chunk)")
+    svc_x = PRFService(model, max_batch=1024, min_bucket=8, backend="xla")
+    n0 = trav_ops.launches
+    plain = [svc_x.predict(xte[:n]) for n in SERVE_SIZES]
+    check(trav_ops.launches == n0, "serving: the xla service launched the traversal")
+    for n, g, p in zip(SERVE_SIZES, got, plain):
+        check(np.array_equal(g, model.predict(xte[:n])), f"serving: {n} rows: labels != model.predict")
+        check(np.array_equal(g, p), f"serving: {n} rows: labels != the xla service's")
+    buckets = svc.stats()["buckets_compiled"]
+    check(buckets == [8, 16, 32, 64, 256, 512, 1024], f"serving: buckets {buckets}")
+    res.update(launches=launches, served_s=t_served, buckets=buckets, sizes=SERVE_SIZES)
+    log(f"serving (a): {len(SERVE_SIZES)} batches of 1-33, 255-257, 1000, 1024, 1025, 4096 rows "
+        f"({sum(SERVE_SIZES)} rows, {t_served:.3f} s): labels bitwise equal to model.predict and to the "
+        f"xla service; {launches} traversal launches (one a bucket-chunk), buckets {buckets}")
+
+    # (b) per-bucket times
+    per_bucket = {}
+    for b in SERVE_BUCKETS:
+        xq = xte[:b]
+        for _ in range(3):
+            svc.predict(xq)
+        secs = []
+        for _ in range(SERVE_CALLS):
+            t0 = time.perf_counter()
+            svc.predict(xq)
+            secs.append(time.perf_counter() - t0)
+        med = float(np.median(secs))
+        bins = []
+        for _ in range(SERVE_CALLS):
+            _, t = sync_time(lambda: apply_bins(as_tensor(xq, dev), svc._edges))
+            bins.append(t)
+        # the bucket's forward pass on device-resident bins (what a call runs
+        # between binning and the copy out); the traversal and the node
+        # packing inside it from the profiler (a trace of svc.predict calls
+        # held 9 of 10 launches in every session of the first run)
+        xb = apply_bins(as_tensor(xq, dev), svc._edges)
+        valid = torch.ones(b, dtype=torch.bool, device=dev)
+        fwd = cuda_ms(lambda: svc._bucket_predict(xb, valid))
+        kern, sessions, held = device_ms(lambda: svc._bucket_predict(xb, valid), "traverse_kernel")
+        pack = device_ms(lambda: svc._bucket_predict(xb, valid), "pack_nodes_kernel")[0]
+        # the launch alone without the profiler (whose traces lose launches
+        # late in this run): CUDA events around direct launches of the C
+        # entry point (node packing + walk) on preallocated outputs
+        fo, pay = svc._forest, svc._payload
+        feat, thr, left = (getattr(fo, n).contiguous() for n in ("feature", "threshold", "left_child"))
+        kt, P = feat.shape
+        plan = trav_ops.traverse_plan(xb.shape[1])
+        carry = torch.zeros((b, pay.shape[-1]), device=dev)
+        scores = torch.empty_like(carry)
+        packed = torch.empty((kt, P + (P & 1), 4 if plan["wide"] else 2), dtype=torch.int32, device=dev)
+
+        def direct():
+            _build.launch("prf_traverse", xb.data_ptr(), b, xb.shape[1], feat.data_ptr(), thr.data_ptr(),
+                          left.data_ptr(), pay.data_ptr(), carry.data_ptr(), scores.data_ptr(),
+                          packed.data_ptr(), kt, P, pay.shape[-1], fo.config.max_depth, plan["Fs"],
+                          plan["TN"], plan["smem_bytes"], int(plan["wide"]))
+
+        direct_ms = cuda_ms(direct)
+        check(torch.equal(scores, fused_vote_scores(fo, xb, pay)),
+              f"serving (b), bucket {b}: the direct launch's scores != the wrapper's")
+        busy = device_busy_share(lambda: [svc.predict(xq) for _ in range(20)])
+        per_bucket[b] = {"call_ms_median": med * 1e3, "call_ms_p90": float(np.percentile(secs, 90)) * 1e3,
+                         "call_ms_events": cuda_ms(lambda: svc.predict(xq)), "traverse_kernel_ms": kern,
+                         "traverse_launches_per_trace": held, "pack_kernel_ms": pack,
+                         "traverse_direct_ms": direct_ms,
+                         "binning_ms_median": float(np.median(bins)) * 1e3, "forward_ms": fwd,
+                         "device_busy_share": busy, "rows_per_s": b / med}
+        log(f"serving (b), bucket {b}: svc.predict median {med * 1e3:.4f} ms over {SERVE_CALLS} calls (p90 "
+            f"{per_bucket[b]['call_ms_p90']:.4f}), CUDA events {per_bucket[b]['call_ms_events']:.4f} ms, the "
+            f"card busy {'not measured' if busy is None else f'{busy:.3f}'} of it; binning "
+            f"{per_bucket[b]['binning_ms_median']:.4f} ms; forward pass {fwd:.4f} ms, of it the traversal "
+            f"kernel {fmt_ms(kern)} ms + node packing {fmt_ms(pack)} ms (direct launches, both: "
+            f"{direct_ms:.4f} ms); {b / med:,.0f} rows/s")
+    res["per_bucket"] = per_bucket
+    timings["serving"] = per_bucket
+
+    # (c) the thread drill
+    svc_t = PRFService(model, max_batch=1024, min_bucket=8)
+    rng = np.random.default_rng(20)
+    plans = [[(int(o), int(n)) for o, n in zip(rng.integers(0, len(xte) - 32, SERVE_REQUESTS),
+                                               rng.integers(1, 33, SERVE_REQUESTS))]
+             for _ in range(SERVE_THREADS)]
+    futures = [[] for _ in plans]
+    errors = []
+
+    def client(i):
+        try:
+            for o, n in plans[i]:
+                futures[i].append((o, n, svc_t.submit(xte[o:o + n])))
+        except Exception as e:          # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_THREADS)]
+    _, t_drill = sync_time(lambda: ([t.start() for t in threads], [t.join(timeout=120) for t in threads]))
+    check(not errors and not any(t.is_alive() for t in threads), f"serving (c): threads failed {errors}")
+    svc_t.drain()
+    n_futs = sum(len(f) for f in futures)
+    check(n_futs == SERVE_THREADS * SERVE_REQUESTS, f"serving (c): {n_futs} futures")
+    for fl in futures:
+        for o, n, fut in fl:
+            check(fut.done() and fut.exception() is None, f"serving (c): a future of rows {o}:{o + n} unresolved")
+            check(np.array_equal(fut.result(), model.predict(xte[o:o + n])),
+                  f"serving (c): rows {o}:{o + n}: labels != model.predict")
+    res["thread_drill"] = {"threads": SERVE_THREADS, "requests": n_futs, "s": t_drill,
+                           "served": svc_t.stats()["requests_served"]}
+    log(f"serving (c): {SERVE_THREADS} threads x {SERVE_REQUESTS} requests of 1-32 rows ({t_drill:.3f} s): "
+        f"every future resolved to model.predict of its rows")
+
+    # (d) the registry's hot-swap under a concurrent submitter
+    reg = ModelRegistry(max_batch=1024, min_bucket=8)
+    reg.publish(model)
+    span = min(4096, len(xte) - 2)
+    want_a, want_b = model.predict(xte[:span + 2]), model_b.predict(xte[:span + 2])
+    futs, stop, raced = [], threading.Event(), [0]
+
+    def submitter():
+        i = 0
+        try:
+            while not stop.is_set():
+                o = (2 * i) % span
+                try:
+                    futs.append((o, reg.submit(xte[o:o + 2])))
+                except ServiceClosedError:
+                    raced[0] += 1
+                i += 1
+        except Exception as e:          # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    t = threading.Thread(target=submitter)
+    t.start()
+    time.sleep(0.2)
+    version = reg.publish(model_b)
+    time.sleep(0.2)
+    stop.set()
+    t.join(timeout=60)
+    check(not t.is_alive() and not errors, f"serving (d): the submitter failed or did not stop {errors}")
+    reg.drain()
+    by = {"old": 0, "new": 0, "either": 0}          # "either": the two models agree on the rows
+    for o, fut in futs:
+        check(fut.done() and fut.exception() is None, "serving (d): the hot-swap dropped a future")
+        r = fut.result()
+        old, new = np.array_equal(r, want_a[o:o + 2]), np.array_equal(r, want_b[o:o + 2])
+        check(old or new, f"serving (d): rows {o}:{o + 2} answered by neither model")
+        by["either" if old and new else "old" if old else "new"] += 1
+    reg.shutdown()
+    res["hot_swap"] = {"futures": len(futs), "raced_the_flip": raced[0], "version": version,
+                       "answered_like": by}
+    log(f"serving (d): hot-swap to version {version} under a concurrent submitter: {len(futs)} futures, "
+        f"every one resolved ({by} by labels), {raced[0]} submits raced the flip (typed)")
+
+    # (e) the paper's baselines on phase 5's data
+    base = {"prf": prf}
+    for name, fn in (("rf", lambda: train_rf(xtr, ytr, cfg, 0, device=dev)),
+                     ("mlrf_like", lambda: train_mlrf_like(xtr, ytr, cfg, 0, sample_budget=2000,
+                                                           device=dev))):
+        hist_ops.launches = scan_ops.launches = 0
+        m, t_train = sync_time(fn)
+        counts = {"gain_ratio_hist": hist_ops.launches, "split_scan": scan_ops.launches}
+        for kname, c in counts.items():
+            check(c > 0, f"serving (e): {name}: {kname} was not launched")
+        base[name] = {"train_s": t_train, "accuracy": m.accuracy(xte, yte), "launches": counts}
+        del m
+    res["baselines"] = base
+    log(f"serving (e), test accuracy and training time on phase 5's data: PRF {prf['accuracy']:.7f} "
+        f"({prf['train_s']:.3f} s train + predict), RF {base['rf']['accuracy']:.7f} "
+        f"({base['rf']['train_s']:.3f} s), MLRF-like (budget 2000) {base['mlrf_like']['accuracy']:.7f} "
+        f"({base['mlrf_like']['train_s']:.3f} s)")
+    return res
 
 
 def traverse_batch_ab(src: str) -> int:
@@ -2287,6 +2549,16 @@ def main() -> int:
             row["launches_multiproc"] = [o["launches"]["train_prf"][row["name"]]
                                          for o in multiproc["ranks"]]
 
+    # 5g. serving on phase 5's model, hot-swapped to phase 5b's; the baselines ---
+    serving, t_serving = sync_time(lambda: serving_phase(
+        dev, model, streamed.pop("model"), xtr, ytr, xte, yte, cfg, {"accuracy": acc, "train_s": t_main},
+        timings))
+    serving["phase_s"] = t_serving
+    log(f"serving phase (5g): {t_serving:.1f} s")
+    for row in rows:
+        if row["name"] == "tree_traverse":
+            row["launches_serving"] = serving["launches"]
+
     # 6. full size, LM serving ----------------------------------------------------
     lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
     lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
@@ -2301,7 +2573,7 @@ def main() -> int:
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
               "streamed": streamed, "checkpoints": checkpoints, "regression": regression, "mesh": mesh,
-              "multiproc": multiproc, "timings": timings}
+              "multiproc": multiproc, "serving": serving, "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
@@ -2313,6 +2585,7 @@ def main() -> int:
                                                         if k.startswith("nccl")}))
     log("launch counts per rank on the multi-process path (5f): " + json.dumps(
         [o["launches"]["train_prf"] for o in multiproc["ranks"]]))
+    log("traversal launches on the served batches (5g): " + json.dumps(serving["launches"]))
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,14 @@
 
 Trains PRF (dimension reduction + DSI bootstrap + weighted voting) with
 ``repro_torch`` and prints held-out accuracy (or R^2 with
-``--regression``) and the OOB tree weights. ``--checkpoint-dir``
-checkpoints growth after every level and resumes from the newest valid
-checkpoint in that directory: run it, interrupt it, run it again. The
-default device is ``cuda``; ``--device cpu`` runs the plain PyTorch path.
-The comparison baselines of ``examples/quickstart.py`` are not ported yet.
+``--regression``) and the OOB tree weights; for classification it also
+trains the paper's two comparison baselines (``core.baselines``: RF with
+random subspaces and a plain vote, and Spark-MLRF-like split candidates
+from a 300-row sample) and prints a Fig. 8-style summary, as
+``examples/quickstart.py`` does. ``--checkpoint-dir`` checkpoints PRF's
+growth after every level and resumes from the newest valid checkpoint in
+that directory: run it, interrupt it, run it again. The default device
+is ``cuda``; ``--device cpu`` runs the plain PyTorch path.
 """
 import argparse
 import sys
@@ -59,7 +62,18 @@ def main():
         score = 1.0 - np.mean((pred - yte) ** 2) / np.var(yte)
         print(f"PRF regression  R^2={score:.4f}  ({time.time() - t0:.1f}s)")
     else:
-        print(f"PRF  (paper: dimred + weighted vote)  acc={np.mean(pred == yte):.4f}  ({time.time() - t0:.1f}s)")
+        print(f"{'PRF  (paper: dimred + weighted vote)':42s} acc={np.mean(pred == yte):.4f}  "
+              f"({time.time() - t0:.1f}s)")
+        from repro_torch.core.baselines import train_mlrf_like, train_rf
+
+        for name, fn in [
+            ("RF   (random subspaces, plain vote)", train_rf),
+            ("MLRF (sampled split candidates)",
+             lambda a, b, c, seed, device: train_mlrf_like(a, b, c, seed, sample_budget=300, device=device)),
+        ]:
+            t1 = time.time()
+            acc = fn(xtr, ytr, cfg, seed=0, device=args.device).accuracy(xte, yte)
+            print(f"{name:42s} acc={acc:.4f}  ({time.time() - t1:.1f}s)")
     if args.checkpoint_dir is not None:
         from repro_torch.checkpoint import list_steps
 

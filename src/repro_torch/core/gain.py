@@ -92,11 +92,13 @@ def _log(x: torch.Tensor) -> torch.Tensor:
     clamped to it; no caller passes zero, negatives or NaN.
 
     Probabilities of integer counts take few distinct values, so the
-    polynomial runs once per distinct value."""
-    vals, inverse = torch.unique(
-        torch.clamp_min(x.to(torch.float32), _MIN_NORMAL), return_inverse=True
-    )
-    return _log_poly(vals)[inverse]
+    polynomial runs once per distinct value. The values are grouped by
+    their bit patterns: equal bits are equal values here (the clamp leaves
+    no zeros of either sign), and on the CPU the integer sort is several
+    times faster than the float one."""
+    bits = torch.clamp_min(x.to(torch.float32), _MIN_NORMAL).contiguous().view(torch.int32)
+    vals, inverse = torch.unique(bits, return_inverse=True)
+    return _log_poly(vals.view(torch.float32))[inverse]
 
 
 def _log_poly(x: torch.Tensor) -> torch.Tensor:

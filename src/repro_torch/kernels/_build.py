@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -57,6 +58,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()   # one build and load per process, whichever thread launches first
 build_seconds = None      # wall time of this process's nvcc calls (None: reused / not built)
 
 
@@ -118,15 +120,18 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, once, under a lock:
+    threads that launch a first kernel together wait for one build)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 

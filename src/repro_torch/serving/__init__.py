@@ -1,2 +1,18 @@
-"""Serving layer: ``serve_step.greedy_generate`` (LM prefill + greedy decode)."""
+"""Serving layer (counterpart of ``repro/serving``).
+
+* ``serve_step``   -- LM prefill + greedy decode (``greedy_generate``).
+* ``prf_service``  -- forest serving on the fused traversal path:
+  power-of-two batch buckets, an async micro-batch queue, tree-sharded
+  voting over a ``launch.mesh.Mesh``, typed shedding, a circuit breaker,
+  deterministic shutdown, a versioned hot-swap registry, deadlines,
+  per-client rate limiting, stale fallback and ``health()`` snapshots.
+
+The reference's ``make_serve_fns`` (LM mesh and jit glue) is not ported
+(ROADMAP Queue 1 item 13).
+"""
+from .prf_service import (  # noqa: F401
+    CircuitBreaker, CircuitOpenError, DeadlineExceeded, ModelRegistry, PRFFuture, PRFService,
+    RateLimited, RateLimiter, ServiceClosedError, ServiceError, ServiceOverloaded, bucket_size,
+    make_sharded_vote_fn,
+)
 from .serve_step import greedy_generate  # noqa: F401

@@ -715,3 +715,39 @@ def test_hist_kernel_fixed_point_bitwise(cuda_device, case):
     again = hist_ops.multi_tree_hist(xb, base, w, slot, n_slots=S, n_bins=B, fixed=fp)
     assert torch.equal(again, multi_tree_hist_fixed_ref(xb, base, w, slot, n_slots=S, n_bins=B,
                                                         fixed=fp))
+
+
+def test_service_stays_on_the_traversal_at_every_bucket(cuda_device):
+    """``PRFService`` under ``"auto"`` on the card: one traversal launch
+    per bucket-chunk at every bucket from 8 to 1024 rows, labels equal to
+    ``model.predict``."""
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.data.tabular import make_classification
+    from repro_torch.serving import PRFService
+
+    x, y = make_classification(n_samples=4000, n_features=20, n_classes=3, seed=3)
+    model = train_prf(x[:3000], y[:3000], ForestConfig(n_trees=8, max_depth=5, n_bins=32, n_classes=3),
+                      0, device=cuda_device)
+    svc = PRFService(model, max_batch=1024, min_bucket=8)
+    for n in (1, 8, 9, 64, 255, 1000, 1024, 1025, 2100):
+        n0 = trav_ops.launches
+        got = svc.predict(x[:n])
+        assert trav_ops.launches == n0 + -(-n // 1024), n
+        np.testing.assert_array_equal(got, model.predict(x[:n]), err_msg=f"batch size {n}")
+    assert svc.stats()["buckets_compiled"] == [8, 16, 64, 256, 1024]
+
+
+def test_prf_beats_rf_in_high_dim_regime_at_full_depth(cuda_device):
+    """``tests/test_forest.py::test_prf_beats_rf_in_high_dim_regime`` at
+    its own depth 6, on the kernels (the CPU test grows to depth 4)."""
+    from repro_torch import ForestConfig, train_prf
+    from repro_torch.core.baselines import train_rf
+    from repro_torch.data.tabular import make_classification, train_test_split
+
+    x, y = make_classification(n_samples=3000, n_features=800, n_classes=3, n_informative=8,
+                               n_redundant=4, label_noise=0.1, class_sep=1.2, seed=7)
+    xtr, ytr, xte, yte = train_test_split(x, y, 0.25, 0)
+    cfg = ForestConfig(n_trees=16, max_depth=6, n_bins=16, n_classes=3)
+    acc_prf = train_prf(xtr, ytr, cfg, seed=0, device=cuda_device).accuracy(xte, yte)
+    acc_rf = train_rf(xtr, ytr, cfg, seed=0, device=cuda_device).accuracy(xte, yte)
+    assert acc_prf > acc_rf + 0.1, (acc_prf, acc_rf)

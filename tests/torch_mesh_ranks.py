@@ -182,3 +182,33 @@ def merge_case(mesh):
     return {"gain": scores.gain_ratio.numpy(), "feature": scores.feature.numpy(),
             "threshold": scores.threshold.numpy(), "left": scores.left_counts.numpy(),
             "right": scores.right_counts.numpy(), "n": n_node.numpy(), "mine": mine.numpy()}
+
+
+VOTE_MESHES = (((4,), ("data",), "data"), ((2, 2), ("data", "model"), "data"),
+               ((2, 2), ("data", "model"), "model"))
+
+
+def sharded_vote(cases, uneven):
+    """``serving.make_sharded_vote_fn`` on each of ``VOTE_MESHES``:
+    ``cases`` maps a name to (forest arrays, config kwargs, binned rows);
+    the result holds each case's labels or values, and whether a forest
+    whose trees do not divide over the axis (``uneven``, the same form)
+    was refused with ``ValueError``."""
+    from repro_torch.convert import forest_from_numpy
+    from repro_torch.serving import make_sharded_vote_fn
+
+    out = {}
+    for shape, axes, tree_axis in VOTE_MESHES:
+        mesh = make_mesh(shape, axes, device="cpu")
+        for name, (arrays, cfg_kw, xb) in cases.items():
+            forest = forest_from_numpy(arrays, ForestConfig(**cfg_kw), "cpu")
+            fn = make_sharded_vote_fn(forest, mesh, tree_axis=tree_axis)
+            out[shape, tree_axis, name] = fn(xb).numpy()
+        arrays, cfg_kw, _ = uneven
+        try:
+            make_sharded_vote_fn(forest_from_numpy(arrays, ForestConfig(**cfg_kw), "cpu"), mesh,
+                                 tree_axis=tree_axis)
+            out[shape, tree_axis, "refused"] = False
+        except ValueError:
+            out[shape, tree_axis, "refused"] = True
+    return out
