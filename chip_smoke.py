@@ -20,14 +20,18 @@ tile plan (``traverse_batch_ab``). The first:
    past 16 bits of feature id (the wide node layout), chunks through the
    carry),
    then attention (odd lengths, Lq < Lk, window,
-   GQA, f32 and bf16) and the SSD scan (S in {64, 200, 320, 384}, P in
-   {32, 64}, N in {16, 32, 64, 128}, chunk 8, 64 or 128, f32 and bf16),
+   GQA, head dims 20 to 256, prefixes, f32 and bf16; then at the full
+   shapes of phase 6's new configs, ``LM_PATH_ATTENTION``: gemma3's hd
+   240 and 168 with window 1024 and none, deepseek-v3's dense hd 56 at
+   128 heads, hymba's 64-token meta prefix) and the SSD scan (S in {64,
+   200, 320, 384}, P in {32, 64}, N in {16, 32, 64, 128}, chunk 8, 64 or
+   128, f32 and bf16; and hymba's [8, 2048, 50 heads, P 64, N 16]),
    the LM kernels at ``LM_TOL``, each dtype on its own kernel;
 4. reduced end to end: the kernel path and the plain path give the same
    forest and labels, histogram reuse on gives reuse off's forest on
    both paths, growth with reuse on (where ``"auto"`` resolves on) and
    off timed in turns, and (f32, TF32 off) the same greedy LM tokens for
-   smollm-135m and mamba2-780m at cut widths;
+   smollm-135m, mamba2-780m and hymba-1.5b at cut widths;
 5. full size, PRF: the README quickstart configuration on 2^20 training
    rows, F = 128, through ``train_prf`` and ``PRFModel.predict``, with
    kernel launch counts read around that one run, per-stage times,
@@ -117,19 +121,24 @@ tile plan (``traverse_batch_ab``). The first:
    ``train_mlrf_like(sample_budget=2000)`` on phase 5's data, time and
    accuracy beside PRF's;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
-   (48 layers, d 1536) at their published widths, bf16 compute, f32
-   params from a seed: batch 8, prompt 2048, 32 greedy tokens through
-   ``greedy_generate`` with launch counts read around that run; prefill
-   seconds, decode ms per token, tokens/s, peak memory, launches per
-   route (all of smollm's attention and all of mamba2's SSD scans on the
-   bf16 tensor-core kernels); full-width
+   (48 layers, d 1536), and ``LM_CONFIGS``' six more (hymba-1.5b,
+   qwen1.5-4b, gemma3-12b and -27b at 12 layers, deepseek-moe-16b and
+   deepseek-v3-671b at 4, each cut named there) at their published
+   widths, bf16 compute, the config's params (f32; v3 bf16) from seed 0:
+   batch 8, prompt 2048, 32 greedy tokens (the six: 8) through
+   ``greedy_generate`` with launch counts read around that run; init
+   seconds, prefill seconds, decode ms per token, tokens/s, peak memory,
+   launches per route (every attention layer but MLA's, and every SSD
+   layer, once a prefill on the bf16 tensor-core kernels); full-width
    kernel-path vs plain-path prefill in f32 (logits and every layer's
-   cache); the card's busy share under the profiler for prefill and one
-   decode step; attention and the SSD scan held per element against
-   their plain versions at the path's shapes (``LM_TOL``) and timed
-   beside them, their bounds and (for attention)
+   cache; MoE: on the batch rows whose routing agrees on both paths, the
+   share of agreeing tokens reported); the card's busy share under the
+   profiler for prefill and one decode step; attention and the SSD scan
+   held per element against their plain versions at the path's shapes
+   (``LM_TOL``) and timed beside them, their bounds and (for attention)
    ``scaled_dot_product_attention``, attention also at head dims 128
-   and 256 (same batch, heads and length);
+   and 256 (same batch, heads and length) and at ``LM_PATH_ATTENTION``'s
+   shapes, the SSD scan at hymba's;
 7. the launch counts and one JSON line per the smoke contract, then
    the device line last. Each row's ``ms`` is CUDA events around the
    wrapper's whole call; ``kernel_ms`` is the kernel's own device time
@@ -143,6 +152,7 @@ without a result when no CUDA device is present. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -324,34 +334,58 @@ def _ssd_inputs(gen, B, S, H, P, N, dev, dtype):
     return x, loga, b, c
 
 
+# Attention at the shapes phase 6's new configs give the kernel: (B, H, KV,
+# Lq, Lk, D, window, prefix), causal, ends aligned.
+LM_PATH_ATTENTION = {
+    "gemma3-12b local (hd 240)": (8, 16, 8, 2048, 2048, 240, 1024, 0),
+    "gemma3-12b global (hd 240)": (8, 16, 8, 2048, 2048, 240, 0, 0),
+    "gemma3-27b local (hd 168)": (8, 32, 16, 2048, 2048, 168, 1024, 0),
+    "gemma3-27b global (hd 168)": (8, 32, 16, 2048, 2048, 168, 0, 0),
+    "deepseek-v3 dense (hd 56)": (8, 128, 128, 2048, 2048, 56, 0, 0),
+    "hymba meta prefix (hd 64)": (8, 25, 5, 2048, 2112, 64, 1024, 64),
+}
+LM_PATH_SSD = {"hymba (P 64, N 16, 50 heads)": (8, 2048, 50, 64, 16)}   # (B, L, H, P, N)
+
+
 def lm_kernel_checks(dev):
-    """Attention and the SSD scan against their plain versions, small
-    shapes, at LM_TOL (the f32 state h at f32's tolerance in both dtypes)."""
+    """Attention and the SSD scan against their plain versions at LM_TOL
+    (the f32 state h at f32's tolerance in both dtypes): small shapes, then
+    the shapes of phase 6's new configs at full size."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models.layers import _auto_q_chunk
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     worst = {}
-    for B, H, KV, Lq, Lk, D, causal, window in (
-            (2, 9, 3, 200, 200, 64, True, 0), (1, 4, 2, 77, 301, 64, True, 0),
-            (1, 4, 4, 257, 257, 32, True, 100), (1, 2, 1, 130, 250, 128, False, 0),
-            (1, 2, 2, 65, 190, 256, True, 33)):
+    attention_cases = [
+        (2, 9, 3, 200, 200, 64, True, 0, 0), (1, 4, 2, 77, 301, 64, True, 0, 0),
+        (1, 4, 4, 257, 257, 32, True, 100, 0), (1, 2, 1, 130, 250, 128, False, 0, 0),
+        (1, 2, 2, 65, 190, 256, True, 33, 0),
+        # head dims off the swizzle spans (20: padded to 24 by the wrapper), prefixes of
+        # one tile, of two tiles with a window, and past the causal edge of the first queries
+        (1, 4, 2, 77, 141, 24, True, 0, 5), (1, 3, 1, 70, 200, 20, True, 50, 100),
+        (2, 2, 2, 130, 130, 40, True, 0, 70), (1, 4, 2, 100, 164, 168, True, 30, 64),
+    ] + [(B, H, KV, Lq, Lk, D, True, W, P) for B, H, KV, Lq, Lk, D, W, P in LM_PATH_ATTENTION.values()]
+    for B, H, KV, Lq, Lk, D, causal, window, prefix in attention_cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn(gen, (B, Lq, H, D), dev, dtype)
             k = _randn(gen, (B, Lk, KV, D), dev, dtype)
             v = _randn(gen, (B, Lk, KV, D), dev, dtype)
             n_bf16 = flash_ops.launches_bf16
-            _, share = lm_close(flash_ops.flash_attention(q, k, v, causal=causal, window=window),
-                                gqa_attend(q, k, v, mask_spec=MaskSpec(causal, window, Lk - Lq)), dtype,
-                                f"attention at {(B, H, KV, Lq, Lk, D, causal, window, dtype)}")
+            got = flash_ops.flash_attention(q, k, v, causal=causal, window=window, prefix=prefix)
+            want = gqa_attend(q, k, v, mask_spec=MaskSpec(causal, window, Lk - Lq, prefix),
+                              q_chunk=_auto_q_chunk(Lq, Lk, B * H))
+            _, share = lm_close(got, want, dtype, f"attention at {(B, H, KV, Lq, Lk, D, causal, window, prefix, dtype)}")
             check(flash_ops.launches_bf16 == n_bf16 + (dtype == torch.bfloat16),
                   f"attention in {dtype} went to the wrong kernel")
             worst[f"attention {dtype}"] = max(worst.get(f"attention {dtype}", 0.0), share)
+            del q, k, v, got, want
     for B, S, H, P, N, chunk in ((2, 64, 3, 64, 16, 128), (1, 384, 2, 64, 128, 128), (2, 384, 4, 32, 16, 128),
-                                 (1, 64, 2, 64, 128, 128), (2, 320, 3, 32, 64, 64), (1, 200, 2, 64, 32, 8)):
+                                 (1, 64, 2, 64, 128, 128), (2, 320, 3, 32, 64, 64), (1, 200, 2, 64, 32, 8),
+                                 *((B, S, H, P, N, 128) for B, S, H, P, N in LM_PATH_SSD.values())):
         for dtype in (torch.float32, torch.bfloat16):
             x, loga, b, c = _ssd_inputs(gen, B, S, H, P, N, dev, dtype)
             n_bf16 = ssd_ops.launches_bf16
@@ -376,34 +410,80 @@ def lm_reduced_end_to_end(dev):
     from repro_torch.models import build_model
     from repro_torch.serving.serve_step import greedy_generate
 
-    for arch in ("smollm-135m", "mamba2-780m"):
+    archs = ("smollm-135m", "mamba2-780m", "hymba-1.5b")
+    for arch in archs:
         cfg = dataclasses.replace(get_config(arch), n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
-                                  d_ff=512 if arch == "smollm-135m" else 0, vocab_size=4096,
-                                  head_dim=64, compute_dtype="float32")
+                                  d_ff=0 if arch == "mamba2-780m" else 512, vocab_size=4096,
+                                  head_dim=64, compute_dtype="float32",
+                                  local_window=100 if arch == "hymba-1.5b" else 0)
+        per_layer = 2 if arch == "hymba-1.5b" else 1          # hymba: attention and the SSD scan
         gen = torch.Generator(device=dev)
         gen.manual_seed(4)
         toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen, device=dev)
         n0 = flash_ops.launches + ssd_ops.launches
         a = greedy_generate(build_model(cfg, dev, use_kernels=True, seed=1), toks, steps=8, s_max=264)
-        check(flash_ops.launches + ssd_ops.launches == n0 + 4, f"{arch}: kernels not launched 4 times")
+        check(flash_ops.launches + ssd_ops.launches == n0 + 4 * per_layer,
+              f"{arch}: kernels not launched {4 * per_layer} times")
         b = greedy_generate(build_model(cfg, dev, use_kernels=False, seed=1), toks, steps=8, s_max=264)
         check(torch.equal(a, b), f"reduced LM end to end ({arch}): tokens differ between kernel and plain paths")
-    log("reduced LM end to end (4 layers, d 256, f32, batch 4, prompt 256, 8 tokens): "
-        "greedy tokens identical on the kernel and plain paths for smollm-135m and mamba2-780m")
+    log("reduced LM end to end (4 layers, d 256, f32, batch 4, prompt 256, 8 tokens): greedy tokens "
+        f"identical on the kernel and plain paths for {', '.join(archs)} (hymba: 64 meta tokens, window 100)")
 
 
-def lm_full(dev, arch):
+# Phase 6's configurations: (arch, layers run or None for all, tokens generated,
+# the reason for a cut). Widths are the published ones; weights random from seed 0.
+LM_CONFIGS = (
+    ("smollm-135m", None, LM_GEN, ""),
+    ("mamba2-780m", None, LM_GEN, ""),
+    ("hymba-1.5b", None, 8, ""),
+    ("qwen1.5-4b", None, 8, ""),
+    ("gemma3-12b", 12, 8, "2 cycles of 5 local + 1 global of 8: chip time (48 layers in f32 are ~46 GB)"),
+    ("gemma3-27b", 12, 8, "2 cycles of 5 local + 1 global of ~10: 62 layers in f32 are ~108 GB"),
+    ("deepseek-moe-16b", 4, 8, "1 dense + 3 moe of 28 layers: 28 in f32 are ~66 GB"),
+    ("deepseek-v3-671b", 4, 8, "its 3 dense (GQA, hd 56) + 1 moe layer with MLA of 61: one card"),
+)
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """The experts each MoE layer picks ([T, K] per call of ``moe._route``), in call order."""
+    from repro_torch.models import moe
+
+    calls, route = [], moe._route
+
+    def recorded(p, x2d, cfg):
+        out = route(p, x2d, cfg)
+        calls.append(out[0].sort(-1).values)
+        return out
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
     """One published-width LM through ``greedy_generate``: counts, times, checks."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import _layer_kinds
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
     from repro_torch.serving.serve_step import greedy_generate
 
     cfg = get_config(arch)
-    B, L, T = LM_BATCH, LM_PROMPT, LM_GEN
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    kinds = _layer_kinds(cfg)
+    want = {"flash_attention": sum(k in ("dense", "local", "global", "hybrid") or (k == "moe" and not cfg.use_mla)
+                                   for k in kinds),
+            "ssd_scan": sum(k in ("ssm", "hybrid") for k in kinds)}
+    B, L = LM_BATCH, LM_PROMPT
     s_max = L + T
+    torch.cuda.reset_peak_memory_stats()
     model, t_init = sync_time(lambda: build_model(cfg, dev, seed=0))
+    peak_init = torch.cuda.max_memory_allocated()
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=dev)
@@ -414,16 +494,15 @@ def lm_full(dev, arch):
     torch.cuda.reset_peak_memory_stats()
     toks, t_gen = sync_time(lambda: greedy_generate(model, prompts, steps=T, s_max=s_max))
     counts = {"flash_attention": flash_ops.launches, "ssd_scan": ssd_ops.launches}
-    kernel, ops = {"smollm-135m": ("attention", flash_ops), "mamba2-780m": ("ssd scan", ssd_ops)}[arch]
-    routes = {"bf16_tensor_core": ops.launches_bf16, "f32_cuda_core": ops.launches_f32}
-    log(f"{arch}: {kernel} launches per route on the main path {routes}")
-    check(routes == {"bf16_tensor_core": cfg.n_layers, "f32_cuda_core": 0},
-          f"{arch}: {kernel} launches per route {routes}, want all {cfg.n_layers} on bf16 tensor cores")
+    routes = {name: {"bf16_tensor_core": ops.launches_bf16, "f32_cuda_core": ops.launches_f32}
+              for name, ops in (("flash_attention", flash_ops), ("ssd_scan", ssd_ops))}
+    log(f"{arch}: launches per route on the main path {routes}")
+    for name, n in want.items():
+        check(routes[name] == {"bf16_tensor_core": n, "f32_cuda_core": 0} and counts[name] == n,
+              f"{arch}: {name} launches per route {routes[name]}, want all {n} on bf16 tensor cores")
     peak = torch.cuda.max_memory_allocated()
     check(toks.shape == (B, T) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{arch}: generated tokens out of range")
-    want = {"smollm-135m": "flash_attention", "mamba2-780m": "ssd_scan"}[arch]
-    check(counts[want] == cfg.n_layers, f"{arch}: {want} launched {counts[want]} times, want {cfg.n_layers}")
 
     # the same run in two timed parts: prefill, then the decode steps
     (logits, cache), t_pre = sync_time(lambda: model.prefill(prompts, s_max=s_max))
@@ -442,45 +521,70 @@ def lm_full(dev, arch):
     check(torch.equal(torch.stack(out, 1).to(torch.int32), toks), f"{arch}: the timed rerun gave other tokens")
     busy = {"prefill": device_busy_share(lambda: model.prefill(prompts, s_max=s_max)),
             "decode_step": device_busy_share(lambda: model.decode_step(cache, out[-1], L + T - 1))}
+    del cache
 
-    # Full width and depth, kernel path vs plain path in f32 compute (TF32
-    # off): the last token's logits and every layer's cache, which each
-    # layer computes from all rows of the layer below. The kernels' own
-    # outputs at these shapes are held per element in lm_kernel_rows. In
-    # bf16 one-ulp differences grow through the depth of a random-weight
-    # model, so the bf16 numbers are only reported.
+    # Full width, kernel path vs plain path in f32 compute (TF32 off): the
+    # last token's logits and every layer's cache, which each layer
+    # computes from all rows of the layer below. The kernels' own outputs
+    # at these shapes are held per element in phase 3 and lm_kernel_rows.
+    # In bf16 one-ulp differences grow through the depth of a random-weight
+    # model, so the bf16 numbers are only reported. MoE: a near-tie can
+    # send a token to other experts on the two paths, and attention then
+    # carries that into every later token of its row; so the rule holds the
+    # batch rows in which every token's routing agrees in every MoE layer
+    # (at least one row), and reports the share of tokens that agree.
     model.use_kernels = False
     (lp, _), t_plain = sync_time(lambda: model.prefill(prompts, s_max=s_max))
     model.compute_dtype = torch.float32
-    lp32, cp32 = model.prefill(prompts, s_max=s_max)
+    with routing_recorded() as route_p:
+        lp32, cp32 = model.prefill(prompts, s_max=s_max)
     model.use_kernels = True
-    lk32, ck32 = model.prefill(prompts, s_max=s_max)
+    with routing_recorded() as route_k:
+        lk32, ck32 = model.prefill(prompts, s_max=s_max)
     model.compute_dtype = torch.bfloat16
-    drift32 = {"logits": drift(lk32, lp32)}
+    rows = torch.ones(B, dtype=torch.bool, device=dev)
+    agree_share = None
+    if route_p:
+        same = torch.stack([(a == b).all(-1) for a, b in zip(route_p, route_k)]).all(0).view(B, L)
+        agree_share = float(same.float().mean())
+        rows = same.all(1)
+        check(bool(rows.any()), f"{arch}: no batch row whose routing agrees on the kernel and plain paths")
+    drift32 = {"logits": drift(lk32[rows], lp32[rows])}
+
+    def leaves(c, path=""):
+        for n, t in c.items():
+            yield from leaves(t, f"{path}{n}.") if isinstance(t, dict) else [(path + n, t)]
+
     for ck, cp in zip(ck32, cp32):
-        for n in cp:
-            drift32[n] = max(drift32.get(n, 0.0), drift(ck[n], cp[n]))
+        for (n, a), (_, b) in zip(leaves(ck), leaves(cp)):     # every leaf is [B, ...]
+            drift32[n] = max(drift32.get(n, 0.0), drift(a[rows], b[rows]))
     err32 = max(drift32.values())
     check(err32 <= 1e-2, f"{arch}: full-width f32 kernel vs plain prefill drift {drift32}")
     del cp32, ck32
     err = drift(logits, lp)
     noise = drift(lp, lp32)
     agree = float((logits.argmax(-1) == lp.argmax(-1)).float().mean())
-    res = {"arch": arch, "params": sum(p.numel() for p in model.parameters()), "init_s": t_init,
-           "generate_s": t_gen, "prefill_s": t_pre, "plain_prefill_s": t_plain,
+    res = {"arch": arch, "layers": cfg.n_layers, "cut": cut, "tokens": T,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "init_s": t_init,
+           "init_peak_bytes": peak_init, "generate_s": t_gen, "prefill_s": t_pre, "plain_prefill_s": t_plain,
            "decode_ms_per_token": t_dec / (T - 1) * 1e3, "tokens_per_s": B * T / t_gen,
            "peak_bytes": peak, "launches": counts, "routes": routes,
-           "kernel_vs_plain_f32": drift32,
+           "kernel_vs_plain_f32": drift32, "routing_agree_share_f32": agree_share,
+           "rows_held_f32": int(rows.sum()),
            "kernel_vs_plain_logits_bf16": err, "bf16_vs_f32_plain_logits": noise,
            "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy}
-    log(f"{arch} (batch {B}, prompt {L}, {T} tokens, bf16): generate {t_gen:.3f} s "
-        f"({res['tokens_per_s']:.1f} tok/s), prefill {t_pre:.3f} s (plain path {t_plain:.3f} s), "
-        f"decode {res['decode_ms_per_token']:.2f} ms/token, peak {peak / 2**30:.2f} GiB, "
-        f"launches {counts}; prefill kernel vs plain, max |d| / max |plain|: f32 "
-        + ", ".join(f"{k} {v:.3g}" for k, v in drift32.items()) + f"; bf16 logits {err:.3g} "
-        f"(top-1 agree {agree:.3f}; bf16 vs f32 on the plain path {noise:.3g}); "
+    log(f"{arch} ({cfg.n_layers} layers{', cut: ' + cut if cut else ''}; {res['params']} params, "
+        f"{res['param_bytes'] / 2**30:.2f} GiB; batch {B}, prompt {L}, {T} tokens, bf16): init {t_init:.3f} s, "
+        f"generate {t_gen:.3f} s ({res['tokens_per_s']:.1f} tok/s), prefill {t_pre:.3f} s (plain path "
+        f"{t_plain:.3f} s), decode {res['decode_ms_per_token']:.2f} ms/token, peak {peak / 2**30:.2f} GiB "
+        f"(init {peak_init / 2**30:.2f}), launches {counts}; prefill kernel vs plain, max |d| / max |plain|: f32 "
+        + ", ".join(f"{k} {v:.3g}" for k, v in drift32.items())
+        + (f" (routing agrees on {agree_share:.6f} of tokens, {int(rows.sum())} of {B} rows held)"
+           if agree_share is not None else "")
+        + f"; bf16 logits {err:.3g} (top-1 agree {agree:.3f}; bf16 vs f32 on the plain path {noise:.3g}); "
         f"device busy share under the profiler {busy}")
-    del model, cache, logits, lp, lp32, lk32
+    del model, logits, lp, lp32, lk32
     torch.cuda.empty_cache()
     return res
 
@@ -543,6 +647,7 @@ def lm_kernel_rows(dev, counts, kernel_row, timings):
             f"max |d| vs plain {err_w:.3g} ({share_w:.3g} of the allowance)")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    path = lm_path_shape_rows(dev, gen, timings)
 
     mc = get_config("mamba2-780m")
     _, Hs, P, N = _dims(mc, mc.d_model)
@@ -556,14 +661,93 @@ def lm_kernel_rows(dev, counts, kernel_row, timings):
     del yp, hp
     t = timed("ssd scan", lambda: ssd_ops.ssd_scan(x, loga, b, c), "ssd_tc_kernel", timings)
     p_ms = cuda_ms(lambda: ssd_chunked(x, loga, b, c, None, 128), reps=2, warmup=1)
-    Q = 128
+    kernel_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:69",
+               counts["ssd_scan"], max(err, err_h), t, p_ms, *ssd_work(B, L, Hs, P, N), None, BF16_OPS_PER_S)
+    return {"wide_d": wide, "path_shapes": path}
+
+
+def visible_pairs(Lq, Lk, window, prefix):
+    """(query, key) pairs the causal mask with ``window`` and ``prefix`` admits, ends aligned."""
+    qpos = np.arange(Lq, dtype=np.int64) + (Lk - Lq)
+    prefix = min(prefix, Lk)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros_like(qpos)
+    # [lo, qpos] and the prefix keys outside it
+    n = qpos - lo + 1 + np.minimum(prefix, lo) + np.maximum(0, prefix - qpos - 1)
+    return int(n.sum())
+
+
+def ssd_work(B, L, H, P, N, Q=128):
+    """(bytes, operations) of the chunked SSD scan on bf16 x, b, c, f32 log a and state."""
     tri = Q * (Q + 1) // 2
     per_chunk = 2 * tri * N + 2 * tri * P + 4 * Q * N * P
-    kernel_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:69",
-               counts["ssd_scan"], max(err, err_h), t, p_ms,
-               2 * B * L * Hs * P * 2 + B * L * Hs * 4 + 2 * B * L * N * 2 + B * Hs * N * P * 4,
-               B * Hs * (L // Q) * per_chunk, None, BF16_OPS_PER_S)
-    return wide
+    return (2 * B * L * H * P * 2 + B * L * H * 4 + 2 * B * L * N * 2 + B * H * N * P * 4,
+            B * H * (L // Q) * per_chunk)
+
+
+def lm_path_shape_rows(dev, gen, timings):
+    """Attention and the SSD scan at the shapes of phase 6's new configs
+    (``LM_PATH_ATTENTION``, ``LM_PATH_SSD``), bf16: the call, the kernel
+    alone, the plain version, the bound, and SDPA where one call takes the
+    shape (causal without a window: ``is_causal``; a window or a prefix:
+    its boolean mask, the KV heads repeated)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models.layers import _auto_q_chunk
+
+    out = {}
+    for what, (B, H, KV, Lq, Lk, D, W, P) in LM_PATH_ATTENTION.items():
+        q = _randn(gen, (B, Lq, H, D), dev, torch.bfloat16)
+        k = _randn(gen, (B, Lk, KV, D), dev, torch.bfloat16)
+        v = _randn(gen, (B, Lk, KV, D), dev, torch.bfloat16)
+        call = lambda: flash_ops.flash_attention(q, k, v, window=W, prefix=P)
+        spec = MaskSpec(True, W, Lk - Lq, P)
+        plain = lambda: gqa_attend(q, k, v, mask_spec=spec, q_chunk=_auto_q_chunk(Lq, Lk, B * H))
+        err, share = lm_close(call(), plain(), torch.bfloat16, f"attention at {what}")
+        t = timed(f"attention, {what}", call, "flash_tc_kernel", timings)
+        p_ms = cuda_ms(plain, reps=2, warmup=1)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.repeat_interleave(H // KV, dim=2).transpose(1, 2) for a in (k, v))
+        if W == 0 and P == 0 and Lq == Lk:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        else:
+            mask = spec.block(0, Lq, Lk, dev)[None]
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_err = float((sdpa().transpose(1, 2).double() - call().double()).abs().max())
+        lib_ms = cuda_ms(sdpa, reps=3, warmup=1)
+        pairs = visible_pairs(Lq, Lk, W, P)
+        nbytes, nops = 2 * (2 * B * Lq * H * D + 2 * B * Lk * KV * D), 4 * D * B * H * pairs
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
+        out[what] = {**t, "plain_ms": p_ms, "sdpa_ms": lib_ms, "sdpa_vs_kernel_max_abs": lib_err,
+                     "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S > nops / BF16_OPS_PER_S
+                     else "operations", "max_abs_err": err, "allowance_share": share, "shape": [B, H, KV, Lq, Lk, D],
+                     "window": W, "prefix": P}
+        log(f"attention, {what} [{B}, {H} H / {KV} KV, {Lq}, {Lk}, {D}], window {W}, prefix {P}, bf16: call "
+            f"{t['ms']:.4f} ms (kernel alone {fmt_ms(t['kernel_ms'])}), plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+            f"(max |d| vs the kernel {lib_err:.3g}), bound {bound:.4f} ms ({pairs} visible pairs a head), share "
+            f"{bound / t['ms']:.3f}; max |d| vs plain {err:.3g} ({share:.3g} of the allowance)")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    for what, (B, L, H, P, N) in LM_PATH_SSD.items():
+        x, loga, b, c = _ssd_inputs(gen, B, L, H, P, N, dev, torch.bfloat16)
+        y, h = ssd_ops.ssd_scan(x, loga, b, c)
+        yp, hp = ssd_chunked(x, loga, b, c, None, 128)
+        (err, share), (err_h, share_h) = (lm_close(y, yp, torch.bfloat16, f"ssd at {what}"),
+                                          lm_close(h, hp, torch.float32, f"ssd h at {what}"))
+        t = timed(f"ssd scan, {what}", lambda: ssd_ops.ssd_scan(x, loga, b, c), "ssd_tc_kernel", timings)
+        p_ms = cuda_ms(lambda: ssd_chunked(x, loga, b, c, None, 128), reps=2, warmup=1)
+        nbytes, nops = ssd_work(B, L, H, P, N)
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
+        out[what] = {**t, "plain_ms": p_ms, "bound_ms": bound, "max_abs_err": max(err, err_h),
+                     "allowance_share": max(share, share_h), "shape": [B, L, H, P, N]}
+        log(f"ssd scan, {what} [{B}, {L}, {H} heads, P {P}, N {N}] bf16: call {t['ms']:.4f} ms (kernel alone "
+            f"{fmt_ms(t['kernel_ms'])}), plain {p_ms:.4f} ms, bound {bound:.4f} ms, share {bound / t['ms']:.3f}; "
+            f"max |d| vs plain y {err:.3g} ({share:.3g}), h {err_h:.3g} ({share_h:.3g})")
+        del x, loga, b, c, y, h, yp, hp
+    return out
 
 
 def traverse_checks(dev):
@@ -2181,7 +2365,7 @@ def traverse_batch_ab(src: str) -> int:
 
 def tensor_core_sass():
     """The bf16 tensor-core kernels' SASS holds HGMMA (wgmma) instructions:
-    every instantiation of flash_tc_kernel (4) and ssd_tc_kernel (8); the
+    every instantiation of flash_tc_kernel (5) and ssd_tc_kernel (8); the
     listings go to ``artifacts/{name}.sass``. Returns HGMMA lines per
     instantiation, per kernel."""
     from repro_torch.kernels import _build
@@ -2192,7 +2376,7 @@ def tensor_core_sass():
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     counts = {}
-    for kernel, n_inst, show in (("flash_tc_kernel", 4, "ILi64E"), ("ssd_tc_kernel", 8, "ILi64ELi128E")):
+    for kernel, n_inst, show in (("flash_tc_kernel", 5, "ILi64E"), ("ssd_tc_kernel", 8, "ILi64ELi128E")):
         funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
                  if kernel in blk.split("\n", 1)[0]}
         check(len(funcs) == n_inst, f"want {n_inst} instantiations of {kernel} in the SASS, found {list(funcs)}")
@@ -2560,16 +2744,19 @@ def main() -> int:
             row["launches_serving"] = serving["launches"]
 
     # 6. full size, LM serving ----------------------------------------------------
-    lm = [lm_full(dev, arch) for arch in ("smollm-135m", "mamba2-780m")]
-    lm_counts = {"flash_attention": lm[0]["launches"]["flash_attention"],
-                 "ssd_scan": lm[1]["launches"]["ssd_scan"]}
+    lm = [lm_full(dev, arch, depth, T, cut) for arch, depth, T, cut in LM_CONFIGS]
+    lm_counts = {name: sum(r["launches"][name] for r in lm) for name in ("flash_attention", "ssd_scan")}
     counts.update(lm_counts)
-    attention_wide = lm_kernel_rows(dev, lm_counts, kernel_row, timings)
+    lm_shapes = lm_kernel_rows(dev, lm_counts, kernel_row, timings)
+    for row in rows:
+        if row["name"] in lm_counts:
+            row["launches_per_config"] = {r["arch"]: r["launches"][row["name"]] for r in lm}
 
     # 7. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
               "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
-              "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": attention_wide,
+              "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": lm_shapes["wide_d"],
+              "lm_path_shapes": lm_shapes["path_shapes"],
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
               "streamed": streamed, "checkpoints": checkpoints, "regression": regression, "mesh": mesh,

@@ -3,8 +3,12 @@
 ``ArchConfig`` is the reference's field for field, with its defaults,
 so a config moves between the packages unchanged
 (``ArchConfig(**dataclasses.asdict(jax_cfg))``). The registry holds the
-configurations whose layer kinds the port runs: smollm-135m (``dense``)
-and mamba2-780m (``ssm``).
+configurations whose layer kinds the port runs, every decoder-only one of
+the reference: smollm-135m and qwen1.5-4b (``dense``), gemma3-12b and
+gemma3-27b (``local`` / ``global``), mamba2-780m (``ssm``), hymba-1.5b
+(``hybrid``), deepseek-moe-16b and deepseek-v3-671b (``moe``, the latter
+with MLA). whisper-large-v3 and llama-3.2-vision-90b wait for the
+``enc`` / ``dec`` / ``cross`` kinds (ROADMAP.md Queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -197,7 +201,7 @@ def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(
             f"{name!r} is not ported to repro_torch (registered: {sorted(_REGISTRY)}); "
-            "ROADMAP.md Queue 1 item 13 lists the layer kinds still to port"
+            "ROADMAP.md Queue 1 item 17 lists the layer kinds still to port"
         )
     return _REGISTRY[name]
 
@@ -209,7 +213,10 @@ def all_configs() -> Dict[str, ArchConfig]:
 
 
 def _load_all():
-    from . import mamba2_780m, smollm_135m  # noqa: F401
+    from . import (  # noqa: F401
+        deepseek_moe_16b, deepseek_v3_671b, gemma3_12b, gemma3_27b, hymba_1_5b, mamba2_780m,
+        qwen1_5_4b, smollm_135m,
+    )
 
 
 # ---------------------------------------------------------------------------

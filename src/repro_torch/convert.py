@@ -67,7 +67,11 @@ def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
     ``embed`` / ``unembed`` / ``final_norm`` and ``stages``, a list with one
     dict per stage whose leaves are stacked ``[n_groups, ...]`` over the
     stage's cycle ``l0, l1, ...``. Stage s, group g, cycle slot j becomes
-    layer ``layers.{i}``, i counting in that order. Raises ``KeyError`` on
+    layer ``layers.{i}``, i counting in that order; every leaf below a slot
+    keeps its path (hybrid's ``gate_attn``, ``moe.experts.w1``, MLA's
+    ``attn.wuk``), and top-level leaves (hymba's ``meta``) keep their names.
+    bf16 leaves (deepseek-v3's ``param_dtype``) arrive unchanged: the f32
+    step between holds every bf16 value exactly. Raises ``KeyError`` on
     a missing or unexpected leaf and ``ValueError`` on a shape mismatch,
     naming the leaf's path in the reference's pytree.
     """

@@ -4,14 +4,18 @@
 // attention_pallas_call (body _attn_kernel). For query i of a [Lq] tile
 // and keys j of [Lk], ends aligned (query i sits at position i + Lk - Lq):
 // s = (q_i . k_j) * scale, masked (causal: j <= pos_i; window W > 0:
-// j > pos_i - W) to -1e30; running max m, sum l and accumulator acc in
-// f32 across key tiles; out = acc / max(l, 1e-38) in q's dtype.
+// j > pos_i - W; a prefix P > 0 keeps keys j < P visible to every query
+// whatever the other two say: hymba's meta tokens) to -1e30; running max
+// m, sum l and accumulator acc in f32 across key tiles; out = acc /
+// max(l, 1e-38) in q's dtype.
 //
 // Layout is the model's: q/out [B, Lq, H, D], k/v [B, Lk, KV, D], so the
 // caller transposes nothing. Query head h reads KV head h / (H / KV): the
 // reference's jnp.repeat of the KV heads, never materialised. Key tiles
 // that are masked for every query of a query tile are skipped (past the
-// causal diagonal, before the window); every query keeps a visible key
+// causal diagonal, before the window); the prefix's tiles [0, ceil(P /
+// 64)) are always visited, then the span from max(their end, the
+// window's first tile) to the diagonal. Every query keeps a visible key
 // (Lq <= Lk for a masked call, checked by the wrapper), so skipping and
 // weighing masked entries exactly 0 change nothing.
 //
@@ -23,11 +27,19 @@
 // * bf16 (flash_tc_kernel), the model's path: both products on the tensor
 //   cores with wgmma, bf16 operands and f32 accumulators. One warpgroup of
 //   128 threads owns 64 query rows; the Q tile and a two-stage ring of
-//   64-key K/V tiles come in by TMA (one 3-D tensor map per operand over
-//   the model's layout, [B][L][heads * D], boxes of 64 rows by one 128-byte
-//   (D = 32: 64-byte) swizzle span), completion on mbarriers. The swizzle
-//   puts each tile in the layout the wgmma shared-memory descriptors read,
-//   and TMA fills rows past L with zeros. S = Q K^T reads Q and K from
+//   64-key K/V tiles come in by TMA (one 4-D tensor map per operand over
+//   the model's layout, [B][L][heads][D], boxes of one head by 64 rows by
+//   one 128-byte (padded width 32: 64-byte) swizzle span), completion on
+//   mbarriers. The swizzle puts each tile in the layout the wgmma
+//   shared-memory descriptors read, and TMA fills rows past L with zeros.
+//   Any head dim D that is a multiple of 8 runs (the wrapper pads others
+//   with zero columns): the kernel is built for the padded width DP, D
+//   rounded up to whole swizzle spans (32, 64, 128, 192 or 256), and D is
+//   the map's innermost extent, so the columns of a box past D lie outside
+//   the tensor and TMA fills them with zeros, never with the next head's
+//   columns (which a [heads * D] row would hand it). Zero columns of Q and
+//   K add nothing to Q K^T; the output's columns past D come from zero
+//   columns of V and are not stored. The scale is the true D's. S = Q K^T reads Q and K from
 //   shared memory (both K-major); O += P V takes P from registers: S's
 //   accumulator fragment, converted to bf16, is the register-A layout of
 //   the next wgmma. V is read MN-major through the transpose bit, never
@@ -37,7 +49,6 @@
 //   outputs outside the bf16 tolerance the kernel is held to, so P goes in
 //   as two bf16 parts, hi = bf16(P) and lo = bf16(P - hi), two wgmmas on
 //   the same V tile: P keeps ~16 bits, at 1.5x the tensor-core work.
-//   Takes D in {32, 64, 128, 256}.
 // * f32 (flash_kernel): products on the CUDA cores, exact f32 products,
 //   so a full-width f32 comparison with the plain version needs no TF32.
 //   One block of 256 threads per (batch * head, 64-query tile); 64-key K/V
@@ -76,7 +87,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              float* __restrict__ out, int Lq, int Lk, int H, int KV, int D, int causal,
-             int window, float scale) {
+             int window, int prefix, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kBQ][D]
   float* ks = qs + kBQ * D;                  // [kBK][D + 1] (padded: column reads)
@@ -108,12 +119,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
     row_l[tid] = 0.0f;
   }
 
-  // Keys visible to some query of this tile.
+  // Keys visible to some query of this tile: the prefix's tiles, then [k_beg, k_end).
   const int q_last = (q0 + kBQ < Lq ? q0 + kBQ : Lq) - 1;
+  const int n_pre = prefix > 0 ? (min(prefix, Lk) + kBK - 1) / kBK : 0;
   int k_end = Lk, k_beg = 0;
   if (causal) k_end = min(Lk, q_last + off + 1);
   if (window > 0) k_beg = max(0, q0 + off - window + 1);
-  k_beg = (k_beg / kBK) * kBK;
+  k_beg = max((k_beg / kBK) * kBK, n_pre * kBK);
+  const int ntiles = n_pre + (k_end > k_beg ? (k_end - k_beg + kBK - 1) / kBK : 0);
 
   const int ty = tid / 16, tx = tid % 16;    // rows ty*4 .. ty*4+3
   constexpr int kDC = DMAX / 16;             // output columns per thread: tx + 16 c
@@ -123,7 +136,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 #pragma unroll
     for (int c = 0; c < kDC; ++c) acc[r][c] = 0.0f;
 
-  for (int k0 = k_beg; k0 < k_end; k0 += kBK) {
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it < n_pre ? it * kBK : k_beg + (it - n_pre) * kBK;
     __syncthreads();                         // the last tile's readers are done
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, d = e - r * D;
@@ -159,9 +173,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
       for (int c = 0; c < 4; ++c) {
         const int j = tx + 16 * c;
         const int kpos = k0 + j;
-        bool ok = kpos < Lk && q0 + i < Lq;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
+        const bool ok = kpos < Lk && q0 + i < Lq &&
+                        (kpos < prefix || ((!causal || kpos <= qpos) &&
+                                           (window <= 0 || kpos > qpos - window)));
         ss[i * (kBK + 1) + j] = ok ? s[r][c] * scale : kMasked;
       }
     }
@@ -232,7 +246,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 
 template <int DMAX>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
-               int H, int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
+               int H, int KV, int D, int causal, int window, int prefix, float scale,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<DMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -240,7 +255,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
   flash_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Lq, Lk, H, KV, D, causal,
-      window, scale);
+      window, prefix, scale);
   return (int)cudaGetLastError();
 }
 
@@ -250,22 +265,24 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 
 constexpr int kTcThreads = 128;               // one warpgroup: 64 query rows
 
-template <int D>
+// DP: the padded head dim the kernel is built for, a whole number of swizzle spans.
+template <int DP>
 struct TcShape {
-  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle span: bytes of one row chunk
+  static constexpr int SW = DP >= 64 ? 128 : 64;  // swizzle span: bytes of one row chunk
   static constexpr int CW = SW / 2;               // bf16 columns per chunk
-  static constexpr int DC = D / CW;               // chunks per row
+  static constexpr int DC = DP / CW;              // chunks per row
   static constexpr int TILE = kBQ * SW;           // bytes of one 64-row chunk
   static constexpr int NV = CW;                   // n of one P V wgmma (one chunk of V)
   static constexpr size_t SMEM = 1024 + 5 * (size_t)DC * TILE + 64;  // align, Q, 2 x (K, V), barriers
 };
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 3 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Lq,
-                int Lk, int H, int KV, int causal, int window, float scale_log2) {
-  using Sh = TcShape<D>;
+                int Lk, int H, int KV, int D, int causal, int window, int prefix,
+                float scale_log2) {
+  using Sh = TcShape<DP>;
   constexpr int SW = Sh::SW, CW = Sh::CW, DC = Sh::DC, TILE = Sh::TILE, NV = Sh::NV;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles must start on a 1024-byte boundary.
@@ -281,17 +298,21 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the longest causal rows first
   const int off = Lk - Lq;
 
+  // Key tiles: the prefix's n_pre tiles, then [k_beg, k_end) from where they end.
   const int q_last = min(q0 + kBQ, Lq) - 1;
+  const int n_pre = prefix > 0 ? (min(prefix, Lk) + kBK - 1) / kBK : 0;
   const int k_end = causal ? min(Lk, q_last + off + 1) : Lk;
-  const int k_beg = window > 0 ? (max(0, q0 + off - window + 1) / kBK) * kBK : 0;
-  const int ntiles = k_end > k_beg ? (k_end - k_beg + kBK - 1) / kBK : 0;
+  const int k_beg =
+      max(window > 0 ? (max(0, q0 + off - window + 1) / kBK) * kBK : 0, n_pre * kBK);
+  const int ntiles = n_pre + (k_end > k_beg ? (k_end - k_beg + kBK - 1) / kBK : 0);
+  auto tile_k0 = [&](int it) { return it < n_pre ? it * kBK : k_beg + (it - n_pre) * kBK; };
 
   auto load_kv = [&](int stage, int k0) {
     mbar_expect_tx(&bars[1 + stage], 2 * DC * TILE);
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      tma_load(ks + (stage * DC + c) * TILE, &tk, &bars[1 + stage], kvh * D + c * CW, k0, b);
-      tma_load(vs + (stage * DC + c) * TILE, &tv, &bars[1 + stage], kvh * D + c * CW, k0, b);
+      tma_load(ks + (stage * DC + c) * TILE, &tk, &bars[1 + stage], c * CW, kvh, k0, b);
+      tma_load(vs + (stage * DC + c) * TILE, &tv, &bars[1 + stage], c * CW, kvh, k0, b);
     }
   };
 
@@ -303,8 +324,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   if (tid == 0) {
     mbar_expect_tx(&bars[0], DC * TILE);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) tma_load(qs + c * TILE, &tq, &bars[0], h * D + c * CW, q0, b);
-    if (ntiles > 0) load_kv(0, k_beg);
+    for (int c = 0; c < DC; ++c) tma_load(qs + c * TILE, &tq, &bars[0], c * CW, h, q0, b);
+    if (ntiles > 0) load_kv(0, tile_k0(0));
   }
 
   // Accumulator fragment of a 64-row wgmma: register 4j + 2 half + e holds
@@ -322,9 +343,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   mbar_wait(&bars[0], 0);
   for (int it = 0; it < ntiles; ++it) {
     const int stage = it & 1;
-    const int k0 = k_beg + it * kBK;
+    const int k0 = tile_k0(it);
     // The other stage was released by the barrier that ended the last tile.
-    if (tid == 0 && it + 1 < ntiles) load_kv(stage ^ 1, k0 + kBK);
+    if (tid == 0 && it + 1 < ntiles) load_kv(stage ^ 1, tile_k0(it + 1));
     mbar_wait(&bars[1 + stage], (it >> 1) & 1);
 
     // S = Q K^T over D in steps of 16
@@ -333,7 +354,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       const int c = kk / (CW / 16), j = kk % (CW / 16);
       wgmma_ss(s, smem_desc<SW>(smem_u32(qs + c * TILE) + j * 32),
                    smem_desc<SW>(smem_u32(ks + (stage * DC + c) * TILE) + j * 32), kk > 0);
@@ -343,7 +364,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     reg_fence(s);
 
     // mask (only tiles that cross an edge), scale to log2 units, row max
-    const bool edge = k0 + kBK > Lk || (causal && k0 + kBK - 1 > q0 + off) ||
+    const bool edge = k0 < prefix || k0 + kBK > Lk || (causal && k0 + kBK - 1 > q0 + off) ||
                       (window > 0 && k0 < q_last + off - window + 1);
     float mx[2] = {kMasked, kMasked};
 #pragma unroll
@@ -356,8 +377,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
           x *= scale_log2;
           if (edge) {
             const int kpos = k0 + 8 * j + cq + e, qpos = pos0 + 8 * hf;
-            const bool ok = kpos < Lk && (!causal || kpos <= qpos) &&
-                            (window <= 0 || kpos > qpos - window);
+            const bool ok = kpos < Lk &&
+                            (kpos < prefix || ((!causal || kpos <= qpos) &&
+                                               (window <= 0 || kpos > qpos - window)));
             if (!ok) x = kMasked;
           }
           mx[hf] = fmaxf(mx[hf], x);
@@ -426,23 +448,25 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     for (int c = 0; c < DC; ++c)
 #pragma unroll
       for (int j = 0; j < NV / 8; ++j) {
-        const int col = c * NV + 8 * j + cq;
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+        const int col = c * NV + 8 * j + cq;   // D is even: col < D covers col + 1
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             o[c][4 * j + 2 * hf] / l[hf], o[c][4 * j + 2 * hf + 1] / l[hf]);
       }
   }
 }
 
-// [B][L][heads * D] bf16 as a 3-D map, boxes of 64 rows by one swizzle span.
+// [B][L][heads][D] bf16 as a 4-D map, boxes of one head by 64 rows by one swizzle span.
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int L, int heads,
               int D, int sw) {
-  return make_map_bf16(map, encode, ptr, heads * D, L, B, kBQ, sw);
+  return make_map_bf16_4d(map, encode, ptr, D, heads, L, B, kBQ, sw);
 }
 
-template <int D>
+template <int DP>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
-              int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
-  using Sh = TcShape<D>;
+              int H, int KV, int D, int causal, int window, int prefix, float scale,
+              cudaStream_t stream) {
+  using Sh = TcShape<DP>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
@@ -450,35 +474,41 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
       !make_map(&tk, encode, k, B, Lk, KV, D, Sh::SW) ||
       !make_map(&tv, encode, v, B, Lk, KV, D, Sh::SW))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + kBQ - 1) / kBQ);
-  flash_tc_kernel<D><<<grid, kTcThreads, Sh::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, Lq, Lk, H, KV, causal, window, scale * 1.4426950408889634f);
+  flash_tc_kernel<DP><<<grid, kTcThreads, Sh::SMEM, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, Lq, Lk, H, KV, D, causal, window, prefix,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/out [B, Lq, H, D], k/v [B, Lk, KV, D]; bf16 != 0: all four are bf16
-// (tensor cores; D in {32, 64, 128, 256}, 16-byte aligned), else f32 (CUDA cores; D <= 256).
+// q/out [B, Lq, H, D], k/v [B, Lk, KV, D]; the first `prefix` keys are
+// visible to every query. bf16 != 0: all four are bf16 (tensor cores; D a
+// multiple of 8, 16-byte aligned), else f32 (CUDA cores). D <= 256.
 extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
                                   int Lq, int Lk, int H, int KV, int D, int causal, int window,
-                                  float scale, int bf16, void* stream) {
-  if (D < 1 || D > 256 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
+                                  int prefix, float scale, int bf16, void* stream) {
+  if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || prefix < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    if (Lk < 1) return (int)cudaErrorInvalidValue;
-    switch (D) {
-      case 32: return launch_tc<32>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
-      case 64: return launch_tc<64>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
-      case 128: return launch_tc<128>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
-      case 256: return launch_tc<256>(q, k, v, out, B, Lq, Lk, H, KV, causal, window, scale, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    if (Lk < 1 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+#define FLASH_TC(DP) \
+  launch_tc<DP>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
+    if (D <= 32) return FLASH_TC(32);
+    if (D <= 64) return FLASH_TC(64);
+    if (D <= 128) return FLASH_TC(128);
+    if (D <= 192) return FLASH_TC(192);
+    return FLASH_TC(256);
+#undef FLASH_TC
   }
-  if (D <= 64) return launch_f32<64>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
-  if (D <= 128) return launch_f32<128>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
-  return launch_f32<256>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, s);
+#define FLASH_F32(DMAX) \
+  launch_f32<DMAX>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
+  if (D <= 64) return FLASH_F32(64);
+  if (D <= 128) return FLASH_F32(128);
+  return FLASH_F32(256);
+#undef FLASH_F32
 }

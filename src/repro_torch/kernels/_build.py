@@ -51,8 +51,8 @@ SIGNATURES = {
     # Fs, TN, smem_bytes, wide, stream
     "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
-    # q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, scale, bf16, stream
-    "lm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, bf16, stream
+    "lm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, loga, b, c, y, h, B, L, H, P, N, chunk, bf16, stream
     "lm_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -22,6 +22,7 @@ class MaskSpec:
     causal: bool = True
     window: int = 0
     offset: int = 0      # qpos = q_index + offset (ends-aligned: Sk - Sq)
+    prefix: int = 0      # first `prefix` key positions always visible (hymba's meta tokens)
 
     def block(self, q0: int, qc: int, sk: int, device=None) -> torch.Tensor:
         qpos = (torch.arange(qc, device=device) + q0 + self.offset)[:, None]
@@ -31,14 +32,16 @@ class MaskSpec:
             m &= kpos <= qpos
         if self.window > 0:
             m &= kpos > qpos - self.window
+        if self.prefix > 0:
+            m |= kpos < self.prefix
         return m[None]
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, prefix: int = 0) -> torch.Tensor:
     """q [BH, Lq, D], k/v [BH, Lk, D] -> [BH, Lq, D] in q's dtype."""
     lq, lk = q.shape[1], k.shape[1]
     logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * q.shape[-1] ** -0.5
-    mask = MaskSpec(causal=causal, window=window, offset=lk - lq).block(0, lq, lk, q.device)
+    mask = MaskSpec(causal=causal, window=window, offset=lk - lq, prefix=prefix).block(0, lq, lk, q.device)
     logits = torch.where(mask, logits, -torch.inf)
     probs = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = probs / probs.sum(-1, keepdim=True)

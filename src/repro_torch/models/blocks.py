@@ -1,14 +1,16 @@
 """Per-layer-kind block assembly (pre-norm residual blocks).
 
-Counterpart of ``repro/models/blocks.py`` for the kinds the port runs:
+Counterpart of ``repro/models/blocks.py`` for the decoder-only kinds:
 
   dense / local / global   self-attention (+window/theta variants) + MLP
+  moe                      self-attention (MLA with ``use_mla``) + MoE FFN (shared + routed)
   ssm                      Mamba-2 block (no MLP when d_ff == 0)
+  hybrid                   parallel attention + Mamba heads (Hymba) + MLP
 
 ``block_init(kind, gen, cfg, device)`` builds one layer's params;
 ``block_apply`` runs "prefill" (full sequence -> cache) or "decode" (one
-token + cache). The other kinds raise ``NotImplementedError`` naming
-their ROADMAP item.
+token + cache). The encoder-decoder and cross-attention kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,16 +21,16 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import mamba as mb
+from . import mla
+from . import moe as moe_mod
 from .layers import (
     attention_decode, attention_prefill, init_attention, init_mlp, init_rmsnorm,
     mlp_apply, rmsnorm,
 )
 
 ATTN_KINDS = ("dense", "local", "global")
-KINDS = ATTN_KINDS + ("ssm",)
+KINDS = ATTN_KINDS + ("ssm", "hybrid", "moe")
 _UNPORTED = {
-    "hybrid": "Queue 1 item 14 (hybrid: meta-prefix attention mask)",
-    "moe": "Queue 1 item 16 (moe + mla)",
     "cross": "Queue 1 item 17 (cross / enc-dec)",
     "enc": "Queue 1 item 17 (cross / enc-dec)",
     "dec": "Queue 1 item 17 (cross / enc-dec)",
@@ -52,10 +54,11 @@ class Ctx:
     pos: Optional[int] = None                   # decode: position of the new token
     s_max: int = 0                              # cache capacity
     use_kernels: bool = True                    # prefill: the CUDA kernels (plain on the CPU)
+    meta: Optional[torch.Tensor] = None         # hymba meta tokens [M, D]
 
 
 def _kind_attn_args(kind: str, cfg: ArchConfig):
-    window = cfg.local_window if kind == "local" else 0
+    window = cfg.local_window if kind in ("local", "hybrid") else 0
     theta = (
         cfg.rope_theta_global
         if (kind == "global" and cfg.rope_theta_global)
@@ -73,7 +76,42 @@ def block_init(kind: str, gen, cfg: ArchConfig, device) -> dict:
             "ln1": init_rmsnorm(D, device), "attn": init_attention(gen, cfg, device),
             "ln2": init_rmsnorm(D, device), "mlp": init_mlp(gen, D, ff, cfg.act, device),
         }
+    if kind == "moe":
+        return {
+            "ln1": init_rmsnorm(D, device),
+            "attn": mla.init_mla(gen, cfg, device) if cfg.use_mla else init_attention(gen, cfg, device),
+            "ln2": init_rmsnorm(D, device), "moe": moe_mod.init_moe(gen, cfg, device),
+        }
+    if kind == "hybrid":
+        return {
+            "ln1": init_rmsnorm(D, device),
+            "attn": init_attention(gen, cfg, device),
+            "ssm": mb.init_mamba(gen, cfg, device),
+            "attn_norm": init_rmsnorm(D, device),
+            "ssm_norm": init_rmsnorm(D, device),
+            "gate_attn": torch.full((D,), 0.5, device=device),
+            "gate_ssm": torch.full((D,), 0.5, device=device),
+            "ln2": init_rmsnorm(D, device),
+            "mlp": init_mlp(gen, D, cfg.d_ff, cfg.act, device),
+        }
     return {"ln1": init_rmsnorm(D, device), "ssm": mb.init_mamba(gen, cfg, device)}
+
+
+def _self_attn(p, h, ctx: Ctx, kind: str, cache=None):
+    """Returns (out, cache); hymba's meta tokens lead the keys and the cache."""
+    cfg = ctx.cfg
+    window, theta = _kind_attn_args(kind, cfg)
+    M = cfg.meta_tokens if kind == "hybrid" else 0
+    if ctx.mode == "decode":
+        return attention_decode(p, h, ctx.pos + M, cache, cfg, window=window, theta=theta, prefix=M)
+    return attention_prefill(p, h, ctx.positions, cfg, window=window, theta=theta, s_max=ctx.s_max,
+                             use_kernels=ctx.use_kernels, meta=ctx.meta if M else None)
+
+
+def _ssm(p, h, ctx: Ctx, cache=None):
+    if ctx.mode == "decode":
+        return mb.mamba_decode(p, h, cache, ctx.cfg)
+    return mb.mamba_prefill(p, h, ctx.cfg, use_kernels=ctx.use_kernels)
 
 
 def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
@@ -81,19 +119,29 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
     check_kind(kind)
     cfg = ctx.cfg
     if kind in ATTN_KINDS:
-        h = rmsnorm(p["ln1"], x)
-        window, theta = _kind_attn_args(kind, cfg)
-        if ctx.mode == "decode":
-            a, kv = attention_decode(p["attn"], h, ctx.pos, cache, cfg, window=window, theta=theta)
-        else:
-            a, kv = attention_prefill(p["attn"], h, ctx.positions, cfg, window=window, theta=theta,
-                                      s_max=ctx.s_max, use_kernels=ctx.use_kernels)
+        a, kv = _self_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, kind, cache)
         x = x + a
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
         return x, kv
-    h = rmsnorm(p["ln1"], x)
-    if ctx.mode == "decode":
-        y, st = mb.mamba_decode(p["ssm"], h, cache, cfg)
-    else:
-        y, st = mb.mamba_prefill(p["ssm"], h, cfg, use_kernels=ctx.use_kernels)
+    if kind == "moe":
+        h = rmsnorm(p["ln1"], x)
+        if not cfg.use_mla:
+            a, kv = _self_attn(p["attn"], h, ctx, "dense", cache)
+        elif ctx.mode == "decode":
+            a, kv = mla.mla_decode(p["attn"], h, ctx.pos, cache, cfg)
+        else:
+            a, kv = mla.mla_prefill(p["attn"], h, ctx.positions, cfg, s_max=ctx.s_max)
+        x = x + a
+        # One device: the reference's gspmd form (its shard_map form needs a mesh).
+        y, _ = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x), cfg)
+        return x + y, kv
+    if kind == "hybrid":
+        h = rmsnorm(p["ln1"], x)
+        a, kv = _self_attn(p["attn"], h, ctx, "hybrid", None if cache is None else cache["attn"])
+        s, st = _ssm(p["ssm"], h, ctx, None if cache is None else cache["ssm"])
+        x = x + (p["gate_attn"].to(x.dtype) * rmsnorm(p["attn_norm"], a)
+                 + p["gate_ssm"].to(x.dtype) * rmsnorm(p["ssm_norm"], s))
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
+        return x, {"attn": kv, "ssm": st}
+    y, st = _ssm(p["ssm"], rmsnorm(p["ln1"], x), ctx, cache)
     return x + y, st

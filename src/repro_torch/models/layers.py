@@ -50,7 +50,7 @@ class ParamTree(nn.Module):
 def _dense_init(gen, shape, device, scale=None) -> torch.Tensor:
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
-    return torch.randn(shape, generator=gen, device=device) * scale
+    return torch.randn(shape, generator=gen, device=device).mul_(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -153,12 +153,17 @@ def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
     return q, k, v
 
 
-def decode_mask(pos: int, s_max: int, window: int = 0, device=None) -> torch.Tensor:
-    """[1, 1, S_max] bool for a single new token at position ``pos``."""
+def decode_mask(pos: int, s_max: int, window: int = 0, device=None, prefix: int = 0) -> torch.Tensor:
+    """[1, 1, S_max] bool for a single new token at position ``pos``.
+
+    ``prefix`` positions (meta tokens) stay visible regardless of window.
+    """
     kpos = torch.arange(s_max, device=device)[None, None, :]
     m = kpos <= pos
     if window > 0:
         m &= kpos > pos - window
+    if prefix > 0:
+        m |= kpos < prefix
     return m
 
 
@@ -167,9 +172,22 @@ def attn_out(p, o: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, D).to(o.dtype)
 
 
-def _auto_q_chunk(sq: int) -> int:
-    """Chunk queries once [Sq, Sk] logits would dominate memory."""
-    return 512 if sq > 8192 else 0
+LOGITS_BYTES = 1 << 30   # f32 logits one query block of the plain attention may hold
+
+
+def _auto_q_chunk(sq: int, sk: int = 0, rows: int = 0) -> int:
+    """Chunk queries once [Sq, Sk] logits would dominate memory: the
+    reference's rule (512 queries past 8192), and on one device also once
+    the f32 logits of ``rows`` (batch x heads) such matrices would pass
+    ``LOGITS_BYTES``: then the largest halving of Sq that fits (deepseek-v3's
+    128 heads at batch 8 and 2048 tokens hold 17 GB unchunked). Exact:
+    every block still sees all keys."""
+    if sq > 8192:
+        return 512
+    qc = sq
+    while qc % 2 == 0 and rows * qc * sk * 4 > LOGITS_BYTES:
+        qc //= 2
+    return qc if qc < sq else 0
 
 
 def roll_to_window(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -185,26 +203,37 @@ def roll_to_window(k: torch.Tensor, window: int) -> torch.Tensor:
 
 def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
                       theta: Optional[float] = None, s_max: Optional[int] = None,
-                      use_kernels: bool = True):
+                      use_kernels: bool = True, meta: Optional[torch.Tensor] = None):
     """Full-sequence causal attention; also returns the KV cache.
 
     Full-attention layers pad the cache to ``s_max``; windowed layers
     return a rolling buffer of length ``window`` (position p at slot p % W).
+
+    ``meta`` [M, D] (hymba, ``blocks.py:_self_attn`` of the reference): M
+    learned tokens in front of the keys, at positions 0..M-1 with the
+    prompt after them, visible to every query (``MaskSpec.prefix``) and
+    kept in front of the cache: ``k[:, :M]`` then the rolling window, or
+    the cache padded to ``s_max + M``.
     """
     theta = cfg.rope_theta if theta is None else theta
+    B, S, _ = x.shape
+    M = 0 if meta is None else meta.shape[0]
+    if M:
+        x = torch.cat([meta.to(x.dtype)[None].expand(B, M, -1), x], dim=1)
+        positions = torch.arange(M + S, device=x.device)
     q, k, v = _qkv(p, x, cfg)
-    q = rope_apply(q, positions, theta)
+    q = rope_apply(q[:, M:], positions[M:], theta)
     k = rope_apply(k, positions, theta)
     if use_kernels:
-        o = flash_attention(q, k, v, causal=True, window=window)
+        o = flash_attention(q, k, v, causal=True, window=window, prefix=M)
     else:
-        o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window),
-                       q_chunk=_auto_q_chunk(x.shape[1]))
+        o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window, offset=M, prefix=M),
+                       q_chunk=_auto_q_chunk(S, M + S, B * cfg.n_heads))
     if window > 0:
-        k = roll_to_window(k, window)
-        v = roll_to_window(v, window)
+        k = torch.cat([k[:, :M], roll_to_window(k[:, M:], window)], dim=1)
+        v = torch.cat([v[:, :M], roll_to_window(v[:, M:], window)], dim=1)
     else:
-        pad = (s_max or x.shape[1]) - x.shape[1]
+        pad = (s_max or S) - S
         if pad:
             k = F.pad(k, (0, 0, 0, 0, 0, pad))
             v = F.pad(v, (0, 0, 0, 0, 0, pad))
@@ -212,11 +241,13 @@ def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
 
 
 def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: int = 0,
-                     theta: Optional[float] = None):
+                     theta: Optional[float] = None, prefix: int = 0):
     """One-token step. x [B, 1, D]; ``pos`` a Python int.
 
     Full-attention cache: k/v [B, S_max, KV, hd], written at ``pos``.
     Windowed cache:       k/v [B, W, KV, hd] rolling, written at pos % W.
+    ``prefix`` meta tokens occupy [0, prefix) of a (prefix + W) buffer,
+    and ``pos`` then counts them.
     The cache is updated in place (the reference returns a new array; an
     in-place write saves a copy of the whole cache per layer and token)
     and returned.
@@ -229,12 +260,13 @@ def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: in
     L = cache["k"].shape[1]
     if window > 0:
         # rolling buffer: every resident slot is inside the window; mask
-        # only the slots not filled yet
-        slot = pos % window
-        mask = torch.arange(L, device=x.device)[None, None, :] <= pos
+        # only the slots not filled yet (and keep the meta prefix visible)
+        slot = prefix + (pos - prefix) % window
+        kpos = torch.arange(L, device=x.device)[None, None, :]
+        mask = (kpos < prefix) | (kpos <= pos)
     else:
         slot = pos
-        mask = decode_mask(pos, L, 0, x.device)
+        mask = decode_mask(pos, L, 0, x.device, prefix)
     k = cache_write(cache["k"], k_new, slot, cfg.decode_cache_update)
     v = cache_write(cache["v"], v_new, slot, cfg.decode_cache_update)
     o = grouped_attend_one(q, k, v, mask=mask)

@@ -5,9 +5,10 @@ stage's layers on a group axis and drives them with ``lax.scan``; here a
 ``Model`` is an ``nn.Module`` holding one ``nn.ModuleList`` of layers
 and runs them in a plain loop. Its state dict names are the reference's
 pytree paths with the stage/group axes flattened into a layer index
-(``layers.{i}.attn.wq``; ``convert.lm_params_from_numpy`` carries the
-reference's params across). Caches are one dict per layer, with the
-shapes of the reference's ``cache_struct`` minus its group axis.
+(``layers.{i}.attn.wq``; hymba's meta tokens are ``meta``;
+``convert.lm_params_from_numpy`` carries the reference's params across).
+Caches are one dict per layer (hybrid: ``{"attn": ..., "ssm": ...}``),
+with the shapes of the reference's ``cache_struct`` minus its group axis.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ class Model(nn.Module):
         self.use_kernels = use_kernels
         self.kinds: List[str] = _layer_kinds(cfg)
         for kind in self.kinds:
-            check_kind(kind)   # meta tokens (hybrid) and sinusoidal positions (enc/dec) raise here
+            check_kind(kind)   # cross-attention and sinusoidal positions (enc/dec) raise here
         dev = resolve_device(device)
         gen = None if dev.type == "meta" else torch.Generator(device=dev)
         if gen is not None:
@@ -47,6 +48,9 @@ class Model(nn.Module):
         self.embed = ParamTree(init_embedding(gen, cfg.vocab_size, cfg.d_model, dev))
         if not cfg.tie_embeddings:
             self.unembed = ParamTree(init_embedding(gen, cfg.vocab_size, cfg.d_model, dev))
+        if cfg.meta_tokens:
+            self.meta = nn.Parameter(torch.randn((cfg.meta_tokens, cfg.d_model), generator=gen, device=dev)
+                                     .mul_(0.02), requires_grad=False)
         self.layers = nn.ModuleList(ParamTree(block_init(k, gen, cfg, dev)) for k in self.kinds)
         self.final_norm = ParamTree(init_rmsnorm(cfg.d_model, dev))
         if cfg.param_dtype != "float32":
@@ -71,7 +75,7 @@ class Model(nn.Module):
         if s_max < S:
             raise ValueError(f"s_max={s_max} < prompt length {S}")
         ctx = Ctx(cfg=self.cfg, mode="prefill", positions=torch.arange(S, device=self.device),
-                  s_max=s_max, use_kernels=self.use_kernels)
+                  s_max=s_max, use_kernels=self.use_kernels, meta=getattr(self, "meta", None))
         x = self._embed_in(tokens)
         caches = []
         for kind, p in zip(self.kinds, self.layers):
@@ -108,6 +112,15 @@ class Model(nn.Module):
                 return attn_cache(min(cfg.local_window, s_max) or s_max)
             if kind in ATTN_KINDS:
                 return attn_cache(s_max)
+            if kind == "moe":
+                if cfg.use_mla:                  # the compressed latent and the shared rope key
+                    return {"ckv": torch.zeros((batch_size, s_max, cfg.kv_lora_rank), dtype=dt, device=dev),
+                            "krope": torch.zeros((batch_size, s_max, cfg.qk_rope_dim), dtype=dt, device=dev)}
+                return attn_cache(s_max)
+            if kind == "hybrid":                 # meta prefix + rolling window buffer
+                M, W = cfg.meta_tokens, cfg.local_window
+                return {"attn": attn_cache(M + min(W, s_max) if W else s_max + M),
+                        "ssm": layer_cache("ssm")}
             d_inner, H, P, N = _dims(cfg, cfg.d_model)
             return {
                 "conv": torch.zeros((batch_size, cfg.conv_width - 1, d_inner + 2 * N), dtype=dt, device=dev),

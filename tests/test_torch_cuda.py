@@ -414,8 +414,30 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk, D, 
     _scaled_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,D,window,prefix", [
+    (1, 4, 2, 130, 130, 240, 70, 0),       # gemma3-12b's head dim, window
+    (1, 4, 2, 100, 100, 168, 0, 0),        # gemma3-27b's
+    (2, 4, 4, 90, 90, 56, 0, 0),           # deepseek-v3's dense layers'
+    (1, 5, 1, 150, 214, 64, 40, 64),       # hymba's meta prefix, ends aligned, window
+    (1, 2, 1, 70, 200, 20, 50, 100),       # a head dim the wrapper pads, a prefix of two tiles
+    (2, 2, 2, 130, 130, 40, 0, 70),        # a prefix past the causal edge of the first queries
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dims_and_prefix(cuda_device, B, H, KV, Lq, Lk, D, window, prefix, dtype):
+    q = torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
+    k = torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+    v = torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+    n_bf16 = flash_ops.launches_bf16
+    got = flash_ops.flash_attention(q, k, v, window=window, prefix=prefix)
+    want = gqa_attend(q, k, v, mask_spec=MaskSpec(window=window, offset=Lk - Lq, prefix=prefix))
+    torch.cuda.synchronize()
+    assert flash_ops.launches_bf16 == n_bf16 + (dtype == torch.bfloat16) and got.shape == q.shape
+    _scaled_close(got, want, dtype)
+
+
 def test_flash_attention_bf16_takes_only_its_head_dims(cuda_device):
-    q = torch.zeros((1, 64, 2, 48), device=cuda_device, dtype=torch.bfloat16)
+    """Every head dim up to 256 runs (the test above); a wider one raises."""
+    q = torch.zeros((1, 64, 2, 264), device=cuda_device, dtype=torch.bfloat16)
     n0 = flash_ops.launches
     with pytest.raises(ValueError):
         flash_ops.flash_attention(q, q, q)
@@ -445,7 +467,8 @@ def _ssd_check(dev, B, S, H, P, N, chunk, dtype):
     _scaled_close(h, hp, torch.float32)
 
 
-@pytest.mark.parametrize("B,S,H,P,N", [(2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 256, 4, 32, 64)])
+@pytest.mark.parametrize("B,S,H,P,N", [(2, 64, 3, 64, 16), (1, 384, 2, 64, 128), (2, 256, 4, 32, 64),
+                                       (2, 512, 50, 64, 16)])      # hymba's heads
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain(cuda_device, B, S, H, P, N, dtype):
     _ssd_check(cuda_device, B, S, H, P, N, 128, dtype)

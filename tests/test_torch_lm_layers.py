@@ -6,6 +6,8 @@ Inputs come from a numpy seed and go to both sides; f32 throughout.
 Layer functions agree to atol 1e-5; the attention plain versions to
 2e-5, the reference kernel sweep's own tolerance.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,6 +105,46 @@ def test_flash_plain_matches_pallas_kernel(B, H, KV, Lq, Lk, D, causal, window):
                          causal=causal, window=window), atol=2e-5)
 
 
+@pytest.mark.parametrize("hd,H,KV,Sq,Sk,window,prefix", [
+    (24, 4, 2, 16, 20, 6, 4),      # hymba's shape in small: meta prefix, ends aligned, window
+    (40, 6, 3, 18, 18, 0, 5),      # a prefix past the causal edge of the first queries
+    (24, 2, 2, 9, 30, 0, 0),
+])
+def test_gqa_attend_prefix_and_odd_head_dims(hd, H, KV, Sq, Sk, window, prefix):
+    """Head dims that are no power of two (gemma3's 240 and 168, deepseek-v3's
+    dense 56, reduced) and a prefix of always-visible keys, against the
+    reference's MaskSpec; the kernel wrapper's CPU path is the plain version."""
+    q, k, v = _n(2, Sq, H, hd), _n(2, Sk, KV, hd), _n(2, Sk, KV, hd)
+    spec = dict(causal=True, window=window, offset=Sk - Sq, prefix=prefix)
+    want = jl.gqa_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask_spec=jl.MaskSpec(**spec))
+    got = tl.gqa_attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        mask_spec=tl.MaskSpec(**spec))
+    _close(want, got)
+    cpu = flash_ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                    causal=True, window=window, prefix=prefix)
+    np.testing.assert_array_equal(got.numpy(), cpu.numpy())
+    np.testing.assert_array_equal(np.asarray(jl.MaskSpec(**spec).block(3, 7, Sk)),
+                                  tl.MaskSpec(**spec).block(3, 7, Sk).numpy())
+    G = H // KV
+    bh = lambda a, g: np.moveaxis(np.repeat(a, g, axis=2), 2, 1).reshape(2 * H, a.shape[1], hd)
+    _close(np.moveaxis(got.numpy(), 2, 1).reshape(2 * H, Sq, hd),
+           attention_ref(torch.from_numpy(bh(q, 1)), torch.from_numpy(bh(k, G)), torch.from_numpy(bh(v, G)),
+                         causal=True, window=window, prefix=prefix), atol=2e-5)
+
+
+def test_auto_q_chunk_is_exact():
+    """The memory rule chunks deepseek-v3's 128 heads at batch 8 into blocks
+    of 128 queries; a chunked plain attention equals the whole one."""
+    assert tl._auto_q_chunk(2048, 2048, 8 * 128) == 128
+    assert tl._auto_q_chunk(2048, 2048, 8 * 9) == 1024
+    assert tl._auto_q_chunk(20, 20, 8) == 0 and tl._auto_q_chunk(16384) == 512
+    q, k, v = _n(2, 32, 4, 8), _n(2, 40, 2, 8), _n(2, 40, 2, 8)
+    spec = tl.MaskSpec(causal=True, window=9, offset=8, prefix=3)
+    whole = tl.gqa_attend(*map(torch.from_numpy, (q, k, v)), mask_spec=spec)
+    chunked = tl.gqa_attend(*map(torch.from_numpy, (q, k, v)), mask_spec=spec, q_chunk=8)
+    _close(whole, chunked, atol=1e-6)
+
+
 def test_flash_wrapper_checks():
     q, k = torch.zeros(1, 9, 4, 8), torch.zeros(1, 5, 2, 8)
     with pytest.raises(ValueError, match="Lq <= Lk"):
@@ -120,6 +162,40 @@ def _attn_params(cfg):
             "wv": _n(D, KV, hd, scale=D ** -0.5), "wo": _n(H, hd, D, scale=(H * hd) ** -0.5),
             "bq": _n(H, hd, scale=0.1), "bk": _n(KV, hd, scale=0.1), "bv": _n(KV, hd, scale=0.1),
             "qnorm": {"scale": 1 + _n(hd, scale=0.1)}, "knorm": {"scale": 1 + _n(hd, scale=0.1)}}
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_attention_with_meta_prefix(window):
+    """Hymba's attention: M meta tokens in front of the keys and the cache,
+    decode at pos + M, against the reference's ``_self_attn`` (kind hybrid)."""
+    from repro.configs import get_config
+    from repro.models import blocks as jb
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import blocks as tb
+
+    cfg = reduce_cfg(get_config("hymba-1.5b"), local_window=window, qkv_bias=True)
+    tcfg = ArchConfig(**dataclasses.asdict(cfg))
+    p = {k: v for k, v in _attn_params(cfg).items() if k not in ("qnorm", "knorm")}
+    M, S, s_max = cfg.meta_tokens, 10, 14
+    meta, x = _n(M, cfg.d_model), _n(2, S, cfg.d_model)
+    jctx = jb.Ctx(cfg=cfg, mode="prefill", positions=jnp.arange(S), s_max=s_max, meta=jnp.asarray(meta))
+    oj, cj = jb._self_attn(_j(p), jnp.asarray(x), jctx, "hybrid")
+    for use_kernels in (True, False):
+        tctx = tb.Ctx(cfg=tcfg, mode="prefill", positions=torch.arange(S), s_max=s_max,
+                      use_kernels=use_kernels, meta=torch.from_numpy(meta))
+        ot, ct = tb._self_attn(_t(p), torch.from_numpy(x), tctx, "hybrid")
+        _close(oj, ot)
+        for name in ("k", "v"):
+            _close(cj[name], ct[name])
+    xd = _n(2, 1, cfg.d_model)
+    for step in range(3):
+        oj, cj = jb._self_attn(_j(p), jnp.asarray(xd), jb.Ctx(cfg=cfg, mode="decode", pos=jnp.int32(S + step)),
+                               "hybrid", cj)
+        ot, ct = tb._self_attn(_t(p), torch.from_numpy(xd), tb.Ctx(cfg=tcfg, mode="decode", pos=S + step),
+                               "hybrid", ct)
+        _close(oj, ot)
+        for name in ("k", "v"):
+            _close(cj[name], ct[name])
 
 
 @pytest.mark.parametrize("window,mode", [(0, "dus"), (0, "where"), (6, "dus"), (6, "where")])
@@ -160,6 +236,8 @@ def test_cache_write_roll_and_grouped_attend():
     q, k, v = _n(2, 1, 6, 8), _n(2, 9, 2, 8), _n(2, 9, 2, 8)
     mask = np.array(jl.decode_mask(jnp.int32(5), 9, 3))
     np.testing.assert_array_equal(mask, tl.decode_mask(5, 9, 3).numpy())
+    np.testing.assert_array_equal(np.array(jl.decode_mask(jnp.int32(6), 9, 2, 3)),
+                                  tl.decode_mask(6, 9, 2, prefix=3).numpy())
     _close(jl.grouped_attend_one(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jnp.asarray(mask)),
            tl.grouped_attend_one(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                  mask=torch.from_numpy(mask)))

@@ -6,8 +6,7 @@ reference's params carried across by ``convert.lm_params_from_numpy``.
 Logits and caches agree within 1e-5 of their scale (largest magnitude)
 in f32; greedy tokens are identical. gemma3-12b (reduced: 5 local + 1
 global per cycle, window 8) covers the local/global kinds and rolling
-caches; the port registers only smollm-135m and mamba2-780m, so its
-config is carried across as an ``ArchConfig``.
+caches; the families added later are in ``test_torch_lm_families.py``.
 """
 import dataclasses
 
@@ -20,7 +19,7 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
 from repro.serving.serve_step import greedy_generate as j_greedy
-from repro_torch.configs import get_config
+from repro_torch.configs import all_configs, get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import Model, build_model
@@ -144,13 +143,16 @@ def test_lm_params_from_numpy_errors():
 
 
 def test_registry_and_unported_kinds():
-    assert get_config("smollm-135m") == ArchConfig(**dataclasses.asdict(j_get_config("smollm-135m")))
-    assert get_config("mamba2-780m") == ArchConfig(**dataclasses.asdict(j_get_config("mamba2-780m")))
-    assert get_config("smollm-135m").param_count() == j_get_config("smollm-135m").param_count()
+    registered = ("smollm-135m", "mamba2-780m", "hymba-1.5b", "qwen1.5-4b", "gemma3-12b", "gemma3-27b",
+                  "deepseek-moe-16b", "deepseek-v3-671b")
+    for arch in registered:
+        assert get_config(arch) == ArchConfig(**dataclasses.asdict(j_get_config(arch))), arch
+        assert get_config(arch).param_count() == j_get_config(arch).param_count(), arch
+        assert get_config(arch).active_param_count() == j_get_config(arch).active_param_count(), arch
+    assert sorted(all_configs()) == sorted(registered)
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("hymba-1.5b")
-    for arch, item in (("hymba-1.5b", "item 14"), ("deepseek-moe-16b", "item 16"),
-                       ("whisper-large-v3", "item 17"), ("llama-3.2-vision-90b", "item 17")):
+        get_config("whisper-large-v3")
+    for arch, item in (("whisper-large-v3", "item 17"), ("llama-3.2-vision-90b", "item 17")):
         cfg = ArchConfig(**dataclasses.asdict(reduce_cfg(j_get_config(arch))))
         with pytest.raises(NotImplementedError, match=item):
             Model(cfg, "cpu")

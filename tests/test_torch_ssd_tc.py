@@ -92,6 +92,7 @@ def _inputs(gen, B, L, H, P, N):
     (2, 256, 4, 32, 64, 64),
     (1, 192, 2, 64, 16, 64),
     (1, 200, 2, 32, 32, 8),       # L not a multiple of the kernel's chunk
+    (1, 512, 50, 64, 16, 128),    # hymba-1.5b's heads, P and N
 ])
 def test_tc_roundings_within_lm_tol(B, L, H, P, N, chunk):
     gen = torch.Generator().manual_seed(int(RNG.integers(1 << 31)))
