@@ -20,10 +20,15 @@ tile plan (``traverse_batch_ab``). The first:
    past 16 bits of feature id (the wide node layout), chunks through the
    carry),
    then attention (odd lengths, Lq < Lk, window,
-   GQA, head dims 20 to 256, prefixes, f32 and bf16; then at the full
-   shapes of phase 6's new configs, ``LM_PATH_ATTENTION``: gemma3's hd
-   240 and 168 with window 1024 and none, deepseek-v3's dense hd 56 at
-   128 heads, hymba's 64-token meta prefix) and the SSD scan (S in {64,
+   GQA, head dims 20 to 256, prefixes, unmasked with more queries than
+   keys, f32 and bf16; then at the full shapes of phase 6's configs,
+   ``LM_PATH_ATTENTION``: gemma3's hd 240 and 168 with window 1024 and
+   none, deepseek-v3's dense hd 56 at 128 heads, hymba's 64-token meta
+   prefix, whisper's unmasked encoder (1500 frames, a ragged key tile),
+   its decoder's causal self-attention and unmasked cross-attention (440
+   queries over 1500 frames), llama-vision's causal self-attention and
+   unmasked cross-attention (2048 queries over 1024 vision tokens)) and
+   the SSD scan (S in {64,
    200, 320, 384}, P in {32, 64}, N in {16, 32, 64, 128}, chunk 8, 64 or
    128, f32 and bf16; and hymba's [8, 2048, 50 heads, P 64, N 16]),
    the LM kernels at ``LM_TOL``, each dtype on its own kernel;
@@ -31,7 +36,9 @@ tile plan (``traverse_batch_ab``). The first:
    forest and labels, histogram reuse on gives reuse off's forest on
    both paths, growth with reuse on (where ``"auto"`` resolves on) and
    off timed in turns, and (f32, TF32 off) the same greedy LM tokens for
-   smollm-135m, mamba2-780m and hymba-1.5b at cut widths;
+   smollm-135m, mamba2-780m, hymba-1.5b, whisper-large-v3 (2 encoder
+   layers over 300 frames) and llama-3.2-vision-90b (2 cross layers over
+   100 vision tokens, gates at ``LM_XGATE``) at cut widths;
 5. full size, PRF: the README quickstart configuration on 2^20 training
    rows, F = 128, through ``train_prf`` and ``PRFModel.predict``, with
    kernel launch counts read around that one run, per-stage times,
@@ -121,15 +128,20 @@ tile plan (``traverse_batch_ab``). The first:
    ``train_mlrf_like(sample_budget=2000)`` on phase 5's data, time and
    accuracy beside PRF's;
 6. full size, LM serving: smollm-135m (30 layers, d 576) and mamba2-780m
-   (48 layers, d 1536), and ``LM_CONFIGS``' six more (hymba-1.5b,
+   (48 layers, d 1536), and ``LM_CONFIGS``' eight more (hymba-1.5b,
    qwen1.5-4b, gemma3-12b and -27b at 12 layers, deepseek-moe-16b and
-   deepseek-v3-671b at 4, each cut named there) at their published
-   widths, bf16 compute, the config's params (f32; v3 bf16) from seed 0:
-   batch 8, prompt 2048, 32 greedy tokens (the six: 8) through
-   ``greedy_generate`` with launch counts read around that run; init
-   seconds, prefill seconds, decode ms per token, tokens/s, peak memory,
-   launches per route (every attention layer but MLA's, and every SSD
-   layer, once a prefill on the bf16 tensor-core kernels); full-width
+   deepseek-v3-671b at 4, whisper-large-v3 at full depth (32 encoder +
+   32 decoder layers), llama-3.2-vision-90b at 10, each cut named there)
+   at their published widths, bf16 compute, the config's params (f32; v3
+   bf16) from seed 0, llama-vision's ``xgate`` set to ``LM_XGATE`` (its
+   init of zeros would shut every cross-attention): batch 8, prompt 2048
+   (whisper 440, to its 448-token decoder context), 32 greedy tokens
+   (the eight: 8), frames and patch embeddings 0.1 x N(0, 1) from a
+   seeded generator, through ``greedy_generate`` with launch counts read
+   around that run; init seconds, prefill seconds, decode ms per token,
+   tokens/s, peak memory, launches per route (every attention layer but
+   MLA's, and every SSD layer, once a prefill on the bf16 tensor-core
+   kernels; an encoder or cross layer once, a decoder layer twice); full-width
    kernel-path vs plain-path prefill in f32 (logits and every layer's
    cache; MoE: on the batch rows whose routing agrees on both paths, the
    share of agreeing tokens reported); the card's busy share under the
@@ -169,6 +181,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 dense tensor cores (NVIDIA data sheet)
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+LM_XGATE = 1.0     # llama-vision's cross-attention gates (tanh 0.76); the config's init of zeros shuts them
 
 
 def log(*a):
@@ -334,15 +347,20 @@ def _ssd_inputs(gen, B, S, H, P, N, dev, dtype):
     return x, loga, b, c
 
 
-# Attention at the shapes phase 6's new configs give the kernel: (B, H, KV,
-# Lq, Lk, D, window, prefix), causal, ends aligned.
+# Attention at the shapes phase 6's configs give the kernel: (B, H, KV, Lq,
+# Lk, D, causal, window, prefix), ends aligned.
 LM_PATH_ATTENTION = {
-    "gemma3-12b local (hd 240)": (8, 16, 8, 2048, 2048, 240, 1024, 0),
-    "gemma3-12b global (hd 240)": (8, 16, 8, 2048, 2048, 240, 0, 0),
-    "gemma3-27b local (hd 168)": (8, 32, 16, 2048, 2048, 168, 1024, 0),
-    "gemma3-27b global (hd 168)": (8, 32, 16, 2048, 2048, 168, 0, 0),
-    "deepseek-v3 dense (hd 56)": (8, 128, 128, 2048, 2048, 56, 0, 0),
-    "hymba meta prefix (hd 64)": (8, 25, 5, 2048, 2112, 64, 1024, 64),
+    "gemma3-12b local (hd 240)": (8, 16, 8, 2048, 2048, 240, True, 1024, 0),
+    "gemma3-12b global (hd 240)": (8, 16, 8, 2048, 2048, 240, True, 0, 0),
+    "gemma3-27b local (hd 168)": (8, 32, 16, 2048, 2048, 168, True, 1024, 0),
+    "gemma3-27b global (hd 168)": (8, 32, 16, 2048, 2048, 168, True, 0, 0),
+    "deepseek-v3 dense (hd 56)": (8, 128, 128, 2048, 2048, 56, True, 0, 0),
+    "hymba meta prefix (hd 64)": (8, 25, 5, 2048, 2112, 64, True, 1024, 64),
+    "whisper encoder (unmasked)": (8, 20, 20, 1500, 1500, 64, False, 0, 0),
+    "whisper cross-attention (unmasked)": (8, 20, 20, 440, 1500, 64, False, 0, 0),
+    "whisper decoder self-attention": (8, 20, 20, 440, 440, 64, True, 0, 0),
+    "llama-vision cross-attention (unmasked)": (8, 64, 8, 2048, 1024, 128, False, 0, 0),
+    "llama-vision self-attention": (8, 64, 8, 2048, 2048, 128, True, 0, 0),
 }
 LM_PATH_SSD = {"hymba (P 64, N 16, 50 heads)": (8, 2048, 50, 64, 16)}   # (B, L, H, P, N)
 
@@ -368,7 +386,11 @@ def lm_kernel_checks(dev):
         # one tile, of two tiles with a window, and past the causal edge of the first queries
         (1, 4, 2, 77, 141, 24, True, 0, 5), (1, 3, 1, 70, 200, 20, True, 50, 100),
         (2, 2, 2, 130, 130, 40, True, 0, 70), (1, 4, 2, 100, 164, 168, True, 30, 64),
-    ] + [(B, H, KV, Lq, Lk, D, True, W, P) for B, H, KV, Lq, Lk, D, W, P in LM_PATH_ATTENTION.values()]
+        # unmasked with more queries than keys (cross-attention), GQA 8:1 at hd 128 with
+        # Lq = 2 Lk, and an encoder's Lq = Lk with a ragged key tile
+        (1, 4, 2, 300, 77, 64, False, 0, 0), (2, 16, 2, 256, 128, 128, False, 0, 0),
+        (2, 4, 4, 150, 150, 64, False, 0, 0),
+    ] + list(LM_PATH_ATTENTION.values())
     for B, H, KV, Lq, Lk, D, causal, window, prefix in attention_cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn(gen, (B, Lq, H, D), dev, dtype)
@@ -402,45 +424,86 @@ def lm_kernel_checks(dev):
     return worst
 
 
+def lm_extras(cfg, B, dev, gen):
+    """The stub frontends' output for ``cfg`` (``Model.prefill``'s ``extras``):
+    frames or patch embeddings, 0.1 x N(0, 1) in f32; None for the other families."""
+    stub = {"vlm": ("vision_embeds", cfg.vision_tokens), "encdec": ("frames", cfg.encoder_frames)}
+    if cfg.family not in stub:
+        return None
+    key, n = stub[cfg.family]
+    return {key: _randn(gen, (B, n, cfg.d_model), dev, scale=0.1)}
+
+
+def open_gates(model):
+    """Sets every ``xgate`` (llama-vision's cross layers) to LM_XGATE; returns how many."""
+    gates = [p["xgate"] for p in model.layers if "xgate" in p]
+    for g in gates:
+        g.fill_(LM_XGATE)
+    return len(gates)
+
+
+def attention_launches(kinds, use_mla=False):
+    """Attention kernel launches of one prefill: once an attention, encoder
+    or cross layer (MoE without MLA too), twice a decoder layer."""
+    once = ("dense", "local", "global", "hybrid", "enc", "cross") + (() if use_mla else ("moe",))
+    return sum(2 if k == "dec" else k in once for k in kinds)
+
+
 def lm_reduced_end_to_end(dev):
     """Cut widths, f32, TF32 off: kernel and plain paths give the same greedy tokens."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import _layer_kinds
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
     from repro_torch.serving.serve_step import greedy_generate
 
-    archs = ("smollm-135m", "mamba2-780m", "hymba-1.5b")
+    archs = ("smollm-135m", "mamba2-780m", "hymba-1.5b", "whisper-large-v3", "llama-3.2-vision-90b")
     for arch in archs:
         cfg = dataclasses.replace(get_config(arch), n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
                                   d_ff=0 if arch == "mamba2-780m" else 512, vocab_size=4096,
                                   head_dim=64, compute_dtype="float32",
-                                  local_window=100 if arch == "hymba-1.5b" else 0)
-        per_layer = 2 if arch == "hymba-1.5b" else 1          # hymba: attention and the SSD scan
+                                  local_window=100 if arch == "hymba-1.5b" else 0,
+                                  encoder_layers=2 if arch == "whisper-large-v3" else 0, encoder_frames=300,
+                                  vision_tokens=100 if arch == "llama-3.2-vision-90b" else 0,
+                                  cross_attn_every=2 if arch == "llama-3.2-vision-90b" else 0)
+        kinds = _layer_kinds(cfg)
+        want = attention_launches(kinds) + sum(k in ("ssm", "hybrid") for k in kinds)
         gen = torch.Generator(device=dev)
         gen.manual_seed(4)
         toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen, device=dev)
+        extras = lm_extras(cfg, 4, dev, gen)
+        kern, plain = (build_model(cfg, dev, use_kernels=u, seed=1) for u in (True, False))
+        for model in (kern, plain):
+            open_gates(model)
         n0 = flash_ops.launches + ssd_ops.launches
-        a = greedy_generate(build_model(cfg, dev, use_kernels=True, seed=1), toks, steps=8, s_max=264)
-        check(flash_ops.launches + ssd_ops.launches == n0 + 4 * per_layer,
-              f"{arch}: kernels not launched {4 * per_layer} times")
-        b = greedy_generate(build_model(cfg, dev, use_kernels=False, seed=1), toks, steps=8, s_max=264)
+        a = greedy_generate(kern, toks, extras, steps=8, s_max=264)
+        check(flash_ops.launches + ssd_ops.launches == n0 + want, f"{arch}: kernels not launched {want} times")
+        b = greedy_generate(plain, toks, extras, steps=8, s_max=264)
         check(torch.equal(a, b), f"reduced LM end to end ({arch}): tokens differ between kernel and plain paths")
+        del kern, plain
     log("reduced LM end to end (4 layers, d 256, f32, batch 4, prompt 256, 8 tokens): greedy tokens "
-        f"identical on the kernel and plain paths for {', '.join(archs)} (hymba: 64 meta tokens, window 100)")
+        f"identical on the kernel and plain paths for {', '.join(archs)} (hymba: 64 meta tokens, window 100; "
+        f"whisper: 2 encoder layers over 300 frames; llama-vision: 2 cross layers over 100 vision tokens, "
+        f"xgate {LM_XGATE})")
 
 
 # Phase 6's configurations: (arch, layers run or None for all, tokens generated,
-# the reason for a cut). Widths are the published ones; weights random from seed 0.
+# the reason for a cut, prompt length). Widths are the published ones; weights
+# random from seed 0.
 LM_CONFIGS = (
-    ("smollm-135m", None, LM_GEN, ""),
-    ("mamba2-780m", None, LM_GEN, ""),
-    ("hymba-1.5b", None, 8, ""),
-    ("qwen1.5-4b", None, 8, ""),
-    ("gemma3-12b", 12, 8, "2 cycles of 5 local + 1 global of 8: chip time (48 layers in f32 are ~46 GB)"),
-    ("gemma3-27b", 12, 8, "2 cycles of 5 local + 1 global of ~10: 62 layers in f32 are ~108 GB"),
-    ("deepseek-moe-16b", 4, 8, "1 dense + 3 moe of 28 layers: 28 in f32 are ~66 GB"),
-    ("deepseek-v3-671b", 4, 8, "its 3 dense (GQA, hd 56) + 1 moe layer with MLA of 61: one card"),
+    ("smollm-135m", None, LM_GEN, "", LM_PROMPT),
+    ("mamba2-780m", None, LM_GEN, "", LM_PROMPT),
+    ("hymba-1.5b", None, 8, "", LM_PROMPT),
+    ("qwen1.5-4b", None, 8, "", LM_PROMPT),
+    ("gemma3-12b", 12, 8, "2 cycles of 5 local + 1 global of 8: chip time (48 layers in f32 are ~46 GB)", LM_PROMPT),
+    ("gemma3-27b", 12, 8, "2 cycles of 5 local + 1 global of ~10: 62 layers in f32 are ~108 GB", LM_PROMPT),
+    ("deepseek-moe-16b", 4, 8, "1 dense + 3 moe of 28 layers: 28 in f32 are ~66 GB", LM_PROMPT),
+    ("deepseek-v3-671b", 4, 8, "its 3 dense (GQA, hd 56) + 1 moe layer with MLA of 61: one card", LM_PROMPT),
+    # 440 + 8 tokens: the 448 positions of whisper's decoder context (arXiv:2212.04356)
+    ("whisper-large-v3", None, 8, "", 440),
+    ("llama-3.2-vision-90b", 10, 8, "2 cycles of 4 dense + 1 cross of 20: 100 layers in f32 are ~327 GiB",
+     LM_PROMPT),
 )
 
 
@@ -463,7 +526,7 @@ def routing_recorded():
         moe._route = route
 
 
-def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
+def lm_full(dev, arch, depth=None, T=LM_GEN, cut="", L=LM_PROMPT):
     """One published-width LM through ``greedy_generate``: counts, times, checks."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import _layer_kinds
@@ -476,23 +539,27 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
     if depth:
         cfg = dataclasses.replace(cfg, n_layers=depth)
     kinds = _layer_kinds(cfg)
-    want = {"flash_attention": sum(k in ("dense", "local", "global", "hybrid") or (k == "moe" and not cfg.use_mla)
-                                   for k in kinds),
+    want = {"flash_attention": attention_launches(kinds, cfg.use_mla),
             "ssd_scan": sum(k in ("ssm", "hybrid") for k in kinds)}
-    B, L = LM_BATCH, LM_PROMPT
+    B = LM_BATCH
     s_max = L + T
     torch.cuda.reset_peak_memory_stats()
     model, t_init = sync_time(lambda: build_model(cfg, dev, seed=0))
     peak_init = torch.cuda.max_memory_allocated()
+    gates = open_gates(model)
+    if gates:
+        log(f"{arch}: the {gates} cross layers' xgate set to {LM_XGATE} (tanh {np.tanh(LM_XGATE):.4f}): the "
+            "config's init of zeros would multiply every cross-attention by 0")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=dev)
-    greedy_generate(model, prompts[:, :128], steps=2, s_max=130)      # warm-up: first-call costs
+    extras = lm_extras(cfg, B, dev, gen)
+    greedy_generate(model, prompts[:, :128], extras, steps=2, s_max=130)      # warm-up: first-call costs
 
     flash_ops.launches = flash_ops.launches_bf16 = flash_ops.launches_f32 = 0
     ssd_ops.launches = ssd_ops.launches_bf16 = ssd_ops.launches_f32 = 0
     torch.cuda.reset_peak_memory_stats()
-    toks, t_gen = sync_time(lambda: greedy_generate(model, prompts, steps=T, s_max=s_max))
+    toks, t_gen = sync_time(lambda: greedy_generate(model, prompts, extras, steps=T, s_max=s_max))
     counts = {"flash_attention": flash_ops.launches, "ssd_scan": ssd_ops.launches}
     routes = {name: {"bf16_tensor_core": ops.launches_bf16, "f32_cuda_core": ops.launches_f32}
               for name, ops in (("flash_attention", flash_ops), ("ssd_scan", ssd_ops))}
@@ -505,7 +572,7 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
           f"{arch}: generated tokens out of range")
 
     # the same run in two timed parts: prefill, then the decode steps
-    (logits, cache), t_pre = sync_time(lambda: model.prefill(prompts, s_max=s_max))
+    (logits, cache), t_pre = sync_time(lambda: model.prefill(prompts, extras, s_max=s_max))
     check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
     out = [logits.argmax(-1)]
 
@@ -519,7 +586,7 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
     lg, t_dec = sync_time(decode)
     check(bool(torch.isfinite(lg).all()), f"{arch}: non-finite decode logits")
     check(torch.equal(torch.stack(out, 1).to(torch.int32), toks), f"{arch}: the timed rerun gave other tokens")
-    busy = {"prefill": device_busy_share(lambda: model.prefill(prompts, s_max=s_max)),
+    busy = {"prefill": device_busy_share(lambda: model.prefill(prompts, extras, s_max=s_max)),
             "decode_step": device_busy_share(lambda: model.decode_step(cache, out[-1], L + T - 1))}
     del cache
 
@@ -534,13 +601,13 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
     # batch rows in which every token's routing agrees in every MoE layer
     # (at least one row), and reports the share of tokens that agree.
     model.use_kernels = False
-    (lp, _), t_plain = sync_time(lambda: model.prefill(prompts, s_max=s_max))
+    (lp, _), t_plain = sync_time(lambda: model.prefill(prompts, extras, s_max=s_max))
     model.compute_dtype = torch.float32
     with routing_recorded() as route_p:
-        lp32, cp32 = model.prefill(prompts, s_max=s_max)
+        lp32, cp32 = model.prefill(prompts, extras, s_max=s_max)
     model.use_kernels = True
     with routing_recorded() as route_k:
-        lk32, ck32 = model.prefill(prompts, s_max=s_max)
+        lk32, ck32 = model.prefill(prompts, extras, s_max=s_max)
     model.compute_dtype = torch.bfloat16
     rows = torch.ones(B, dtype=torch.bool, device=dev)
     agree_share = None
@@ -564,7 +631,8 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
     err = drift(logits, lp)
     noise = drift(lp, lp32)
     agree = float((logits.argmax(-1) == lp.argmax(-1)).float().mean())
-    res = {"arch": arch, "layers": cfg.n_layers, "cut": cut, "tokens": T,
+    res = {"arch": arch, "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers, "cut": cut, "tokens": T,
+           "prompt": L, "xgate": LM_XGATE if gates else None,
            "params": sum(p.numel() for p in model.parameters()),
            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "init_s": t_init,
            "init_peak_bytes": peak_init, "generate_s": t_gen, "prefill_s": t_pre, "plain_prefill_s": t_plain,
@@ -574,7 +642,8 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
            "rows_held_f32": int(rows.sum()),
            "kernel_vs_plain_logits_bf16": err, "bf16_vs_f32_plain_logits": noise,
            "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy}
-    log(f"{arch} ({cfg.n_layers} layers{', cut: ' + cut if cut else ''}; {res['params']} params, "
+    log(f"{arch} ({cfg.n_layers} layers{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+        f"{', cut: ' + cut if cut else ''}; {res['params']} params, "
         f"{res['param_bytes'] / 2**30:.2f} GiB; batch {B}, prompt {L}, {T} tokens, bf16): init {t_init:.3f} s, "
         f"generate {t_gen:.3f} s ({res['tokens_per_s']:.1f} tok/s), prefill {t_pre:.3f} s (plain path "
         f"{t_plain:.3f} s), decode {res['decode_ms_per_token']:.2f} ms/token, peak {peak / 2**30:.2f} GiB "
@@ -584,7 +653,7 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut=""):
            if agree_share is not None else "")
         + f"; bf16 logits {err:.3g} (top-1 agree {agree:.3f}; bf16 vs f32 on the plain path {noise:.3g}); "
         f"device busy share under the profiler {busy}")
-    del model, logits, lp, lp32, lk32
+    del model, logits, lp, lp32, lk32, extras
     torch.cuda.empty_cache()
     return res
 
@@ -666,8 +735,11 @@ def lm_kernel_rows(dev, counts, kernel_row, timings):
     return {"wide_d": wide, "path_shapes": path}
 
 
-def visible_pairs(Lq, Lk, window, prefix):
-    """(query, key) pairs the causal mask with ``window`` and ``prefix`` admits, ends aligned."""
+def visible_pairs(Lq, Lk, window, prefix, causal=True):
+    """(query, key) pairs the mask admits, ends aligned: all Lq x Lk unmasked,
+    else the causal mask with ``window`` and ``prefix``."""
+    if not causal:
+        return Lq * Lk
     qpos = np.arange(Lq, dtype=np.int64) + (Lk - Lq)
     prefix = min(prefix, Lk)
     lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros_like(qpos)
@@ -685,11 +757,12 @@ def ssd_work(B, L, H, P, N, Q=128):
 
 
 def lm_path_shape_rows(dev, gen, timings):
-    """Attention and the SSD scan at the shapes of phase 6's new configs
+    """Attention and the SSD scan at the shapes of phase 6's configs
     (``LM_PATH_ATTENTION``, ``LM_PATH_SSD``), bf16: the call, the kernel
     alone, the plain version, the bound, and SDPA where one call takes the
-    shape (causal without a window: ``is_causal``; a window or a prefix:
-    its boolean mask, the KV heads repeated)."""
+    shape (unmasked: no mask, ``is_causal=False``; causal without a window:
+    ``is_causal``; a window or a prefix: its boolean mask; the KV heads
+    repeated)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -699,33 +772,36 @@ def lm_path_shape_rows(dev, gen, timings):
     from repro_torch.models.layers import _auto_q_chunk
 
     out = {}
-    for what, (B, H, KV, Lq, Lk, D, W, P) in LM_PATH_ATTENTION.items():
+    for what, (B, H, KV, Lq, Lk, D, C, W, P) in LM_PATH_ATTENTION.items():
         q = _randn(gen, (B, Lq, H, D), dev, torch.bfloat16)
         k = _randn(gen, (B, Lk, KV, D), dev, torch.bfloat16)
         v = _randn(gen, (B, Lk, KV, D), dev, torch.bfloat16)
-        call = lambda: flash_ops.flash_attention(q, k, v, window=W, prefix=P)
-        spec = MaskSpec(True, W, Lk - Lq, P)
+        call = lambda: flash_ops.flash_attention(q, k, v, causal=C, window=W, prefix=P)
+        spec = MaskSpec(C, W, Lk - Lq, P)
         plain = lambda: gqa_attend(q, k, v, mask_spec=spec, q_chunk=_auto_q_chunk(Lq, Lk, B * H))
         err, share = lm_close(call(), plain(), torch.bfloat16, f"attention at {what}")
         t = timed(f"attention, {what}", call, "flash_tc_kernel", timings)
         p_ms = cuda_ms(plain, reps=2, warmup=1)
         qt = q.transpose(1, 2)
         kt, vt = (a.repeat_interleave(H // KV, dim=2).transpose(1, 2) for a in (k, v))
-        if W == 0 and P == 0 and Lq == Lk:
+        if not C and W == 0 and P == 0:
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+        elif W == 0 and P == 0 and Lq == Lk:
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         else:
             mask = spec.block(0, Lq, Lk, dev)[None]
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
         lib_err = float((sdpa().transpose(1, 2).double() - call().double()).abs().max())
         lib_ms = cuda_ms(sdpa, reps=3, warmup=1)
-        pairs = visible_pairs(Lq, Lk, W, P)
+        pairs = visible_pairs(Lq, Lk, W, P, C)
         nbytes, nops = 2 * (2 * B * Lq * H * D + 2 * B * Lk * KV * D), 4 * D * B * H * pairs
         bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
         out[what] = {**t, "plain_ms": p_ms, "sdpa_ms": lib_ms, "sdpa_vs_kernel_max_abs": lib_err,
                      "bound_ms": bound, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S > nops / BF16_OPS_PER_S
                      else "operations", "max_abs_err": err, "allowance_share": share, "shape": [B, H, KV, Lq, Lk, D],
-                     "window": W, "prefix": P}
-        log(f"attention, {what} [{B}, {H} H / {KV} KV, {Lq}, {Lk}, {D}], window {W}, prefix {P}, bf16: call "
+                     "causal": C, "window": W, "prefix": P}
+        log(f"attention, {what} [{B}, {H} H / {KV} KV, {Lq}, {Lk}, {D}], {'causal' if C else 'unmasked'}, "
+            f"window {W}, prefix {P}, bf16: call "
             f"{t['ms']:.4f} ms (kernel alone {fmt_ms(t['kernel_ms'])}), plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
             f"(max |d| vs the kernel {lib_err:.3g}), bound {bound:.4f} ms ({pairs} visible pairs a head), share "
             f"{bound / t['ms']:.3f}; max |d| vs plain {err:.3g} ({share:.3g} of the allowance)")
@@ -2744,7 +2820,7 @@ def main() -> int:
             row["launches_serving"] = serving["launches"]
 
     # 6. full size, LM serving ----------------------------------------------------
-    lm = [lm_full(dev, arch, depth, T, cut) for arch, depth, T, cut in LM_CONFIGS]
+    lm = [lm_full(dev, arch, depth, T, cut, L) for arch, depth, T, cut, L in LM_CONFIGS]
     lm_counts = {name: sum(r["launches"][name] for r in lm) for name in ("flash_attention", "ssd_scan")}
     counts.update(lm_counts)
     lm_shapes = lm_kernel_rows(dev, lm_counts, kernel_row, timings)

@@ -2,13 +2,12 @@
 
 ``ArchConfig`` is the reference's field for field, with its defaults,
 so a config moves between the packages unchanged
-(``ArchConfig(**dataclasses.asdict(jax_cfg))``). The registry holds the
-configurations whose layer kinds the port runs, every decoder-only one of
-the reference: smollm-135m and qwen1.5-4b (``dense``), gemma3-12b and
-gemma3-27b (``local`` / ``global``), mamba2-780m (``ssm``), hymba-1.5b
-(``hybrid``), deepseek-moe-16b and deepseek-v3-671b (``moe``, the latter
-with MLA). whisper-large-v3 and llama-3.2-vision-90b wait for the
-``enc`` / ``dec`` / ``cross`` kinds (ROADMAP.md Queue 1 item 17).
+(``ArchConfig(**dataclasses.asdict(jax_cfg))``). The registry holds all
+ten of the reference's configurations: smollm-135m and qwen1.5-4b
+(``dense``), gemma3-12b and gemma3-27b (``local`` / ``global``),
+mamba2-780m (``ssm``), hymba-1.5b (``hybrid``), deepseek-moe-16b and
+deepseek-v3-671b (``moe``, the latter with MLA), whisper-large-v3
+(``enc`` / ``dec``) and llama-3.2-vision-90b (``dense`` / ``cross``).
 """
 from __future__ import annotations
 
@@ -199,10 +198,7 @@ def get_config(name: str) -> ArchConfig:
     if not _REGISTRY:
         _load_all()
     if name not in _REGISTRY:
-        raise KeyError(
-            f"{name!r} is not ported to repro_torch (registered: {sorted(_REGISTRY)}); "
-            "ROADMAP.md Queue 1 item 17 lists the layer kinds still to port"
-        )
+        raise KeyError(f"unknown config {name!r} (registered: {sorted(_REGISTRY)})")
     return _REGISTRY[name]
 
 
@@ -214,8 +210,8 @@ def all_configs() -> Dict[str, ArchConfig]:
 
 def _load_all():
     from . import (  # noqa: F401
-        deepseek_moe_16b, deepseek_v3_671b, gemma3_12b, gemma3_27b, hymba_1_5b, mamba2_780m,
-        qwen1_5_4b, smollm_135m,
+        deepseek_moe_16b, deepseek_v3_671b, gemma3_12b, gemma3_27b, hymba_1_5b,
+        llama_3_2_vision_90b, mamba2_780m, qwen1_5_4b, smollm_135m, whisper_large_v3,
     )
 
 

@@ -60,6 +60,27 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
+def _stage_leaves(stages, key: str, prefix: str, flat: dict, source: dict) -> None:
+    """The reference's ``stages`` (or ``enc_stages``): stage s, group g, cycle
+    slot j -> ``{prefix}.{i}``, i counting in that order."""
+    i = 0
+    for si, stage in enumerate(stages):
+        slots = [stage[f"l{j}"] for j in range(len(stage))]
+        n_groups = np.shape(next(_leaves(stage))[1])[0]
+        for g in range(n_groups):
+            for j, tree in enumerate(slots):
+                for path, leaf in _leaves(tree):
+                    where = f"{key}[{si}].l{j}.{path}"
+                    if np.shape(leaf)[:1] != (n_groups,):
+                        raise ValueError(f"{where}: shape {np.shape(leaf)} lacks the group axis {n_groups}")
+                    name = f"{prefix}.{i}.{path}"
+                    flat[name], source[name] = np.asarray(leaf)[g], f"{where}[{g}]"
+                i += 1
+
+
+_STAGES = {"stages": "layers", "enc_stages": "enc_layers"}
+
+
 def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
     """The reference's LM param pytree -> the port's ``Model`` state dict.
 
@@ -67,37 +88,27 @@ def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
     ``embed`` / ``unembed`` / ``final_norm`` and ``stages``, a list with one
     dict per stage whose leaves are stacked ``[n_groups, ...]`` over the
     stage's cycle ``l0, l1, ...``. Stage s, group g, cycle slot j becomes
-    layer ``layers.{i}``, i counting in that order; every leaf below a slot
-    keeps its path (hybrid's ``gate_attn``, ``moe.experts.w1``, MLA's
-    ``attn.wuk``), and top-level leaves (hymba's ``meta``) keep their names.
-    bf16 leaves (deepseek-v3's ``param_dtype``) arrive unchanged: the f32
-    step between holds every bf16 value exactly. Raises ``KeyError`` on
-    a missing or unexpected leaf and ``ValueError`` on a shape mismatch,
-    naming the leaf's path in the reference's pytree.
+    layer ``layers.{i}``, i counting in that order; whisper's
+    ``enc_stages`` become ``enc_layers.{i}`` in the same order. Every leaf
+    below a slot keeps its path (hybrid's ``gate_attn``,
+    ``moe.experts.w1``, MLA's ``attn.wuk``, cross's ``xgate``), and
+    top-level leaves (hymba's ``meta``, whisper's ``enc_norm``) keep their
+    names. bf16 leaves (deepseek-v3's ``param_dtype``) arrive unchanged:
+    the f32 step between holds every bf16 value exactly. Raises
+    ``KeyError`` on a missing or unexpected leaf and ``ValueError`` on a
+    shape mismatch, naming the leaf's path in the reference's pytree.
     """
     from .models.model import Model
 
     want = Model(cfg, "meta").state_dict()
     flat, source = {}, {}
     for top, tree in params.items():
-        if top == "stages":
+        if top in _STAGES:
+            _stage_leaves(tree, top, _STAGES[top], flat, source)
             continue
         for path, leaf in _leaves(tree):
             name = f"{top}.{path}" if path else top
             flat[name], source[name] = leaf, name
-    i = 0
-    for si, stage in enumerate(params.get("stages", [])):
-        slots = [stage[f"l{j}"] for j in range(len(stage))]
-        n_groups = np.shape(next(_leaves(stage))[1])[0]
-        for g in range(n_groups):
-            for j, tree in enumerate(slots):
-                for path, leaf in _leaves(tree):
-                    where = f"stages[{si}].l{j}.{path}"
-                    if np.shape(leaf)[:1] != (n_groups,):
-                        raise ValueError(f"{where}: shape {np.shape(leaf)} lacks the group axis {n_groups}")
-                    name = f"layers.{i}.{path}"
-                    flat[name], source[name] = np.asarray(leaf)[g], f"{where}[{g}]"
-                i += 1
     for name in want:
         if name not in flat:
             raise KeyError(f"missing leaf for {name} (config {cfg.name} wants {tuple(want[name].shape)})")

@@ -1,16 +1,19 @@
 """Per-layer-kind block assembly (pre-norm residual blocks).
 
-Counterpart of ``repro/models/blocks.py`` for the decoder-only kinds:
+Counterpart of ``repro/models/blocks.py``:
 
   dense / local / global   self-attention (+window/theta variants) + MLP
   moe                      self-attention (MLA with ``use_mla``) + MoE FFN (shared + routed)
   ssm                      Mamba-2 block (no MLP when d_ff == 0)
   hybrid                   parallel attention + Mamba heads (Hymba) + MLP
+  cross                    gated cross-attention to the vision embeddings + MLP (llama-vision)
+  enc / dec                whisper's encoder (bidirectional) and decoder
+                           (causal self-attention, cross-attention to the encoder) blocks
 
 ``block_init(kind, gen, cfg, device)`` builds one layer's params;
 ``block_apply`` runs "prefill" (full sequence -> cache) or "decode" (one
-token + cache). The encoder-decoder and cross-attention kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+token + cache). ``enc`` layers run only inside ``Model._encode``, in
+prefill, and keep no cache.
 """
 from __future__ import annotations
 
@@ -24,25 +27,17 @@ from . import mamba as mb
 from . import mla
 from . import moe as moe_mod
 from .layers import (
-    attention_decode, attention_prefill, init_attention, init_mlp, init_rmsnorm,
-    mlp_apply, rmsnorm,
+    attention_decode, attention_prefill, cross_attention_decode, cross_attention_prefill,
+    encoder_attention, init_attention, init_mlp, init_rmsnorm, mlp_apply, rmsnorm,
 )
 
 ATTN_KINDS = ("dense", "local", "global")
-KINDS = ATTN_KINDS + ("ssm", "hybrid", "moe")
-_UNPORTED = {
-    "cross": "Queue 1 item 17 (cross / enc-dec)",
-    "enc": "Queue 1 item 17 (cross / enc-dec)",
-    "dec": "Queue 1 item 17 (cross / enc-dec)",
-}
+KINDS = ATTN_KINDS + ("ssm", "hybrid", "moe", "cross", "enc", "dec")
 
 
 def check_kind(kind: str) -> None:
-    if kind in KINDS:
-        return
-    if kind in _UNPORTED:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: ROADMAP.md {_UNPORTED[kind]}")
-    raise ValueError(kind)
+    if kind not in KINDS:
+        raise ValueError(kind)
 
 
 @dataclasses.dataclass
@@ -55,6 +50,7 @@ class Ctx:
     s_max: int = 0                              # cache capacity
     use_kernels: bool = True                    # prefill: the CUDA kernels (plain on the CPU)
     meta: Optional[torch.Tensor] = None         # hymba meta tokens [M, D]
+    cross_src: Optional[torch.Tensor] = None    # prefill: vision embeddings / encoder output [B, T, D]
 
 
 def _kind_attn_args(kind: str, cfg: ArchConfig):
@@ -94,6 +90,20 @@ def block_init(kind: str, gen, cfg: ArchConfig, device) -> dict:
             "ln2": init_rmsnorm(D, device),
             "mlp": init_mlp(gen, D, cfg.d_ff, cfg.act, device),
         }
+    if kind in ("cross", "enc"):
+        p = {
+            "ln1": init_rmsnorm(D, device), "attn": init_attention(gen, cfg, device),
+            "ln2": init_rmsnorm(D, device), "mlp": init_mlp(gen, D, cfg.d_ff, cfg.act, device),
+        }
+        if kind == "cross":                          # llama-vision's gate: tanh(0) shuts it at init
+            p["xgate"] = torch.zeros((D,), device=device)
+        return p
+    if kind == "dec":
+        return {
+            "ln1": init_rmsnorm(D, device), "attn": init_attention(gen, cfg, device),
+            "lnx": init_rmsnorm(D, device), "xattn": init_attention(gen, cfg, device),
+            "ln2": init_rmsnorm(D, device), "mlp": init_mlp(gen, D, cfg.d_ff, cfg.act, device),
+        }
     return {"ln1": init_rmsnorm(D, device), "ssm": mb.init_mamba(gen, cfg, device)}
 
 
@@ -112,6 +122,13 @@ def _ssm(p, h, ctx: Ctx, cache=None):
     if ctx.mode == "decode":
         return mb.mamba_decode(p, h, cache, ctx.cfg)
     return mb.mamba_prefill(p, h, ctx.cfg, use_kernels=ctx.use_kernels)
+
+
+def _cross_attn(p, h, ctx: Ctx, cache=None):
+    """Cross-attention over ``ctx.cross_src`` (prefill) or its cache (decode)."""
+    if ctx.mode == "decode":
+        return cross_attention_decode(p, h, cache)
+    return cross_attention_prefill(p, h, ctx.cross_src, ctx.cfg, use_kernels=ctx.use_kernels)
 
 
 def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
@@ -143,5 +160,22 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
                  + p["gate_ssm"].to(x.dtype) * rmsnorm(p["ssm_norm"], s))
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
         return x, {"attn": kv, "ssm": st}
+    if kind == "cross":
+        a, kv = _cross_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, cache)
+        x = x + torch.tanh(p["xgate"]).to(x.dtype) * a
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
+        return x, kv
+    if kind == "enc":
+        x = x + encoder_attention(p["attn"], rmsnorm(p["ln1"], x), cfg, use_kernels=ctx.use_kernels)
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
+        return x, None
+    if kind == "dec":
+        # self-attention at the config's theta (whisper: 0, no RoPE), then the encoder's output
+        a, kv = _self_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, "dense", None if cache is None else cache["self"])
+        x = x + a
+        a, xkv = _cross_attn(p["xattn"], rmsnorm(p["lnx"], x), ctx, None if cache is None else cache["cross"])
+        x = x + a
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
+        return x, {"self": kv, "cross": xkv}
     y, st = _ssm(p["ssm"], rmsnorm(p["ln1"], x), ctx, cache)
     return x + y, st

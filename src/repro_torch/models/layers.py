@@ -9,8 +9,11 @@ the ``*_apply`` functions read ``p["wq"]`` as the reference does.
 Prefill attention runs the hand-written CUDA kernel
 (``kernels/flash_attention``) where the reference keeps an einsum;
 ``gqa_attend`` (in the kernel's ``ref.py``) is the plain version, used
-by ``use_kernels=False`` and on the CPU. Decode attends one query
-against the cache in plain torch (``grouped_attend_one``), as the
+by ``use_kernels=False`` and on the CPU. The unmasked attentions (an
+encoder's self-attention, cross-attention over vision embeddings or an
+encoder's output, any Lq and Lk) take the same kernel with
+``causal=False``. Decode attends one query against the cache in plain
+torch (``grouped_attend_one``; cross-attention ``gqa_attend``), as the
 reference does. The mesh-only helpers
 (``seq_shard_qkv``, ``_pin_cache_layout``) do nothing on one device and
 are left out.
@@ -142,15 +145,29 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
-    q, k, v = _proj_heads(x, p["wq"]), _proj_heads(x, p["wk"]), _proj_heads(x, p["wv"])
+    return (_q_only(p, x), *_kv_for_cross(p, x, cfg))
+
+
+def _q_only(p, x: torch.Tensor) -> torch.Tensor:
+    """The query projection: bias and ``qnorm``, no RoPE."""
+    q = _proj_heads(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
     if "qnorm" in p:
         q = rmsnorm(p["qnorm"], q)
+    return q
+
+
+def _kv_for_cross(p, src: torch.Tensor, cfg: ArchConfig):
+    """k, v [B, T, KV, hd] from the source [B, T, D] (``x`` itself in
+    self-attention): bias and ``knorm``, no RoPE."""
+    k, v = _proj_heads(src, p["wk"]), _proj_heads(src, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(src.dtype)
+        v = v + p["bv"].to(src.dtype)
+    if "knorm" in p:
         k = rmsnorm(p["knorm"], k)
-    return q, k, v
+    return k, v
 
 
 def decode_mask(pos: int, s_max: int, window: int = 0, device=None, prefix: int = 0) -> torch.Tensor:
@@ -240,6 +257,38 @@ def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
     return attn_out(p, o), {"k": k, "v": v}
 
 
+def _attend_unmasked(q, k, v, use_kernels: bool) -> torch.Tensor:
+    """Every query sees every key, any Lq and Lk: the kernel with
+    ``causal=False``, or the plain version chunked by ``_auto_q_chunk``."""
+    if use_kernels:
+        return flash_attention(q, k, v, causal=False)
+    B, Sq, H, _ = q.shape
+    return gqa_attend(q, k, v, q_chunk=_auto_q_chunk(Sq, k.shape[1], B * H))
+
+
+def encoder_attention(p, x, cfg: ArchConfig, *, use_kernels: bool = True) -> torch.Tensor:
+    """Bidirectional self-attention of an encoder layer (the reference's
+    ``enc`` block): no mask, no RoPE, no cache."""
+    q, k, v = _qkv(p, x, cfg)
+    return attn_out(p, _attend_unmasked(q, k, v, use_kernels))
+
+
+def cross_attention_prefill(p, x, src, cfg: ArchConfig, *, use_kernels: bool = True):
+    """Queries from x [B, S, D], keys and values from the source [B, T, D]
+    (vision embeddings or the encoder's output), no mask; returns (out,
+    the cache {"k", "v"} [B, T, KV, hd], which decode reads unchanged)."""
+    q = _q_only(p, x)
+    k, v = _kv_for_cross(p, src, cfg)
+    return attn_out(p, _attend_unmasked(q, k, v, use_kernels)), {"k": k, "v": v}
+
+
+def cross_attention_decode(p, x, cache: dict):
+    """One-token cross-attention over the cached source k/v, no mask;
+    returns (out, the same cache)."""
+    o = gqa_attend(_q_only(p, x), cache["k"], cache["v"])
+    return attn_out(p, o), cache
+
+
 def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: int = 0,
                      theta: Optional[float] = None, prefix: int = 0):
     """One-token step. x [B, 1, D]; ``pos`` a Python int.
@@ -317,3 +366,18 @@ def embed(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
     return x @ p["table"].to(x.dtype).T
+
+
+def sinusoidal_positions(s: int, d: int, device=None) -> torch.Tensor:
+    """[s, d] f32 absolute positions (whisper's): sines of the angles, then cosines."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_at(pos: int, d: int, device=None) -> torch.Tensor:
+    """[d] f32: ``sinusoidal_positions`` at the one position ``pos``."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    ang = torch.tensor(float(pos), device=device) / (10_000.0 ** (dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

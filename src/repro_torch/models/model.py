@@ -5,10 +5,17 @@ stage's layers on a group axis and drives them with ``lax.scan``; here a
 ``Model`` is an ``nn.Module`` holding one ``nn.ModuleList`` of layers
 and runs them in a plain loop. Its state dict names are the reference's
 pytree paths with the stage/group axes flattened into a layer index
-(``layers.{i}.attn.wq``; hymba's meta tokens are ``meta``;
+(``layers.{i}.attn.wq``; hymba's meta tokens are ``meta``; whisper's
+encoder is ``enc_layers.{i}`` and ``enc_norm``, kept out of ``layers`` as
+the reference's ``build_stages`` keeps ``enc`` out of its stages;
 ``convert.lm_params_from_numpy`` carries the reference's params across).
-Caches are one dict per layer (hybrid: ``{"attn": ..., "ssm": ...}``),
-with the shapes of the reference's ``cache_struct`` minus its group axis.
+Caches are one dict per layer (hybrid: ``{"attn": ..., "ssm": ...}``;
+dec: ``{"self": ..., "cross": ...}``), with the shapes of the reference's
+``cache_struct`` minus its group axis.
+
+The modality frontends are stubs, as in the reference: a ``vlm`` config
+takes patch embeddings ``extras["vision_embeds"]`` [B, vision_tokens, D]
+and an ``encdec`` config frame embeddings ``extras["frames"]`` [B, T, D].
 """
 from __future__ import annotations
 
@@ -20,7 +27,10 @@ from torch import nn
 from ..configs.base import ArchConfig, _layer_kinds
 from ..device import as_tensor, resolve_device
 from .blocks import ATTN_KINDS, Ctx, block_apply, block_init, check_kind
-from .layers import ParamTree, embed, init_embedding, init_rmsnorm, rmsnorm, unembed
+from .layers import (
+    ParamTree, embed, init_embedding, init_rmsnorm, rmsnorm, sinusoidal_at, sinusoidal_positions,
+    unembed,
+)
 from .mamba import _dims
 
 
@@ -37,9 +47,11 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
-        self.kinds: List[str] = _layer_kinds(cfg)
-        for kind in self.kinds:
-            check_kind(kind)   # cross-attention and sinusoidal positions (enc/dec) raise here
+        kinds = _layer_kinds(cfg)
+        for kind in kinds:
+            check_kind(kind)
+        self.kinds: List[str] = [k for k in kinds if k != "enc"]
+        n_enc = len(kinds) - len(self.kinds)
         dev = resolve_device(device)
         gen = None if dev.type == "meta" else torch.Generator(device=dev)
         if gen is not None:
@@ -52,6 +64,9 @@ class Model(nn.Module):
             self.meta = nn.Parameter(torch.randn((cfg.meta_tokens, cfg.d_model), generator=gen, device=dev)
                                      .mul_(0.02), requires_grad=False)
         self.layers = nn.ModuleList(ParamTree(block_init(k, gen, cfg, dev)) for k in self.kinds)
+        if n_enc:
+            self.enc_layers = nn.ModuleList(ParamTree(block_init("enc", gen, cfg, dev)) for _ in range(n_enc))
+            self.enc_norm = ParamTree(init_rmsnorm(cfg.d_model, dev))
         self.final_norm = ParamTree(init_rmsnorm(cfg.d_model, dev))
         if cfg.param_dtype != "float32":
             self.to(getattr(torch, cfg.param_dtype))
@@ -60,22 +75,55 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm["scale"].device
 
-    def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed(self.embed, tokens, self.compute_dtype)
+    def _embed_in(self, tokens: torch.Tensor, pos=None) -> torch.Tensor:
+        x = embed(self.embed, tokens, self.compute_dtype)
+        if self.cfg.rope_theta <= 0:     # whisper: sinusoidal absolute positions
+            D = self.cfg.d_model
+            if pos is None:
+                sin = sinusoidal_positions(tokens.shape[1], D, x.device)
+            else:
+                sin = sinusoidal_at(pos, D, x.device)
+            x = x + sin.to(x.dtype)
+        return x
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder on stub frame embeddings [B, T, D]: sinusoids,
+        the ``enc`` layers (bidirectional), ``enc_norm``."""
+        x = frames.to(self.compute_dtype)
+        x = x + sinusoidal_positions(x.shape[1], self.cfg.d_model, x.device).to(x.dtype)
+        ctx = Ctx(cfg=self.cfg, mode="prefill", use_kernels=self.use_kernels)
+        for p in self.enc_layers:
+            x, _ = block_apply("enc", p, x, ctx)
+        return rmsnorm(self.enc_norm, x)
+
+    def _cross_src(self, extras):
+        """What the ``cross`` / ``dec`` layers attend to: the vision
+        embeddings (``vlm``) or the encoder's output (``encdec``); None for
+        the other families. Raises ``ValueError`` when the input is missing."""
+        key = {"vlm": "vision_embeds", "encdec": "frames"}.get(self.cfg.family)
+        if key is None:
+            return None
+        if not extras or extras.get(key) is None:
+            raise ValueError(f"{self.cfg.name} ({self.cfg.family}) needs extras[{key!r}] [B, T, d_model]")
+        src = as_tensor(extras[key], self.device, self.compute_dtype)
+        return self._encode(src) if key == "frames" else src
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(self.final_norm, x)
         return unembed(self.embed if self.cfg.tie_embeddings else self.unembed, x)
 
     @torch.no_grad()
-    def prefill(self, tokens, *, s_max: int):
-        """Run the prompt [B, S]; returns (last-token logits [B, V], caches)."""
+    def prefill(self, tokens, extras=None, *, s_max: int):
+        """Run the prompt [B, S]; returns (last-token logits [B, V], caches).
+        ``extras``: ``{"vision_embeds": ...}`` (vlm) or ``{"frames": ...}``
+        (encdec), as the reference's ``Model.prefill`` takes them."""
         tokens = as_tensor(tokens, self.device, torch.long)
         S = tokens.shape[1]
         if s_max < S:
             raise ValueError(f"s_max={s_max} < prompt length {S}")
         ctx = Ctx(cfg=self.cfg, mode="prefill", positions=torch.arange(S, device=self.device),
-                  s_max=s_max, use_kernels=self.use_kernels, meta=getattr(self, "meta", None))
+                  s_max=s_max, use_kernels=self.use_kernels, meta=getattr(self, "meta", None),
+                  cross_src=self._cross_src(extras))
         x = self._embed_in(tokens)
         caches = []
         for kind, p in zip(self.kinds, self.layers):
@@ -86,10 +134,11 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, caches, token, pos: int):
         """One token [B] for the whole batch at position ``pos``; returns
-        (logits [B, V], caches). Attention caches are updated in place."""
+        (logits [B, V], caches). Attention caches are updated in place;
+        cross-attention caches are read only."""
         token = as_tensor(token, self.device, torch.long)
         ctx = Ctx(cfg=self.cfg, mode="decode", pos=int(pos))
-        x = self._embed_in(token[:, None])
+        x = self._embed_in(token[:, None], pos=int(pos))
         new_caches = []
         for kind, p, c in zip(self.kinds, self.layers, caches):
             x, c = block_apply(kind, p, x, ctx, c)
@@ -117,6 +166,10 @@ class Model(nn.Module):
                     return {"ckv": torch.zeros((batch_size, s_max, cfg.kv_lora_rank), dtype=dt, device=dev),
                             "krope": torch.zeros((batch_size, s_max, cfg.qk_rope_dim), dtype=dt, device=dev)}
                 return attn_cache(s_max)
+            if kind == "cross":                  # the vision embeddings' k/v
+                return attn_cache(cfg.vision_tokens)
+            if kind == "dec":                    # its own tokens, then the encoder's frames
+                return {"self": attn_cache(s_max), "cross": attn_cache(cfg.encoder_frames)}
             if kind == "hybrid":                 # meta prefix + rolling window buffer
                 M, W = cfg.meta_tokens, cfg.local_window
                 return {"attn": attn_cache(M + min(W, s_max) if W else s_max + M),

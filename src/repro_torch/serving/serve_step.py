@@ -11,9 +11,10 @@ from ..models.model import Model
 
 
 @torch.no_grad()
-def greedy_generate(model: Model, tokens, *, steps: int, s_max: int) -> torch.Tensor:
-    """Prefill the prompts [B, S], then decode greedily; returns [B, steps] int32."""
-    logits, cache = model.prefill(tokens, s_max=s_max)
+def greedy_generate(model: Model, tokens, extras=None, *, steps: int, s_max: int) -> torch.Tensor:
+    """Prefill the prompts [B, S] (``extras``: ``Model.prefill``'s vision
+    embeddings or frames), then decode greedily; returns [B, steps] int32."""
+    logits, cache = model.prefill(tokens, extras, s_max=s_max)
     out = [torch.argmax(logits, -1)]
     pos = tokens.shape[1]
     for i in range(steps - 1):

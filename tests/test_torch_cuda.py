@@ -397,6 +397,9 @@ def _scaled_close(got, want, dtype):
     (1, 4, 4, 257, 257, 32, True, 100),    # window
     (1, 2, 1, 130, 250, 128, False, 0),    # unmasked
     (1, 2, 2, 65, 190, 256, True, 33),     # widest head dim
+    (1, 4, 2, 300, 77, 64, False, 0),      # unmasked, more queries than keys (cross-attention)
+    (2, 16, 2, 256, 128, 128, False, 0),   # unmasked, GQA 8:1 at hd 128, Lq = 2 Lk (llama-vision's)
+    (2, 4, 4, 150, 150, 64, False, 0),     # unmasked, Lq = Lk, ragged tiles (an encoder's)
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk, D, causal, window, dtype):
@@ -499,26 +502,41 @@ def test_ssd_scan_bf16_raises_on_shapes_it_does_not_take(cuda_device, P, N):
     assert ssd_ops.launches == n0
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "whisper-large-v3", "llama-3.2-vision-90b"])
 def test_lm_kernel_path_equals_plain_path(cuda_device, arch):
     """Reduced widths, f32, TF32 off: the kernel path and the plain path
-    generate the same greedy tokens, and the kernels were launched."""
+    generate the same greedy tokens, and the kernels were launched once an
+    attention or SSD layer (whisper: 2 encoder + 4 decoder layers over 300
+    frames, a decoder layer launching twice; llama-vision: [dense, cross] x
+    2 over 100 vision tokens, fewer keys than queries, its gates open)."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import _layer_kinds
     from repro_torch.models import Model
     from repro_torch.serving.serve_step import greedy_generate
 
     cfg = dataclasses.replace(get_config(arch), n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
-                              d_ff=512 if arch == "smollm-135m" else 0, vocab_size=4096, head_dim=64,
-                              compute_dtype="float32")
+                              d_ff=0 if arch == "mamba2-780m" else 512, vocab_size=4096, head_dim=64,
+                              compute_dtype="float32", encoder_layers=2 if arch == "whisper-large-v3" else 0,
+                              encoder_frames=300, vision_tokens=100 if arch == "llama-3.2-vision-90b" else 0,
+                              cross_attn_every=2 if arch == "llama-3.2-vision-90b" else 0)
     kern = Model(cfg, cuda_device, use_kernels=True, seed=1)
-    plain = Model(cfg, cuda_device, use_kernels=False, seed=1)
+    for p in kern.layers:
+        if "xgate" in p:
+            p["xgate"].fill_(1.0)
+    plain = Model(cfg, cuda_device, use_kernels=False)
+    plain.load_state_dict(kern.state_dict())
     toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 256))).to(cuda_device)
+    extras = None
+    if cfg.family in ("vlm", "encdec"):
+        n, key = (cfg.vision_tokens, "vision_embeds") if cfg.family == "vlm" else (cfg.encoder_frames, "frames")
+        extras = {key: torch.from_numpy(RNG.standard_normal((4, n, cfg.d_model)) * 0.1).float().to(cuda_device)}
+    want = sum(2 if k == "dec" else 1 for k in _layer_kinds(cfg))
     n0 = flash_ops.launches + ssd_ops.launches
-    a = greedy_generate(kern, toks, steps=8, s_max=272)
-    assert flash_ops.launches + ssd_ops.launches == n0 + 4
-    b = greedy_generate(plain, toks, steps=8, s_max=272)
+    a = greedy_generate(kern, toks, extras, steps=8, s_max=272)
+    assert flash_ops.launches + ssd_ops.launches == n0 + want
+    b = greedy_generate(plain, toks, extras, steps=8, s_max=272)
     assert torch.equal(a, b)
 
 

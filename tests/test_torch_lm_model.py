@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_configs as j_all_configs
 from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
 from repro.serving.serve_step import greedy_generate as j_greedy
 from repro_torch.configs import all_configs, get_config
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, _layer_kinds
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import Model, build_model
 from repro_torch.serving.serve_step import greedy_generate
@@ -143,16 +144,18 @@ def test_lm_params_from_numpy_errors():
 
 
 def test_registry_and_unported_kinds():
-    registered = ("smollm-135m", "mamba2-780m", "hymba-1.5b", "qwen1.5-4b", "gemma3-12b", "gemma3-27b",
-                  "deepseek-moe-16b", "deepseek-v3-671b")
-    for arch in registered:
+    """Every config of the reference is registered, equal to the reference's
+    field for field and in its parameter counts, and every layer kind is
+    ported: ``Model`` builds each reduced config on the CPU. An unknown
+    name raises ``KeyError``."""
+    names = sorted(j_all_configs())
+    assert len(names) == 10 and sorted(all_configs()) == names
+    for arch in names:
         assert get_config(arch) == ArchConfig(**dataclasses.asdict(j_get_config(arch))), arch
         assert get_config(arch).param_count() == j_get_config(arch).param_count(), arch
         assert get_config(arch).active_param_count() == j_get_config(arch).active_param_count(), arch
-    assert sorted(all_configs()) == sorted(registered)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-large-v3")
-    for arch, item in (("whisper-large-v3", "item 17"), ("llama-3.2-vision-90b", "item 17")):
         cfg = ArchConfig(**dataclasses.asdict(reduce_cfg(j_get_config(arch))))
-        with pytest.raises(NotImplementedError, match=item):
-            Model(cfg, "cpu")
+        model = Model(cfg, "cpu")
+        assert len(model.layers) + len(getattr(model, "enc_layers", ())) == len(_layer_kinds(cfg)), arch
+    with pytest.raises(KeyError, match="no-such-model"):
+        get_config("no-such-model")
