@@ -2,9 +2,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --traverse-ab [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --train-only
 
 The second form only times the traversal at a 256-row batch under each
-tile plan (``traverse_batch_ab``). The first:
+tile plan (``traverse_batch_ab``); the third runs 1, 2 and 7 below and
+prints no result line (its numbers go to ``artifacts/chip_smoke_train.json``).
+The first:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
@@ -151,7 +154,29 @@ tile plan (``traverse_batch_ab``). The first:
    ``scaled_dot_product_attention``, attention also at head dims 128
    and 256 (same batch, heads and length) and at ``LM_PATH_ATTENTION``'s
    shapes, the SSD scan at hymba's;
-7. the launch counts and one JSON line per the smoke contract, then
+7. LM training (``lm_train_phase``): (a) the attention backward kernel
+   (``csrc/flash_attention_bwd.cu``) on the forward kernel's out and lse
+   against ``attention_bwd_ref`` per element at ``LM_TOL``, f32 and bf16
+   each on its route, two calls bitwise equal, the lse against
+   ``gqa_attend_lse``: ``TRAIN_ATTENTION_SMALL`` (every mask kind, GQA,
+   head dims 20 to 256, lengths off the tiles) and ``TRAIN_ATTENTION_FULL``
+   (smollm's self-attention, whisper's encoder and cross-attention); (b) at
+   reduced widths in f32, ``loss_fn`` and every gradient leaf on the kernel
+   path against the plain path for smollm-135m, gemma3-12b, qwen1.5-4b,
+   deepseek-moe-16b, deepseek-v3-671b (MLA), whisper-large-v3 and
+   llama-3.2-vision-90b, launches per route counted, MoE routing equal;
+   (c) smollm-135m at published widths and depth, bf16 compute:
+   ``TokenPipeline`` batches of 8 x 2048 in 2 microbatches, 10 steps of
+   ``make_train_step`` with launch counts read around them (forward and
+   backward per route), the loss at each step, s/step, tokens/s and peak
+   memory; a checkpoint at step 5 restored and run to step 10 bitwise the
+   uninterrupted run; one microbatch's loss and gradients in f32 on the
+   kernel path against the plain path within 1e-2 of the scale; (d) the
+   backward kernel at the training shape beside its plain version, its
+   bound (10 D flops a visible pair) and SDPA's backward (the kernels
+   line's ``flash_attention_bwd`` row), the forward with and without its
+   lse in turns at that shape and at phase 6's prefill shape;
+8. the launch counts and one JSON line per the smoke contract, then
    the device line last. Each row's ``ms`` is CUDA events around the
    wrapper's whole call; ``kernel_ms`` is the kernel's own device time
    from the profiler, over ``launches_traced`` launches (None, "not
@@ -217,14 +242,15 @@ def cuda_ms(fn, reps=10, warmup=2):
 TRACE_MARGIN_S = 0.05     # host time the profiler's window runs before and after the traced calls
 
 
-def device_ms(fn, match, reps=10, warmup=2, sessions=3):
-    """Mean device milliseconds per launch of the kernels whose name holds
-    ``match``, from the profiler's trace of ``reps`` calls: the kernel's own
-    time, without the wrapper's host work and small copies. The profiler
+def device_ms(fn, match, reps=10, warmup=2, sessions=3, per_call=1):
+    """Mean device milliseconds per call of the kernels whose name holds
+    ``match`` (``per_call`` launches a call), from the profiler's trace of
+    ``reps`` calls: the kernels' own time, without the wrapper's host work
+    and small copies. The profiler
     keeps only device activity that falls inside its window on the host's
     clock, so the window opens ``TRACE_MARGIN_S`` before the first call
     and closes as long after the last one has finished. A trace that holds
-    other than ``reps`` launches is discarded and taken again, at most
+    other than ``reps * per_call`` launches is discarded and taken again, at most
     ``sessions`` times in all; no partial trace is ever averaged. Returns
     (ms or None when every trace was short, the sessions taken, the
     launches each trace held)."""
@@ -245,21 +271,21 @@ def device_ms(fn, match, reps=10, warmup=2, sessions=3):
         mine = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and match in e.key]
         n = sum(e.count for e in mine)
         held.append(n)
-        if n == reps:
-            return sum(e.self_device_time_total for e in mine) / n / 1e3, taken, held
-        log(f"the profiler's trace holds {n} launches of {match}, want {reps}: trace discarded")
+        if n == reps * per_call:
+            return sum(e.self_device_time_total for e in mine) / reps / 1e3, taken, held
+        log(f"the profiler's trace holds {n} launches of {match}, want {reps * per_call}: trace discarded")
     return None, sessions, held
 
 
-def timed(what, fn, match, record, reps=10):
+def timed(what, fn, match, record, reps=10, per_call=1):
     """The rows' times: ``ms``, CUDA events around ``reps`` whole calls
     (the wrapper's host work included), and ``kernel_ms``, the kernel's
     own device time from the profiler over as many launches
     (``launches_traced``), or None ("not measured", ``launches_traced``
     0) when no trace held them all. Both go to ``record[what]`` and the log."""
     ms = cuda_ms(fn, reps=reps)
-    kern, sessions, held = device_ms(fn, match, reps=reps)
-    t = {"ms": ms, "kernel_ms": kern, "launches_traced": reps if kern is not None else 0,
+    kern, sessions, held = device_ms(fn, match, reps=reps, per_call=per_call)
+    t = {"ms": ms, "kernel_ms": kern, "launches_traced": reps * per_call if kern is not None else 0,
          "trace_sessions": sessions, "launches_per_trace": held}
     record[what] = t
     log(f"{what}: CUDA events around the call {ms:.4f} ms, kernel device time "
@@ -314,9 +340,10 @@ def lm_close(got, want, dtype, what):
 
 def drift(got, want):
     """max |got - want| over max |want|: a whole model's drift, the
-    measure of the CPU parity tests."""
+    measure of the CPU parity tests (0 where both are all zeros)."""
     want = want.double()
-    return float((got.double() - want).abs().max()) / float(want.abs().max())
+    d = float((got.double() - want).abs().max())
+    return d / float(want.abs().max()) if d else 0.0
 
 
 def device_busy_share(fn):
@@ -437,8 +464,9 @@ def lm_extras(cfg, B, dev, gen):
 def open_gates(model):
     """Sets every ``xgate`` (llama-vision's cross layers) to LM_XGATE; returns how many."""
     gates = [p["xgate"] for p in model.layers if "xgate" in p]
-    for g in gates:
-        g.fill_(LM_XGATE)
+    with torch.no_grad():
+        for g in gates:
+            g.fill_(LM_XGATE)
     return len(gates)
 
 
@@ -824,6 +852,360 @@ def lm_path_shape_rows(dev, gen, timings):
             f"max |d| vs plain y {err:.3g} ({share:.3g}), h {err_h:.3g} ({share_h:.3g})")
         del x, loga, b, c, y, h, yp, hp
     return out
+
+
+# Phase 7: LM training. The attention backward against its plain version at
+# (B, H, KV, Lq, Lk, D, causal, window, prefix), ends aligned: small shapes
+# (every mask kind, GQA, head dims 24 to 256, lengths off the 64-row tiles),
+# then the full shapes of the training path and of whisper's attentions.
+TRAIN_ATTENTION_SMALL = [
+    (2, 9, 3, 200, 200, 64, True, 0, 0), (1, 4, 2, 77, 301, 32, True, 0, 0),
+    (1, 4, 4, 257, 257, 56, True, 100, 0), (1, 4, 2, 100, 164, 168, True, 30, 64),
+    (2, 2, 2, 130, 130, 128, True, 0, 70), (1, 4, 2, 300, 77, 64, False, 0, 0),
+    (1, 2, 1, 130, 250, 240, False, 0, 0), (1, 2, 2, 65, 190, 256, True, 33, 0),
+    (2, 16, 2, 150, 150, 24, False, 0, 0), (1, 3, 1, 70, 200, 20, True, 50, 100),
+]
+TRAIN_ATTENTION_FULL = {
+    "smollm-135m self-attention": (8, 9, 3, 2048, 2048, 64, True, 0, 0),
+    "whisper encoder (unmasked)": LM_PATH_ATTENTION["whisper encoder (unmasked)"],
+    "whisper cross-attention (unmasked)": LM_PATH_ATTENTION["whisper cross-attention (unmasked)"],
+}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 2048, 2, 10, 5
+
+
+def lm_backward_checks(dev):
+    """The backward kernel against ``attention_bwd_ref`` per element at
+    LM_TOL (f32 and bf16, each on its own route), on the forward kernel's
+    out and lse (lse also against ``gqa_attend_lse`` at f32's tolerance),
+    and two calls bitwise equal. Returns the largest allowance share per
+    dtype and the full shapes' shares."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref, gqa_attend_lse
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    worst, full = {}, {}
+    cases = [(None, c) for c in TRAIN_ATTENTION_SMALL] + list(TRAIN_ATTENTION_FULL.items())
+    for label, (B, H, KV, Lq, Lk, D, C, W, P) in cases:
+        spec = MaskSpec(C, W, Lk - Lq, P)
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"attention backward at {label or (B, H, KV, Lq, Lk, D, C, W, P)}, {dtype}"
+            q, do = (_randn(gen, (B, Lq, H, D), dev, dtype) for _ in range(2))
+            k, v = (_randn(gen, (B, Lk, KV, D), dev, dtype) for _ in range(2))
+            out, lse = flash_ops.flash_attention_lse(q, k, v, causal=C, window=W, prefix=P)
+            share = lm_close(lse, gqa_attend_lse(q, k, v, mask_spec=spec)[1], torch.float32, what + " lse")[1]
+            n_bf16, n_f32 = flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_f32
+            got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=C, window=W, prefix=P)
+            bf16 = dtype == torch.bfloat16
+            check((flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_f32) == (n_bf16 + bf16, n_f32 + (not bf16)),
+                  f"{what}: launched on the wrong route")
+            want = attention_bwd_ref(q, k, v, out, lse, do, spec)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(g.dtype == dtype and g.shape == w.shape, f"{what}: {name} {g.dtype} {tuple(g.shape)}")
+                share = max(share, lm_close(g, w, dtype, f"{what}: {name}")[1])
+            again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=C, window=W, prefix=P)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two calls differ")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), share)
+            if label:
+                full[f"{label} {dtype}"] = share
+            del q, do, k, v, out, lse, got, want, again
+        torch.cuda.empty_cache()
+    log("attention backward vs plain (largest share of the allowance used; every shape two calls bitwise "
+        f"equal): {worst}; full shapes {full}")
+    return {"worst_share": worst, "full_shapes": full}
+
+
+def train_attention_launches(cfg):
+    """(forward, backward) attention kernel launches of one ``loss_fn`` and its
+    backward: each decoder-side attention once forward and once backward, and
+    once more forward where ``cfg.remat`` recomputes the layer; each encoder
+    layer (never recomputed) once each way."""
+    from repro_torch.configs.base import _layer_kinds
+
+    kinds = _layer_kinds(cfg)
+    enc = sum(k == "enc" for k in kinds)
+    dec = attention_launches([k for k in kinds if k != "enc"], cfg.use_mla)
+    return dec * (1 if cfg.remat == "none" else 2) + enc, dec + enc
+
+
+def _train_batch(cfg, B, S, dev, gen):
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].clone()}
+    batch["targets"][0, :5] = -1
+    return {**batch, **(lm_extras(cfg, B, dev, gen) or {})}
+
+
+def lm_train_reduced(dev):
+    """Reduced widths, f32 (TF32 off): ``loss_fn`` and every gradient leaf on
+    the kernel path (forward and backward kernels, f32 routes) against the
+    plain path (``gqa_attend`` under autograd). MoE: the experts each path
+    routes to are recorded; rows where they differ would be masked."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_state
+
+    out = {}
+    for arch in ("smollm-135m", "gemma3-12b", "qwen1.5-4b", "deepseek-moe-16b", "deepseek-v3-671b",
+                 "whisper-large-v3", "llama-3.2-vision-90b"):
+        base = get_config(arch)
+        kw = dict(n_layers=len(base.pattern) or 4, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                  vocab_size=4096, compute_dtype="float32", param_dtype="float32",
+                  local_window=100 if base.local_window else 0)
+        if base.n_experts:
+            kw.update(n_experts=8, experts_per_token=2, moe_d_ff=128, dense_d_ff=512, capacity_factor=8.0)
+        if base.use_mla:
+            kw.update(q_lora_rank=64, kv_lora_rank=32, qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32)
+        if base.encoder_layers:
+            kw.update(encoder_layers=2, encoder_frames=300)
+        if base.vision_tokens:
+            kw.update(vision_tokens=100, cross_attn_every=2)
+        cfg = dataclasses.replace(base, **kw)
+        model = build_model(cfg, dev, seed=1)
+        open_gates(model)
+        init_state(model, AdamWConfig())
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        batch = _train_batch(cfg, 2, 256, dev, gen)
+        params = [p for _, p in model.named_parameters()]
+
+        def run(use_kernels):
+            model.use_kernels = use_kernels
+            for name in ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16",
+                         "launches_bwd_f32"):
+                setattr(flash_ops, name, 0)
+            with routing_recorded() as route:
+                loss, _ = model.loss_fn(batch)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+            counts = (flash_ops.launches_f32, flash_ops.launches_bwd_f32, flash_ops.launches_bf16,
+                      flash_ops.launches_bwd_bf16)
+            return float(loss.detach()), grads, route, counts
+
+        lk, gk, rk, ck = run(True)
+        lp, gp, rp, cp = run(False)
+        fwd, bwd = train_attention_launches(cfg)
+        check(ck == (fwd, bwd, 0, 0), f"{arch}: kernel path launches (f32 fwd, f32 bwd, bf16 fwd, bf16 bwd) {ck}, "
+              f"want ({fwd}, {bwd}, 0, 0)")
+        check(cp == (0, 0, 0, 0), f"{arch}: the plain path launched kernels {cp}")
+        agree = all(torch.equal(a, b) for a, b in zip(rk, rp))
+        check(agree, f"{arch}: MoE routing differs between the kernel and plain paths")
+        loss_rel = abs(lk - lp) / abs(lp)
+        leaves = {n: drift(a, b) for (n, _), a, b in zip(model.named_parameters(), gk, gp) if a is not None}
+        check(all((a is None) == (b is None) for a, b in zip(gk, gp)), f"{arch}: unused leaves differ")
+        worst = max(leaves, key=leaves.get)
+        check(loss_rel <= 1e-5 and leaves[worst] <= 1e-3,
+              f"{arch}: kernel vs plain loss {lk} / {lp}, worst leaf {worst} {leaves[worst]:.3g}")
+        out[arch] = {"loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel, "worst_leaf": worst,
+                     "worst_leaf_drift": leaves[worst], "leaves": len(leaves), "launches_fwd_bwd": [fwd, bwd],
+                     "moe_layers_routed": len(rk)}
+        del model, gk, gp, params
+        torch.cuda.empty_cache()
+    log("reduced LM training (4-6 layers, d 256, f32, batch 2 x 256): kernel vs plain loss_fn and gradients, "
+        "max |d| / max |plain| per leaf: " + ", ".join(
+            f"{a} loss {r['loss_rel']:.2g}, worst leaf {r['worst_leaf']} {r['worst_leaf_drift']:.3g}"
+            for a, r in out.items()))
+    return out
+
+
+def lm_train_full(dev):
+    """smollm-135m at published widths and depth, bf16 compute, f32 params:
+    ``TokenPipeline`` batches of 8 x 2048 in 2 microbatches, TRAIN_STEPS steps
+    with launch counts read around them; the same steps resumed from a
+    checkpoint at TRAIN_RESUME_AT, bitwise; one microbatch's loss and
+    gradients on the kernel path against the plain path in f32."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+
+    cfg = get_config("smollm-135m")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+    state0 = init_state(model, opt)
+    step = make_train_step(model, opt)
+    pipe, t_data = sync_time(lambda: TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, n_docs=512, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in pipe.batches(TRAIN_BATCH, TRAIN_STEPS, n_micro=TRAIN_MICRO)]
+    ckpt_dir = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), keep=1, save_interval=TRAIN_RESUME_AT)
+
+    for name in ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16", "launches_bwd_f32"):
+        setattr(flash_ops, name, 0)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_s, save_s = state0, [], [], None
+    for i, b in enumerate(batches):
+        (state, m), t = sync_time(lambda: step(state, b))
+        losses.append(float(m["loss"]))
+        step_s.append(t)
+        if i + 1 == TRAIN_RESUME_AT:
+            _, save_s = sync_time(lambda: mgr.maybe_save(state, i + 1))
+    peak = torch.cuda.max_memory_allocated()
+    routes = {"fwd_bf16": flash_ops.launches_bf16, "fwd_f32": flash_ops.launches_f32,
+              "bwd_bf16": flash_ops.launches_bwd_bf16, "bwd_f32": flash_ops.launches_bwd_f32}
+    fwd, bwd = train_attention_launches(cfg)
+    n_calls = TRAIN_STEPS * TRAIN_MICRO
+    check(routes == {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_f32": 0}
+          and flash_ops.launches == fwd * n_calls and flash_ops.launches_bwd == bwd * n_calls,
+          f"smollm training: launches per route {routes}, want {fwd * n_calls} forward and {bwd * n_calls} "
+          "backward, all bf16")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"smollm training: the loss did not fall {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = step_s[1:]
+    log(f"smollm-135m training ({cfg.n_layers} layers, d {cfg.d_model}, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICRO} microbatches, remat {cfg.remat}): losses {[round(x, 4) for x in losses]}, s/step "
+        f"{[round(x, 4) for x in step_s]} (first step with its warm-up), steady {np.mean(steady):.4f} s/step, "
+        f"{tokens / np.mean(steady):.1f} tokens/s, peak {peak / 2**30:.2f} GiB, launches {routes}, checkpoint "
+        f"save {save_s:.3f} s")
+
+    # where one step's device time goes: the step once more under the profiler
+    breakdown = train_step_breakdown(lambda: step(state, batches[0]))
+
+    # resume: restore step TRAIN_RESUME_AT into the state's form, run on to the end
+    restored, at = mgr.restore_latest_valid(state0)
+    check(at == TRAIN_RESUME_AT and restored.step == at, f"restored step {at}")
+    resumed = restored
+    resumed_losses = []
+    for b in batches[at:]:
+        resumed, m = step(resumed, b)
+        resumed_losses.append(float(m["loss"]))
+    same = resumed_losses == losses[at:] and resumed.step == state.step
+    for n in state.params:
+        same &= torch.equal(resumed.params[n], state.params[n]) and torch.equal(
+            resumed.opt["m"][n], state.opt["m"][n]) and torch.equal(resumed.opt["v"][n], state.opt["v"][n])
+    check(same, f"smollm training resumed at step {at}: not bitwise the uninterrupted run "
+          f"(losses {resumed_losses} vs {losses[at:]})")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"smollm training: restored at step {at} and run to step {TRAIN_STEPS}: losses, params and moments "
+        "bitwise the uninterrupted run")
+
+    # kernel path vs plain path, one microbatch in f32 (TF32 off)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state.params[n])
+    mb = {k: v[0] for k, v in batches[0].items()}
+    params = [p for _, p in model.named_parameters()]
+    model.compute_dtype = torch.float32
+    res = {}
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        n0 = flash_ops.launches_bwd_f32
+        loss, _ = model.loss_fn(mb)
+        res[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
+        check((flash_ops.launches_bwd_f32 > n0) == use_kernels, "f32 comparison: backward launches")
+    model.compute_dtype, model.use_kernels = torch.bfloat16, True
+    (lk, gk), (lp, gp) = res[True], res[False]
+    leaves = {n: drift(a, b) for (n, _), a, b in zip(model.named_parameters(), gk, gp)}
+    worst = max(leaves, key=leaves.get)
+    loss_drift = abs(lk - lp) / abs(lp)
+    check(loss_drift <= 1e-2 and leaves[worst] <= 1e-2,
+          f"smollm f32 kernel vs plain: loss {lk} / {lp}, worst leaf {worst} {leaves[worst]:.3g}")
+    log(f"smollm-135m full width, f32, one microbatch of {TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}: kernel vs "
+        f"plain loss {lk:.6f} / {lp:.6f} (rel {loss_drift:.3g}), worst gradient leaf {worst} {leaves[worst]:.3g}")
+    result = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "n_micro": TRAIN_MICRO, "remat": cfg.remat, "losses": losses, "step_s": step_s,
+              "steady_s_per_step": float(np.mean(steady)), "tokens_per_s": tokens / float(np.mean(steady)),
+              "peak_bytes": peak, "launches": routes, "checkpoint_save_s": save_s, "data_s": t_data,
+              "step_breakdown": breakdown,
+              "resumed_bitwise": True, "resumed_at": at,
+              "f32_kernel_vs_plain": {"loss_rel": loss_drift, "worst_leaf": worst, "worst_leaf_drift": leaves[worst]}}
+    del model, state, state0, restored, resumed, res, gk, gp, params
+    torch.cuda.empty_cache()
+    return result
+
+
+# Kernel-name substrings of a training step's device time, by group (the rest is "other").
+STEP_GROUPS = {"attention backward": ("bwd_delta", "bwd_dkdv", "bwd_dq"), "attention forward": ("flash_tc_kernel",),
+               "matmul": ("gemm", "Gemm", "nvjet", "xmma", "cutlass")}
+
+
+def train_step_breakdown(fn):
+    """One call of ``fn`` (a train step) under the profiler: its host seconds,
+    the card's busy share, device ms per ``STEP_GROUPS`` group and the eight
+    kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(fn)
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.self_device_time_total > 0]
+    groups = {g: 0.0 for g in (*STEP_GROUPS, "other")}
+    for name, ms, _ in kernels:
+        g = next((g for g, keys in STEP_GROUPS.items() if any(k in name for k in keys)), "other")
+        groups[g] += ms
+    busy = sum(groups.values())
+    top = [{"kernel": n[:90], "ms": ms, "launches": c} for n, ms, c in sorted(kernels, key=lambda k: -k[1])[:8]]
+    log(f"one training step under the profiler: {wall:.4f} s on the host clock, the card busy {busy / 1e3 / wall:.3f} "
+        "of it; device ms by group " + ", ".join(f"{g} {ms:.1f}" for g, ms in groups.items())
+        + "; top kernels " + "; ".join(f"{t['kernel'][:60]} {t['ms']:.1f} ms x{t['launches']}" for t in top))
+    return {"host_s": wall, "busy_share": busy / 1e3 / wall, "device_ms": groups, "top": top}
+
+
+def lm_backward_rows(dev, launches_bwd, kernel_row, timings):
+    """The backward kernel at the training path's shape (one microbatch of
+    smollm-135m, bf16) beside its plain version, its bound and SDPA's
+    backward; the forward kernel with and without its lse, in turns, at the
+    same shape and at phase 6's prefill shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref
+
+    sm = get_config("smollm-135m")
+    H, KV, D = sm.n_heads, sm.n_kv_heads, sm.hd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    fwd_lse = {}
+    for B in (TRAIN_BATCH // TRAIN_MICRO, LM_BATCH):
+        q = _randn(gen, (B, TRAIN_SEQ, H, D), dev, torch.bfloat16)
+        k, v = (_randn(gen, (B, TRAIN_SEQ, KV, D), dev, torch.bfloat16) for _ in range(2))
+        with torch.no_grad():
+            plain_fwd = lambda: flash_ops.flash_attention(q, k, v)
+            with_lse = lambda: flash_ops.flash_attention_lse(q, k, v)
+            turns = [cuda_ms(f) for f in (plain_fwd, with_lse, with_lse, plain_fwd)]
+        fwd_lse[B] = {"without_lse_ms": [turns[0], turns[3]], "with_lse_ms": [turns[1], turns[2]]}
+        log(f"attention forward [{B}, {H} H / {KV} KV, {TRAIN_SEQ}, {TRAIN_SEQ}, {D}] bf16 causal, in turns: without "
+            f"lse {turns[0]:.4f} / {turns[3]:.4f} ms, with lse {turns[1]:.4f} / {turns[2]:.4f} ms")
+        del q, k, v
+
+    B = TRAIN_BATCH // TRAIN_MICRO
+    L = TRAIN_SEQ
+    q, do = (_randn(gen, (B, L, H, D), dev, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, (B, L, KV, D), dev, torch.bfloat16) for _ in range(2))
+    out, lse = flash_ops.flash_attention_lse(q, k, v)
+    call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do)
+    plain = lambda: attention_bwd_ref(q, k, v, out, lse, do, MaskSpec())
+    got, want = call(), plain()
+    err = max(max_abs(g, w) for g, w in zip(got, want))
+    share = max(lm_close(g, w, torch.bfloat16, f"attention backward at the training shape: {n}")[1]
+                for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    t = timed("attention backward (smollm training shape)", call, "bwd_d", timings, per_call=3)
+    p_ms = cuda_ms(plain, reps=2, warmup=1)
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+    lib_err = max(float((a.transpose(1, 2).double() - b.double()).abs().max()) for a, b in zip(lib(), got))
+    lib_ms = cuda_ms(lib)
+    pairs = visible_pairs(L, L, 0, 0)
+    nbytes = 2 * (4 * B * L * H * D + 4 * B * L * KV * D) + 4 * B * H * L   # q, o, do, dq; k, v, dk, dv; lse
+    kernel_row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "none: no TPU kernel; the reference differentiates its einsum attention with XLA "
+               "(src/repro/models/layers.py:277)", launches_bwd, err, t, p_ms, nbytes, 10 * D * B * H * pairs,
+               lib_ms, BF16_OPS_PER_S)
+    log(f"attention backward [{B}, {H} H / {KV} KV, {L}, {L}, {D}] bf16 causal: call {t['ms']:.4f} ms (kernels "
+        f"alone {fmt_ms(t['kernel_ms'])}), SDPA backward {lib_ms:.4f} ms (max |d| vs the kernel {lib_err:.3g}), "
+        f"plain {p_ms:.4f} ms; kernel vs plain max |d| {err:.3g} ({share:.3g} of the allowance)")
+    del q, do, k, v, out, lse, got, want, qt, kt, vt, o_lib
+    torch.cuda.empty_cache()
+    return {"forward_lse_turns": fwd_lse, "sdpa_bwd_vs_kernel_max_abs": lib_err, "allowance_share": share}
 
 
 def traverse_checks(dev):
@@ -2470,7 +2852,18 @@ def tensor_core_sass():
     return counts
 
 
-def main() -> int:
+def lm_train_phase(dev, kernel_row, timings):
+    """Phase 7: the backward kernel's checks, reduced kernel-vs-plain
+    training, smollm-135m at full width (its launch counts read around its
+    TRAIN_STEPS steps), and the backward kernel's row of the kernels line."""
+    checks = lm_backward_checks(dev)
+    reduced = lm_train_reduced(dev)
+    full = lm_train_full(dev)
+    rows = lm_backward_rows(dev, full["launches"]["bwd_bf16"], kernel_row, timings)
+    return {"backward_checks": checks, "reduced": reduced, "smollm": full, "backward": rows}
+
+
+def main(train_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2513,6 +2906,30 @@ def main() -> int:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
     hgmma = tensor_core_sass()
+    rows, timings = [], {}
+
+    def kernel_row(name, src, replaces, launches, err, t, plain_ms, nbytes, nops, library_ms,
+                   ops_per_s=F32_OPS_PER_S):
+        """One row of the kernels line; ``t`` from ``timed``."""
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / ops_per_s * 1e3
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms, "kernel_ms": t["kernel_ms"], "launches_traced": t["launches_traced"]}
+        rows.append(row)
+        log(f"{name}: {row['ms']:.4f} ms (kernel alone {fmt_ms(row['kernel_ms'])}; plain {plain_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}, of the "
+            f"kernel alone {bound_share(row['bound_ms'], row['kernel_ms'])}, library {library_ms}) max|d| {err:.3g}")
+
+    if train_only:
+        train = lm_train_phase(dev, kernel_row, timings)
+        (ROOT / "artifacts").mkdir(exist_ok=True)
+        (ROOT / "artifacts" / "chip_smoke_train.json").write_text(json.dumps(
+            {"kernels": rows, "lm_train": train, "card": smi, "timings": timings}, indent=1))
+        log(json.dumps({"kernels": rows}))
+        log(smi)
+        return 0
 
     rng = np.random.default_rng(0)
 
@@ -2659,7 +3076,6 @@ def main() -> int:
     xbe, stages["predict_binning"] = sync_time(lambda: apply_bins(torch.from_numpy(xte).to(dev), edges_t))
     _, stages["predict"] = sync_time(lambda: predict(forest, xbe))
     log("stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    rows, timings = [], {}
     reuse = reuse_phase(dev, xbt, yt, wt, fmask, rcfg, forest, timings)
 
     # kernels at the main path's shapes: the first growth level's slab
@@ -2670,20 +3086,6 @@ def main() -> int:
     base = class_channels(yt, C)
     slot0 = torch.zeros((k, Ntr), dtype=torch.int32, device=dev)
     fmask_s = fmask[:, :W].contiguous()
-
-    def kernel_row(name, src, replaces, launches, err, t, plain_ms, nbytes, nops, library_ms,
-                   ops_per_s=F32_OPS_PER_S):
-        """One row of the kernels line; ``t`` from ``timed``."""
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / ops_per_s * 1e3
-        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms, "kernel_ms": t["kernel_ms"], "launches_traced": t["launches_traced"]}
-        rows.append(row)
-        log(f"{name}: {row['ms']:.4f} ms (kernel alone {fmt_ms(row['kernel_ms'])}; plain {plain_ms:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}, of the "
-            f"kernel alone {bound_share(row['bound_ms'], row['kernel_ms'])}, library {library_ms}) max|d| {err:.3g}")
 
     # The kernel's time excludes the per-level slot ordering, timed beside it.
     hist_shapes, level_hists = {}, {}
@@ -2828,7 +3230,16 @@ def main() -> int:
         if row["name"] in lm_counts:
             row["launches_per_config"] = {r["arch"]: r["launches"][row["name"]] for r in lm}
 
-    # 7. results ------------------------------------------------------------------
+    # 7. LM training --------------------------------------------------------------
+    train, t_train = sync_time(lambda: lm_train_phase(dev, kernel_row, timings))
+    train["phase_s"] = t_train
+    log(f"LM training phase (7): {t_train:.1f} s")
+    counts["flash_attention_bwd"] = train["smollm"]["launches"]["bwd_bf16"]
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches_train"] = train["smollm"]["launches"]["fwd_bf16"]
+
+    # 8. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
               "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": lm_shapes["wide_d"],
@@ -2836,7 +3247,7 @@ def main() -> int:
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
               "streamed": streamed, "checkpoints": checkpoints, "regression": regression, "mesh": mesh,
-              "multiproc": multiproc, "serving": serving, "timings": timings}
+              "multiproc": multiproc, "serving": serving, "lm_train": train, "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
@@ -2863,5 +3274,7 @@ if __name__ == "__main__":
                     help="only time the traversal at a 256-row batch under each tile plan (see traverse_batch_ab)")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="with --traverse-ab: the src directory to import repro_torch from")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only the card, the build and phase 7 (LM training); no result line")
     args = ap.parse_args()
-    sys.exit(traverse_batch_ab(args.src) if args.traverse_ab else main())
+    sys.exit(traverse_batch_ab(args.src) if args.traverse_ab else main(args.train_only))

@@ -140,9 +140,11 @@ def _unflatten(tree, leaves: dict, prefix: str = ""):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """One leaf as the numpy array it is saved as (a device copy for a tensor)."""
+    """One leaf as the numpy array it is saved as (a device copy for a tensor;
+    bfloat16, which numpy lacks, as its bits in int16)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        return (leaf.view(torch.int16) if leaf.dtype == torch.bfloat16 else leaf).cpu().numpy()
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32)
     return np.asarray(leaf)
@@ -155,7 +157,10 @@ def _from_host(arr: np.ndarray, like, device, placed=None):
     if placed is not None:
         return placed
     if isinstance(like, torch.Tensor):
-        return torch.from_numpy(arr).to(like.device if device is None else device)
+        t = torch.from_numpy(arr)
+        if like.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        return t.to(like.device if device is None else device)
     if isinstance(like, int):
         return int(arr)
     return arr

@@ -7,7 +7,9 @@ model trained by the JAX reference loads here unchanged:
 jax_model.bin_edges, ForestConfig(**dataclasses.asdict(jax_cfg)), "cuda")``.
 
 LM parameters: ``lm_params_from_numpy(jax.tree.map(np.asarray, params), cfg)``
-gives a state dict for ``repro_torch.models.Model(cfg)``.
+gives a state dict for ``repro_torch.models.Model(cfg)`` (gradients carry
+the same way); ``lm_train_state_from_numpy`` carries a whole training
+state (params, AdamW moments, step).
 """
 from __future__ import annotations
 
@@ -81,6 +83,19 @@ def _stage_leaves(stages, key: str, prefix: str, flat: dict, source: dict) -> No
 _STAGES = {"stages": "layers", "enc_stages": "enc_layers"}
 
 
+def _flat_lm(params: dict):
+    """(flat {port name: leaf}, {port name: the reference's path}) of an LM pytree."""
+    flat, source = {}, {}
+    for top, tree in params.items():
+        if top in _STAGES:
+            _stage_leaves(tree, top, _STAGES[top], flat, source)
+            continue
+        for path, leaf in _leaves(tree):
+            name = f"{top}.{path}" if path else top
+            flat[name], source[name] = leaf, name
+    return flat, source
+
+
 def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
     """The reference's LM param pytree -> the port's ``Model`` state dict.
 
@@ -101,14 +116,7 @@ def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
     from .models.model import Model
 
     want = Model(cfg, "meta").state_dict()
-    flat, source = {}, {}
-    for top, tree in params.items():
-        if top in _STAGES:
-            _stage_leaves(tree, top, _STAGES[top], flat, source)
-            continue
-        for path, leaf in _leaves(tree):
-            name = f"{top}.{path}" if path else top
-            flat[name], source[name] = leaf, name
+    flat, source = _flat_lm(params)
     for name in want:
         if name not in flat:
             raise KeyError(f"missing leaf for {name} (config {cfg.name} wants {tuple(want[name].shape)})")
@@ -122,3 +130,52 @@ def lm_params_from_numpy(params: dict, cfg: ArchConfig) -> dict:
             raise ValueError(f"{source[name]}: shape {a.shape}, the port's {name} wants {tuple(t.shape)}")
         out[name] = torch.from_numpy(np.array(a, copy=True)).to(t.dtype)
     return out
+
+
+def _moment(a) -> torch.Tensor:
+    """A moment leaf in its own storage dtype (bfloat16 or float32)."""
+    a = np.asarray(a)
+    dt = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(dt)
+
+
+def _unfactor_vectors(tree):
+    """In a stage's second moments, a factored stacked vector ({"vr" [G],
+    "vc" [D]} for a [G, D] leaf of one [D] vector a layer) becomes the full
+    [G, D] estimate its update reads, vr vc / mean(vr); stacked matrices
+    keep their per-layer factors."""
+    if isinstance(tree, dict):
+        if set(tree) == {"vr", "vc"} and np.ndim(tree["vr"]) == 1:
+            vr, vc = np.asarray(tree["vr"], np.float32), np.asarray(tree["vc"], np.float32)
+            return vr[:, None] * vc[None, :] / max(float(vr.mean()), 1e-30)
+        return {k: _unfactor_vectors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unfactor_vectors(v) for v in tree]
+    return tree
+
+
+def lm_train_state_from_numpy(params: dict, opt: dict, step, cfg: ArchConfig):
+    """The reference's ``TrainState`` (``params``, ``opt`` = {"m", "v",
+    "step"}, ``step``; numpy leaves) -> the port's ``training.TrainState``.
+    Params go through ``lm_params_from_numpy``; the moments keep their
+    dtype (f32 or bf16). A factored ``v`` leaf {"vr", "vc"} stays factored
+    per layer; a stage's stacked vectors, which the reference factors
+    across its layers and the port does not (``training/optimizer.py``),
+    carry as the full estimate the reference's next update reads."""
+    from .training.train_step import TrainState
+
+    sd = lm_params_from_numpy(params, cfg)
+    m, _ = _flat_lm(opt["m"])
+    v, _ = _flat_lm({k: (_unfactor_vectors(t) if k in _STAGES else t) for k, t in opt["v"].items()})
+    mom_m, mom_v = {}, {}
+    for n in sd:
+        mom_m[n] = _moment(m[n])
+        if n in v:
+            mom_v[n] = _moment(v[n])
+        elif f"{n}.vr" in v:
+            mom_v[n] = {"vr": _moment(v[f"{n}.vr"]), "vc": _moment(v[f"{n}.vc"])}
+        else:
+            raise KeyError(f"no second moment for {n}")
+    return TrainState(params=sd,
+                      opt={"m": mom_m, "v": mom_v, "step": int(np.asarray(opt["step"]))},
+                      step=int(np.asarray(step)))

@@ -7,7 +7,9 @@
 // j > pos_i - W; a prefix P > 0 keeps keys j < P visible to every query
 // whatever the other two say: hymba's meta tokens) to -1e30; running max
 // m, sum l and accumulator acc in f32 across key tiles; out = acc /
-// max(l, 1e-38) in q's dtype.
+// max(l, 1e-38) in q's dtype. Given an lse buffer, both kernels also write
+// each row's m + log l (natural units of the scaled logits), which the
+// backward kernel (flash_attention_bwd.cu) reads; prefill passes none.
 //
 // Layout is the model's: q/out [B, Lq, H, D], k/v [B, Lk, KV, D], so the
 // caller transposes nothing. Query head h reads KV head h / (H / KV): the
@@ -86,8 +88,8 @@ size_t smem_bytes(int D) {
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-             float* __restrict__ out, int Lq, int Lk, int H, int KV, int D, int causal,
-             int window, int prefix, float scale) {
+             float* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int H, int KV, int D,
+             int causal, int window, int prefix, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kBQ][D]
   float* ks = qs + kBQ * D;                  // [kBK][D + 1] (padded: column reads)
@@ -242,10 +244,12 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
       if (d < D) ob[(long long)(q0 + i) * q_step + d] = acc[r][c] / l;
     }
   }
+  if (lse != nullptr && tid < kBQ && q0 + tid < Lq)
+    lse[(long long)bh * Lq + q0 + tid] = row_m[tid] + logf(fmaxf(row_l[tid], 1e-38f));
 }
 
 template <int DMAX>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Lq, int Lk,
                int H, int KV, int D, int causal, int window, int prefix, float scale,
                cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
@@ -254,7 +258,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
   flash_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Lq, Lk, H, KV, D, causal,
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Lq, Lk, H, KV, D, causal,
       window, prefix, scale);
   return (int)cudaGetLastError();
 }
@@ -279,9 +283,9 @@ struct TcShape {
 template <int DP>
 __global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 3 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Lq,
-                int Lk, int H, int KV, int D, int causal, int window, int prefix,
-                float scale_log2) {
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, int Lq, int Lk, int H, int KV, int D, int causal, int window,
+                int prefix, float scale_log2) {
   using Sh = TcShape<DP>;
   constexpr int SW = Sh::SW, CW = Sh::CW, DC = Sh::DC, TILE = Sh::TILE, NV = Sh::NV;
   extern __shared__ uint8_t smem_raw[];
@@ -439,6 +443,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
     l[hf] = fmaxf(l[hf], 1e-38f);
   }
+  // m is in log2 units of the scaled logits: lse = m ln 2 + ln l, natural units
+  if (lse != nullptr && cq == 0) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r0 + 8 * hf;
+      if (row < Lq) lse[(long long)bh * Lq + row] = m[hf] * 0.6931471805599453f + logf(l[hf]);
+    }
+  }
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = q0 + r0 + 8 * hf;
@@ -463,7 +475,7 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int 
 }
 
 template <int DP>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int Lq, int Lk,
+int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Lq, int Lk,
               int H, int KV, int D, int causal, int window, int prefix, float scale,
               cudaStream_t stream) {
   using Sh = TcShape<DP>;
@@ -479,7 +491,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + kBQ - 1) / kBQ);
   flash_tc_kernel<DP><<<grid, kTcThreads, Sh::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, Lq, Lk, H, KV, D, causal, window, prefix,
+      tq, tk, tv, (__nv_bfloat16*)out, lse, Lq, Lk, H, KV, D, causal, window, prefix,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -488,16 +500,19 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int
 
 // q/out [B, Lq, H, D], k/v [B, Lk, KV, D]; the first `prefix` keys are
 // visible to every query. bf16 != 0: all four are bf16 (tensor cores; D a
-// multiple of 8, 16-byte aligned), else f32 (CUDA cores). D <= 256.
-extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, void* out, int B,
-                                  int Lq, int Lk, int H, int KV, int D, int causal, int window,
-                                  int prefix, float scale, int bf16, void* stream) {
+// multiple of 8, 16-byte aligned), else f32 (CUDA cores). D <= 256. lse
+// [B, H, Lq] f32, or null: each row's log-sum-exp of its scaled logits
+// (m + log l, natural units), which the backward kernel reads; null skips
+// the write.
+extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                  void* lse, int B, int Lq, int Lk, int H, int KV, int D, int causal,
+                                  int window, int prefix, float scale, int bf16, void* stream) {
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || prefix < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     if (Lk < 1 || D % 8 != 0) return (int)cudaErrorInvalidValue;
 #define FLASH_TC(DP) \
-  launch_tc<DP>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
+  launch_tc<DP>(q, k, v, out, (float*)lse, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
     if (D <= 32) return FLASH_TC(32);
     if (D <= 64) return FLASH_TC(64);
     if (D <= 128) return FLASH_TC(128);
@@ -506,7 +521,7 @@ extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, v
 #undef FLASH_TC
   }
 #define FLASH_F32(DMAX) \
-  launch_f32<DMAX>(q, k, v, out, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
+  launch_f32<DMAX>(q, k, v, out, (float*)lse, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
   if (D <= 64) return FLASH_F32(64);
   if (D <= 128) return FLASH_F32(128);
   return FLASH_F32(256);

@@ -22,6 +22,10 @@ block: its ``(sample x feature)`` block of a global one
 host-local rows this process read (the multi-process plane's
 ``launch/multiproc.MultiHostMesh.block_placement``, the reference's
 callable placement).
+
+``TokenPipeline`` is the LM trainer's data (numpy only, the reference's
+bit for bit): a synthetic corpus drawn once from the seed and batches
+gathered from it through a DSI index table per epoch.
 """
 from __future__ import annotations
 
@@ -723,3 +727,45 @@ class BlockFeeder:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    """Synthetic LM corpus and its batches, the reference's
+    (``repro/data/pipeline.py:TokenPipeline``) draw for draw: ``n_docs``
+    documents of ``seq_len + 1`` tokens from Zipf marginals, each token
+    following its predecessor's fixed successor with probability 1/2
+    (learnable bigrams), held once as ``corpus`` [n_docs, seq_len + 1] int32."""
+    vocab_size: int
+    seq_len: int
+    n_docs: int = 2048
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        probs = 1.0 / np.arange(1, self.vocab_size + 1) ** 1.1
+        probs /= probs.sum()
+        succ = rng.integers(0, self.vocab_size, self.vocab_size)
+        toks = rng.choice(self.vocab_size, (self.n_docs, self.seq_len + 1), p=probs)
+        follow = rng.random((self.n_docs, self.seq_len)) < 0.5
+        for t in range(1, self.seq_len + 1):
+            toks[:, t] = np.where(follow[:, t - 1], succ[toks[:, t - 1]], toks[:, t])
+        self.corpus = toks.astype(np.int32)          # the single shared copy
+
+    def dsi_epoch(self, epoch: int, batch: int, steps: int) -> np.ndarray:
+        """Index table [steps, batch] of document ids: the DSI analogue (no data copied)."""
+        rng = np.random.default_rng(self.seed * 1000 + epoch)
+        return rng.integers(0, self.n_docs, (steps, batch)).astype(np.int32)
+
+    def batch(self, dsi_row: np.ndarray) -> Dict[str, np.ndarray]:
+        """``tokens`` / ``targets`` [batch, seq_len]: the documents of one row, shifted by one."""
+        docs = self.corpus[dsi_row]
+        return {"tokens": docs[:, :-1], "targets": docs[:, 1:]}
+
+    def batches(self, batch: int, steps: int, *, epoch: int = 0,
+                n_micro: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+        """``steps`` batches with leaves [n_micro, batch / n_micro, seq_len]."""
+        table = self.dsi_epoch(epoch, batch, steps)
+        for s in range(steps):
+            b = self.batch(table[s])
+            yield {k: v.reshape(n_micro, batch // n_micro, *v.shape[1:]) for k, v in b.items()}

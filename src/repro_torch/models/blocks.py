@@ -11,9 +11,13 @@ Counterpart of ``repro/models/blocks.py``:
                            (causal self-attention, cross-attention to the encoder) blocks
 
 ``block_init(kind, gen, cfg, device)`` builds one layer's params;
-``block_apply`` runs "prefill" (full sequence -> cache) or "decode" (one
-token + cache). ``enc`` layers run only inside ``Model._encode``, in
-prefill, and keep no cache.
+``block_apply`` runs one of the reference's three modes: "train" (full
+sequence, no cache, under autograd), "prefill" (full sequence -> cache)
+or "decode" (one token + cache), and returns (x, cache, aux) as the
+reference does (aux: the MoE load-balance loss, 0.0 for other kinds).
+``enc`` layers run only inside ``Model._encode`` and keep no cache.
+``ssm`` and ``hybrid`` do not train yet: their SSD scan has no backward
+kernel (ROADMAP.md item 22), and "train" raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ from . import mamba as mb
 from . import mla
 from . import moe as moe_mod
 from .layers import (
-    attention_decode, attention_prefill, cross_attention_decode, cross_attention_prefill,
-    encoder_attention, init_attention, init_mlp, init_rmsnorm, mlp_apply, rmsnorm,
+    attention_decode, attention_prefill, attention_train, cross_attention_decode,
+    cross_attention_prefill, encoder_attention, init_attention, init_mlp, init_rmsnorm, mlp_apply,
+    rmsnorm,
 )
 
 ATTN_KINDS = ("dense", "local", "global")
@@ -44,13 +49,13 @@ def check_kind(kind: str) -> None:
 class Ctx:
     """Modal context threaded through block_apply."""
     cfg: ArchConfig
-    mode: str                                   # prefill | decode
-    positions: Optional[torch.Tensor] = None    # prefill: [S]
+    mode: str                                   # train | prefill | decode
+    positions: Optional[torch.Tensor] = None    # train / prefill: [S]
     pos: Optional[int] = None                   # decode: position of the new token
     s_max: int = 0                              # cache capacity
-    use_kernels: bool = True                    # prefill: the CUDA kernels (plain on the CPU)
+    use_kernels: bool = True                    # train / prefill: the CUDA kernels (plain on the CPU)
     meta: Optional[torch.Tensor] = None         # hymba meta tokens [M, D]
-    cross_src: Optional[torch.Tensor] = None    # prefill: vision embeddings / encoder output [B, T, D]
+    cross_src: Optional[torch.Tensor] = None    # train / prefill: vision embeddings / encoder output [B, T, D]
 
 
 def _kind_attn_args(kind: str, cfg: ArchConfig):
@@ -114,6 +119,9 @@ def _self_attn(p, h, ctx: Ctx, kind: str, cache=None):
     M = cfg.meta_tokens if kind == "hybrid" else 0
     if ctx.mode == "decode":
         return attention_decode(p, h, ctx.pos + M, cache, cfg, window=window, theta=theta, prefix=M)
+    if ctx.mode == "train":
+        return attention_train(p, h, ctx.positions, cfg, window=window, theta=theta,
+                               use_kernels=ctx.use_kernels), None
     return attention_prefill(p, h, ctx.positions, cfg, window=window, theta=theta, s_max=ctx.s_max,
                              use_kernels=ctx.use_kernels, meta=ctx.meta if M else None)
 
@@ -125,33 +133,39 @@ def _ssm(p, h, ctx: Ctx, cache=None):
 
 
 def _cross_attn(p, h, ctx: Ctx, cache=None):
-    """Cross-attention over ``ctx.cross_src`` (prefill) or its cache (decode)."""
+    """Cross-attention over ``ctx.cross_src`` (train, prefill) or its cache (decode)."""
     if ctx.mode == "decode":
         return cross_attention_decode(p, h, cache)
-    return cross_attention_prefill(p, h, ctx.cross_src, ctx.cfg, use_kernels=ctx.use_kernels)
+    out, kv = cross_attention_prefill(p, h, ctx.cross_src, ctx.cfg, use_kernels=ctx.use_kernels)
+    return out, None if ctx.mode == "train" else kv
 
 
 def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux); in "train" the cache is None."""
     check_kind(kind)
+    if ctx.mode == "train" and kind in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{kind} training waits for an SSD-scan backward kernel "
+                                  "(ROADMAP.md Queue 1 item 22)")
     cfg = ctx.cfg
     if kind in ATTN_KINDS:
         a, kv = _self_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, kind, cache)
         x = x + a
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
-        return x, kv
+        return x, kv, 0.0
     if kind == "moe":
         h = rmsnorm(p["ln1"], x)
         if not cfg.use_mla:
             a, kv = _self_attn(p["attn"], h, ctx, "dense", cache)
         elif ctx.mode == "decode":
             a, kv = mla.mla_decode(p["attn"], h, ctx.pos, cache, cfg)
+        elif ctx.mode == "train":
+            a, kv = mla.mla_train(p["attn"], h, ctx.positions, cfg), None
         else:
             a, kv = mla.mla_prefill(p["attn"], h, ctx.positions, cfg, s_max=ctx.s_max)
         x = x + a
         # One device: the reference's gspmd form (its shard_map form needs a mesh).
-        y, _ = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x), cfg)
-        return x + y, kv
+        y, aux = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x), cfg)
+        return x + y, kv, aux
     if kind == "hybrid":
         h = rmsnorm(p["ln1"], x)
         a, kv = _self_attn(p["attn"], h, ctx, "hybrid", None if cache is None else cache["attn"])
@@ -159,16 +173,16 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
         x = x + (p["gate_attn"].to(x.dtype) * rmsnorm(p["attn_norm"], a)
                  + p["gate_ssm"].to(x.dtype) * rmsnorm(p["ssm_norm"], s))
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
-        return x, {"attn": kv, "ssm": st}
+        return x, {"attn": kv, "ssm": st}, 0.0
     if kind == "cross":
         a, kv = _cross_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, cache)
         x = x + torch.tanh(p["xgate"]).to(x.dtype) * a
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
-        return x, kv
+        return x, kv, 0.0
     if kind == "enc":
         x = x + encoder_attention(p["attn"], rmsnorm(p["ln1"], x), cfg, use_kernels=ctx.use_kernels)
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
-        return x, None
+        return x, None, 0.0
     if kind == "dec":
         # self-attention at the config's theta (whisper: 0, no RoPE), then the encoder's output
         a, kv = _self_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, "dense", None if cache is None else cache["self"])
@@ -176,6 +190,6 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
         a, xkv = _cross_attn(p["xattn"], rmsnorm(p["lnx"], x), ctx, None if cache is None else cache["cross"])
         x = x + a
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
-        return x, {"self": kv, "cross": xkv}
+        return x, (None if ctx.mode == "train" else {"self": kv, "cross": xkv}), 0.0
     y, st = _ssm(p["ssm"], rmsnorm(p["ln1"], x), ctx, cache)
-    return x + y, st
+    return x + y, st, 0.0

@@ -14,9 +14,16 @@ encoder's self-attention, cross-attention over vision embeddings or an
 encoder's output, any Lq and Lk) take the same kernel with
 ``causal=False``. Decode attends one query against the cache in plain
 torch (``grouped_attend_one``; cross-attention ``gqa_attend``), as the
-reference does. The mesh-only helpers
-(``seq_shard_qkv``, ``_pin_cache_layout``) do nothing on one device and
-are left out.
+reference does.
+
+Training (``attention_train``, and the unmasked attentions under
+autograd) takes the same entry point: with grad enabled,
+``flash_attention`` runs ``FlashAttentionFn``, the forward kernel with
+its log-sum-exp and the hand-written backward kernel, where the
+reference differentiates its einsums; ``use_kernels=False`` runs
+``gqa_attend`` under autograd. The mesh-only helpers (``seq_shard_qkv``,
+``_pin_cache_layout``) do nothing on one device and are left out
+(ROADMAP.md item 13).
 """
 from __future__ import annotations
 
@@ -255,6 +262,25 @@ def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
             k = F.pad(k, (0, 0, 0, 0, 0, pad))
             v = F.pad(v, (0, 0, 0, 0, 0, pad))
     return attn_out(p, o), {"k": k, "v": v}
+
+
+def attention_train(p, x, positions, cfg: ArchConfig, *, window: int = 0,
+                    theta: Optional[float] = None, use_kernels: bool = True) -> torch.Tensor:
+    """Full-sequence causal (windowed) self-attention without a cache: the
+    training forward (the reference's ``attention_train`` without
+    ``cross_src``; cross-attention trains through ``cross_attention_prefill``).
+    Differentiable on both paths."""
+    theta = cfg.rope_theta if theta is None else theta
+    q, k, v = _qkv(p, x, cfg)
+    q = rope_apply(q, positions, theta)
+    k = rope_apply(k, positions, theta)
+    if use_kernels:
+        o = flash_attention(q, k, v, causal=True, window=window)
+    else:
+        B, S, _ = x.shape
+        o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window),
+                       q_chunk=_auto_q_chunk(S, S, B * cfg.n_heads))
+    return attn_out(p, o)
 
 
 def _attend_unmasked(q, k, v, use_kernels: bool) -> torch.Tensor:

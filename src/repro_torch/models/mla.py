@@ -83,6 +83,13 @@ def _attend(p, q_nope, q_rope, ckv, k_rope, cfg: ArchConfig, mask=None,
     return o.reshape(B, Sq, H_ * vd) @ p["wo"].reshape(H_ * vd, D).to(o.dtype)
 
 
+def mla_train(p, x, positions, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence causal MLA without a cache (plain, under autograd)."""
+    q_nope, q_rope = _q_proj(p, x, positions, cfg)
+    ckv, k_rope = _kv_latent(p, x, positions, cfg)
+    return _attend(p, q_nope, q_rope, ckv, k_rope, cfg, mask_spec=MaskSpec(causal=True))
+
+
 def mla_prefill(p, x, positions, cfg: ArchConfig, *, s_max: Optional[int] = None):
     """Returns (out, cache {"ckv" [B, S_max, kvr], "krope" [B, S_max, rd]})."""
     q_nope, q_rope = _q_proj(p, x, positions, cfg)

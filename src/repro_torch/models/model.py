@@ -1,4 +1,4 @@
-"""Model assembly: embed, layers, final norm; prefill and greedy decode.
+"""Model assembly: embed, layers, final norm; the training loss, prefill and greedy decode.
 
 Counterpart of ``repro/models/model.py``. The reference stacks each
 stage's layers on a group axis and drives them with ``lax.scan``; here a
@@ -16,13 +16,24 @@ dec: ``{"self": ..., "cross": ...}``), with the shapes of the reference's
 The modality frontends are stubs, as in the reference: a ``vlm`` config
 takes patch embeddings ``extras["vision_embeds"]`` [B, vision_tokens, D]
 and an ``encdec`` config frame embeddings ``extras["frames"]`` [B, T, D].
+
+``loss_fn(batch)`` is the reference's next-token loss (cross-entropy,
+z-loss, 0.01 x the MoE aux loss) under autograd; the parameters take
+gradients once ``training.init_state`` sets ``requires_grad``, while
+``prefill`` and ``decode_step`` run under ``no_grad``. ``cfg.remat``
+("none", "dots", "full") sets per-layer recomputation as the reference's
+``jax.checkpoint`` policies do (``_remat``).
 """
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn,
+)
 
 from ..configs.base import ArchConfig, _layer_kinds
 from ..device import as_tensor, resolve_device
@@ -86,17 +97,18 @@ class Model(nn.Module):
             x = x + sin.to(x.dtype)
         return x
 
-    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, frames: torch.Tensor, mode: str = "prefill") -> torch.Tensor:
         """Whisper's encoder on stub frame embeddings [B, T, D]: sinusoids,
-        the ``enc`` layers (bidirectional), ``enc_norm``."""
+        the ``enc`` layers (bidirectional), ``enc_norm``. In "train" it runs
+        under autograd, without recomputation as in the reference."""
         x = frames.to(self.compute_dtype)
         x = x + sinusoidal_positions(x.shape[1], self.cfg.d_model, x.device).to(x.dtype)
-        ctx = Ctx(cfg=self.cfg, mode="prefill", use_kernels=self.use_kernels)
+        ctx = Ctx(cfg=self.cfg, mode=mode, use_kernels=self.use_kernels)
         for p in self.enc_layers:
-            x, _ = block_apply("enc", p, x, ctx)
+            x, _, _ = block_apply("enc", p, x, ctx)
         return rmsnorm(self.enc_norm, x)
 
-    def _cross_src(self, extras):
+    def _cross_src(self, extras, mode: str = "prefill"):
         """What the ``cross`` / ``dec`` layers attend to: the vision
         embeddings (``vlm``) or the encoder's output (``encdec``); None for
         the other families. Raises ``ValueError`` when the input is missing."""
@@ -106,11 +118,56 @@ class Model(nn.Module):
         if not extras or extras.get(key) is None:
             raise ValueError(f"{self.cfg.name} ({self.cfg.family}) needs extras[{key!r}] [B, T, d_model]")
         src = as_tensor(extras[key], self.device, self.compute_dtype)
-        return self._encode(src) if key == "frames" else src
+        return self._encode(src, mode) if key == "frames" else src
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(self.final_norm, x)
         return unembed(self.embed if self.cfg.tie_embeddings else self.unembed, x)
+
+    def _remat(self, kind: str, p, ctx: Ctx):
+        """One layer's train-mode forward x -> (x, aux), recomputed in the
+        backward as ``cfg.remat`` says (the reference's ``_remat``): "none"
+        keeps every activation; "full" keeps only the layer's input
+        (``torch.utils.checkpoint``, non-reentrant); "dots" also keeps the
+        outputs of the matrix products without batch dims (``aten.mm``: the
+        projections and MLPs), as ``dots_with_no_batch_dims_saveable`` does,
+        and recomputes the rest (attention, norms, the MoE experts'
+        batched products). Gradients are the same either way."""
+        def fn(x):
+            x, _, aux = block_apply(kind, p, x, ctx)
+            return x, aux
+
+        if self.cfg.remat == "none":
+            return fn
+        context_fn = _dots_saveable if self.cfg.remat == "dots" else noop_context_fn
+        return lambda x: checkpoint(fn, x, use_reentrant=False, context_fn=context_fn)
+
+    def loss_fn(self, batch):
+        """Next-token cross-entropy (+ z-loss + 0.01 x MoE aux) of ``batch``:
+        ``tokens`` / ``targets`` [B, S] (targets < 0 are not counted), plus
+        ``frames`` (encdec) or ``vision_embeds`` (vlm). Returns (total,
+        {"ce", "zloss", "aux"}), as the reference's ``Model.loss_fn``."""
+        tokens = as_tensor(batch["tokens"], self.device, torch.long)
+        targets = as_tensor(batch["targets"], self.device, torch.long)
+        S = tokens.shape[1]
+        ctx = Ctx(cfg=self.cfg, mode="train", positions=torch.arange(S, device=self.device),
+                  use_kernels=self.use_kernels, meta=getattr(self, "meta", None),
+                  cross_src=self._cross_src(batch, "train"))
+        x = self._embed_in(tokens)
+        aux = torch.zeros((), device=self.device)
+        for kind, p in zip(self.kinds, self.layers):
+            x, a = self._remat(kind, p, ctx)(x)
+            aux = aux + a
+        logits = self._logits(x).float()
+
+        mask = (targets >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt_logit = torch.gather(logits, -1, targets.clamp_min(0)[..., None])[..., 0]
+        ntok = mask.sum().clamp_min(1.0)
+        loss = ((lse - tgt_logit) * mask).sum() / ntok
+        zloss = 1e-4 * ((lse * mask) ** 2).sum() / ntok
+        total = loss + zloss + 0.01 * aux
+        return total, {"ce": loss, "zloss": zloss, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, tokens, extras=None, *, s_max: int):
@@ -127,7 +184,7 @@ class Model(nn.Module):
         x = self._embed_in(tokens)
         caches = []
         for kind, p in zip(self.kinds, self.layers):
-            x, c = block_apply(kind, p, x, ctx)
+            x, c, _ = block_apply(kind, p, x, ctx)
             caches.append(c)
         return self._logits(x[:, -1:, :])[:, 0], caches
 
@@ -141,7 +198,7 @@ class Model(nn.Module):
         x = self._embed_in(token[:, None], pos=int(pos))
         new_caches = []
         for kind, p, c in zip(self.kinds, self.layers, caches):
-            x, c = block_apply(kind, p, x, ctx, c)
+            x, c, _ = block_apply(kind, p, x, ctx, c)
             new_caches.append(c)
         return self._logits(x)[:, 0], new_caches
 
@@ -181,6 +238,13 @@ class Model(nn.Module):
             }
 
         return [layer_cache(k) for k in self.kinds]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_dots_saveable = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 def build_model(cfg: ArchConfig, device=None, use_kernels: bool = True, seed: int = 0) -> Model:

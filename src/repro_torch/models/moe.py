@@ -5,7 +5,8 @@ capacity-drop policy and the reference's ``moe_apply_gspmd`` (capacity
 buckets, three batched expert products, gather and gate). The reference
 runs that form whenever it has no mesh, whatever ``ep_mode`` says; its
 ``moe_apply_shard_map`` (expert parallelism over an ``all_to_all``) waits
-for the LM mesh glue (ROADMAP.md Queue 1 item 13).
+for the LM mesh glue (ROADMAP.md Queue 1 item 13). Training runs the same
+form under autograd and adds its load-balance loss (``Model.loss_fn``).
 
 No Pallas kernel sits on this path in the reference, so the expert
 products stay ``torch.bmm``. Two choices keep the port's routing the
@@ -71,7 +72,8 @@ def _route(p, x2d: torch.Tensor, cfg: ArchConfig):
     """Top-K routing with normalized softmax gates.
 
     Returns (idx [T, K], gate [T, K] in x's dtype, aux_loss scalar). The
-    Switch-style load-balance loss is a training quantity; serving drops it.
+    Switch-style load-balance loss is a training quantity (``loss_fn`` adds
+    0.01 x its sum over layers); serving drops it.
     """
     logits = (x2d @ p["router"].to(x2d.dtype)).float()                # [T, E]
     probs = torch.softmax(logits, dim=-1)

@@ -7,8 +7,9 @@
   deterministic shutdown, a versioned hot-swap registry, deadlines,
   per-client rate limiting, stale fallback and ``health()`` snapshots.
 
-The reference's ``make_serve_fns`` (LM mesh and jit glue) is not ported
-(ROADMAP Queue 1 item 13).
+The reference's ``make_serve_fns`` (LM mesh and jit glue, over
+``training/sharding.py``'s shardings) is not ported: ROADMAP.md Queue 1
+item 13, the LM mesh glue, which also takes ``make_sharded_train_step``.
 """
 from .prf_service import (  # noqa: F401
     CircuitBreaker, CircuitOpenError, DeadlineExceeded, ModelRegistry, PRFFuture, PRFService,

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import MaskSpec, gqa_attend
+from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref, gqa_attend, gqa_attend_lse
 from repro_torch.kernels.gain_ratio import ops as hist_ops
 from repro_torch.kernels.gain_ratio.ref import (
     FixedPoint, fixed_shift, multi_tree_hist_fixed_ref, multi_tree_hist_ref,
@@ -445,6 +445,56 @@ def test_flash_attention_bf16_takes_only_its_head_dims(cuda_device):
     with pytest.raises(ValueError):
         flash_ops.flash_attention(q, q, q)
     assert flash_ops.launches == n0
+
+
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,D,causal,window,prefix", [
+    (2, 9, 3, 200, 200, 64, True, 0, 0),      # GQA 3:1, ragged tiles
+    (1, 4, 2, 77, 301, 32, True, 0, 0),       # Lq < Lk, odd lengths
+    (1, 4, 4, 257, 257, 56, True, 100, 0),    # window, deepseek-v3's dense head dim
+    (1, 4, 2, 100, 164, 168, True, 30, 64),   # window and prefix, gemma3-27b's head dim
+    (1, 4, 2, 300, 77, 64, False, 0, 0),      # unmasked, more queries than keys
+    (1, 2, 1, 130, 250, 240, False, 0, 0),    # unmasked, fewer queries, gemma3-12b's head dim
+    (1, 2, 2, 65, 190, 256, True, 33, 0),     # widest head dim (32-key tiles)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk, D, causal, window, prefix, dtype):
+    """The backward kernel on the forward kernel's out and lse against
+    ``attention_bwd_ref`` on the same tensors, its route's count, and two
+    calls bitwise equal; the lse against ``gqa_attend_lse``'s."""
+    q, do = (torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    spec = MaskSpec(causal=causal, window=window, offset=Lk - Lq, prefix=prefix)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, causal=causal, window=window, prefix=prefix)
+    _scaled_close(lse, gqa_attend_lse(q, k, v, mask_spec=spec)[1], torch.float32)
+    n_bf16, n_f32 = flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_f32
+    got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window, prefix=prefix)
+    again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window, prefix=prefix)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_f32) == (n_bf16 + 2 * bf16, n_f32 + 2 * (not bf16))
+    for g, w, g2 in zip(got, attention_bwd_ref(q, k, v, out, lse, do, spec), again):
+        assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, g2)
+        _scaled_close(g, w, dtype)
+
+
+def test_flash_attention_autograd_on_the_card(cuda_device):
+    """``flash_attention`` under autograd runs both kernels; in f32 its
+    gradients match autograd through the plain ``gqa_attend``."""
+    dtype = torch.float32
+    B, H, KV, L, D = 2, 6, 2, 150, 64
+    q, do = (torch.from_numpy(RNG.standard_normal((B, L, H, D)).astype(np.float32)).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.from_numpy(RNG.standard_normal((B, L, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    qkv = [t.requires_grad_(True) for t in (q, k, v)]
+    n0, nb0 = flash_ops.launches, flash_ops.launches_bwd
+    got = torch.autograd.grad(flash_ops.flash_attention(*qkv, window=40), qkv, do)
+    assert (flash_ops.launches, flash_ops.launches_bwd) == (n0 + 1, nb0 + 1)
+    want = torch.autograd.grad(gqa_attend(*qkv, mask_spec=MaskSpec(window=40)), qkv, do)
+    for g, w in zip(got, want):
+        _scaled_close(g, w, dtype)
 
 
 def _ssd_inputs(dev, B, S, H, P, N, dtype):
