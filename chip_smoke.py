@@ -12,8 +12,9 @@ The first:
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together, then one link), and checks with
-   ``cuobjdump -sass`` that the bf16 attention and SSD kernels run
-   ``HGMMA`` (wgmma) instructions in every instantiation;
+   ``cuobjdump -sass`` that the bf16 attention kernels (the forward, and
+   the backward's dK / dV + dQ kernel) and the SSD kernel run ``HGMMA``
+   (wgmma) instructions in every instantiation;
 3. holds each kernel against its plain PyTorch version at small shapes:
    the three PRF kernels (the histogram and the split scan also at
    B 256, C 300, past their shared memory's class limits, in class
@@ -154,13 +155,15 @@ The first:
    ``scaled_dot_product_attention``, attention also at head dims 128
    and 256 (same batch, heads and length) and at ``LM_PATH_ATTENTION``'s
    shapes, the SSD scan at hymba's;
-7. LM training (``lm_train_phase``): (a) the attention backward kernel
+7. LM training (``lm_train_phase``): (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) on the forward kernel's out and lse
    against ``attention_bwd_ref`` per element at ``LM_TOL``, f32 and bf16
-   each on its route, two calls bitwise equal, the lse against
-   ``gqa_attend_lse``: ``TRAIN_ATTENTION_SMALL`` (every mask kind, GQA,
-   head dims 20 to 256, lengths off the tiles) and ``TRAIN_ATTENTION_FULL``
-   (smollm's self-attention, whisper's encoder and cross-attention); (b) at
+   each on its route (bf16 at head dims up to 128 on the tensor-core
+   kernels, 168 to 256 on the CUDA-core ones), two calls bitwise equal,
+   the lse against ``gqa_attend_lse``: ``TRAIN_ATTENTION_SMALL`` (every
+   mask kind, GQA, head dims 20 to 256, lengths off the tiles) and
+   ``TRAIN_ATTENTION_FULL`` (smollm's self-attention, whisper's encoder
+   and cross-attention); (b) at
    reduced widths in f32, ``loss_fn`` and every gradient leaf on the kernel
    path against the plain path for smollm-135m, gemma3-12b, qwen1.5-4b,
    deepseek-moe-16b, deepseek-v3-671b (MLA), whisper-large-v3 and
@@ -168,14 +171,16 @@ The first:
    (c) smollm-135m at published widths and depth, bf16 compute:
    ``TokenPipeline`` batches of 8 x 2048 in 2 microbatches, 10 steps of
    ``make_train_step`` with launch counts read around them (forward and
-   backward per route), the loss at each step, s/step, tokens/s and peak
-   memory; a checkpoint at step 5 restored and run to step 10 bitwise the
-   uninterrupted run; one microbatch's loss and gradients in f32 on the
-   kernel path against the plain path within 1e-2 of the scale; (d) the
-   backward kernel at the training shape beside its plain version, its
-   bound (10 D flops a visible pair) and SDPA's backward (the kernels
-   line's ``flash_attention_bwd`` row), the forward with and without its
-   lse in turns at that shape and at phase 6's prefill shape;
+   backward per route, every backward on the tensor cores), the loss at
+   each step, s/step, tokens/s and peak memory; a checkpoint at step 5
+   restored and run to step 10 bitwise the uninterrupted run; one
+   microbatch's loss and gradients in f32 on the kernel path against the
+   plain path within 1e-2 of the scale; (d) the
+   backward kernels at ``BWD_SHAPES`` (the training shape, the kernels
+   line's ``flash_attention_bwd`` row, and llama-vision's self-attention
+   heads at hd 128) beside their plain version, their bound (10 D flops a
+   visible pair) and SDPA's backward, the forward with and without its
+   lse in turns at the training shape and at phase 6's prefill shape;
 8. the launch counts and one JSON line per the smoke contract, then
    the device line last. Each row's ``ms`` is CUDA events around the
    wrapper's whole call; ``kernel_ms`` is the kernel's own device time
@@ -873,9 +878,19 @@ TRAIN_ATTENTION_FULL = {
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 2048, 2, 10, 5
 
 
+BWD_COUNTERS = ("launches_bwd", "launches_bwd_bf16", "launches_bwd_tc", "launches_bwd_bf16_fma", "launches_bwd_f32")
+
+
+def bwd_route_counts(flash_ops):
+    """(bf16, of which tensor cores, of which CUDA cores, f32) backward calls so far."""
+    return (flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_tc, flash_ops.launches_bwd_bf16_fma,
+            flash_ops.launches_bwd_f32)
+
+
 def lm_backward_checks(dev):
-    """The backward kernel against ``attention_bwd_ref`` per element at
-    LM_TOL (f32 and bf16, each on its own route), on the forward kernel's
+    """The backward kernels against ``attention_bwd_ref`` per element at
+    LM_TOL (f32 and bf16, each on its own route: bf16 at head dims up to
+    128 on the tensor cores, wider on the CUDA cores), on the forward kernel's
     out and lse (lse also against ``gqa_attend_lse`` at f32's tolerance),
     and two calls bitwise equal. Returns the largest allowance share per
     dtype and the full shapes' shares."""
@@ -894,10 +909,12 @@ def lm_backward_checks(dev):
             k, v = (_randn(gen, (B, Lk, KV, D), dev, dtype) for _ in range(2))
             out, lse = flash_ops.flash_attention_lse(q, k, v, causal=C, window=W, prefix=P)
             share = lm_close(lse, gqa_attend_lse(q, k, v, mask_spec=spec)[1], torch.float32, what + " lse")[1]
-            n_bf16, n_f32 = flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_f32
+            n0 = bwd_route_counts(flash_ops)
             got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=C, window=W, prefix=P)
             bf16 = dtype == torch.bfloat16
-            check((flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_f32) == (n_bf16 + bf16, n_f32 + (not bf16)),
+            tc = flash_ops.bwd_route(dtype, D)[0]
+            check(tc == (bf16 and D <= 128), f"{what}: bf16 head dim {D} routed {'to' if tc else 'off'} the tensor cores")
+            check(bwd_route_counts(flash_ops) == (n0[0] + bf16, n0[1] + tc, n0[2] + (bf16 and not tc), n0[3] + (not bf16)),
                   f"{what}: launched on the wrong route")
             want = attention_bwd_ref(q, k, v, out, lse, do, spec)
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -971,8 +988,7 @@ def lm_train_reduced(dev):
 
         def run(use_kernels):
             model.use_kernels = use_kernels
-            for name in ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16",
-                         "launches_bwd_f32"):
+            for name in ("launches", "launches_bf16", "launches_f32", *BWD_COUNTERS):
                 setattr(flash_ops, name, 0)
             with routing_recorded() as route:
                 loss, _ = model.loss_fn(batch)
@@ -1035,7 +1051,7 @@ def lm_train_full(dev):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     mgr = CheckpointManager(str(ckpt_dir), keep=1, save_interval=TRAIN_RESUME_AT)
 
-    for name in ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16", "launches_bwd_f32"):
+    for name in ("launches", "launches_bf16", "launches_f32", *BWD_COUNTERS):
         setattr(flash_ops, name, 0)
     torch.cuda.reset_peak_memory_stats()
     state, losses, step_s, save_s = state0, [], [], None
@@ -1047,13 +1063,15 @@ def lm_train_full(dev):
             _, save_s = sync_time(lambda: mgr.maybe_save(state, i + 1))
     peak = torch.cuda.max_memory_allocated()
     routes = {"fwd_bf16": flash_ops.launches_bf16, "fwd_f32": flash_ops.launches_f32,
-              "bwd_bf16": flash_ops.launches_bwd_bf16, "bwd_f32": flash_ops.launches_bwd_f32}
+              "bwd_bf16": flash_ops.launches_bwd_bf16, "bwd_tc": flash_ops.launches_bwd_tc,
+              "bwd_f32": flash_ops.launches_bwd_f32}
     fwd, bwd = train_attention_launches(cfg)
     n_calls = TRAIN_STEPS * TRAIN_MICRO
-    check(routes == {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_f32": 0}
+    check(routes == {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_tc": bwd * n_calls,
+                     "bwd_f32": 0}
           and flash_ops.launches == fwd * n_calls and flash_ops.launches_bwd == bwd * n_calls,
           f"smollm training: launches per route {routes}, want {fwd * n_calls} forward and {bwd * n_calls} "
-          "backward, all bf16")
+          "backward, all bf16, the backward on the tensor cores")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"smollm training: the loss did not fall {losses}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = step_s[1:]
@@ -1148,19 +1166,73 @@ def train_step_breakdown(fn):
     return {"host_s": wall, "busy_share": busy / 1e3 / wall, "device_ms": groups, "top": top}
 
 
-def lm_backward_rows(dev, launches_bwd, kernel_row, timings):
-    """The backward kernel at the training path's shape (one microbatch of
-    smollm-135m, bf16) beside its plain version, its bound and SDPA's
-    backward; the forward kernel with and without its lse, in turns, at the
-    same shape and at phase 6's prefill shape."""
+# The backward timed beside SDPA's (phase 7d): smollm-135m's training microbatch,
+# and llama-3.2-vision-90b's self-attention heads at hd 128 (B, H, KV, L, D), causal.
+BWD_SHAPES = {"smollm training shape": (TRAIN_BATCH // TRAIN_MICRO, 9, 3, TRAIN_SEQ, 64),
+              "llama-vision self-attention, hd 128": (TRAIN_BATCH // TRAIN_MICRO, 64, 8, TRAIN_SEQ, 128)}
+
+
+def backward_timing(dev, gen, label, shape, timings):
+    """The backward kernels at ``shape`` (bf16, causal) on the forward kernel's
+    out and lse: checked against ``attention_bwd_ref`` at LM_TOL, timed
+    in turns with SDPA's backward (kernel, SDPA, SDPA, kernel; SDPA's
+    ``library_ms`` the mean of its two), then by ``timed`` (the call and the
+    kernels alone), beside the plain version and the bound (10 D flops a
+    visible pair)."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref
 
+    B, H, KV, L, D = shape
+    q, do = (_randn(gen, (B, L, H, D), dev, torch.bfloat16) for _ in range(2))
+    k, v = (_randn(gen, (B, L, KV, D), dev, torch.bfloat16) for _ in range(2))
+    out, lse = flash_ops.flash_attention_lse(q, k, v)
+    call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do)
+    plain = lambda: attention_bwd_ref(q, k, v, out, lse, do, MaskSpec())
+    got, want = call(), plain()
+    err = max(max_abs(g, w) for g, w in zip(got, want))
+    share = max(lm_close(g, w, torch.bfloat16, f"attention backward at the {label}: {n}")[1]
+                for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    del want
+    # launches of "bwd_d" kernels a call: delta and the fused dK / dV + dQ kernel on the tensor cores,
+    # delta, dK / dV and dQ on the CUDA cores
+    per_call = 2 if flash_ops.bwd_route(torch.bfloat16, D)[0] else 3
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
+    lib_err = max(float((a.transpose(1, 2).double() - b.double()).abs().max()) for a, b in zip(lib(), got))
+    turns = [cuda_ms(f) for f in (call, lib, lib, call)]     # in turns: kernel, SDPA, SDPA, kernel
+    lib_ms = (turns[1] + turns[2]) / 2
+    t = timed(f"attention backward ({label})", call, "bwd_d", timings, per_call=per_call)
+    p_ms = cuda_ms(plain, reps=2, warmup=1)
+    pairs = visible_pairs(L, L, 0, 0)
+    nbytes = 2 * (4 * B * L * H * D + 4 * B * L * KV * D) + 4 * B * H * L   # q, o, do, dq; k, v, dk, dv; lse
+    nops = 10 * D * B * H * pairs
+    bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
+    log(f"attention backward [{B}, {H} H / {KV} KV, {L}, {L}, {D}] bf16 causal ({label}): call {t['ms']:.4f} ms "
+        f"(kernels alone {fmt_ms(t['kernel_ms'])}), bound {bound:.4f} ms (share {bound / t['ms']:.3f}, of the "
+        f"kernels alone {bound_share(bound, t['kernel_ms'])}), SDPA backward {lib_ms:.4f} ms (max |d| vs the kernel "
+        f"{lib_err:.3g}; in turns kernel / SDPA / SDPA / kernel {' / '.join(f'{x:.4f}' for x in turns)} ms), "
+        f"plain {p_ms:.4f} ms; kernel vs plain max |d| {err:.3g} ({share:.3g} of the allowance)")
+    del q, do, k, v, out, lse, got, qt, kt, vt, o_lib
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "t": t, "plain_ms": p_ms, "sdpa_bwd_ms": lib_ms, "turns_ms": turns, "bound_ms": bound,
+            "nbytes": nbytes, "nops": nops, "max_abs_err": err, "allowance_share": share,
+            "sdpa_bwd_vs_kernel_max_abs": lib_err}
+
+
+def lm_backward_rows(dev, launches_bwd, kernel_row, timings):
+    """The backward kernels at ``BWD_SHAPES`` beside their plain version,
+    their bound and SDPA's backward (the smollm shape is the kernels line's
+    row); the forward kernel with and without its lse, in turns, at the
+    training shape and at phase 6's prefill shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
     sm = get_config("smollm-135m")
     H, KV, D = sm.n_heads, sm.n_kv_heads, sm.hd
+    check(BWD_SHAPES["smollm training shape"][1:] == (H, KV, TRAIN_SEQ, D), "smollm's heads and head dim")
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     fwd_lse = {}
@@ -1176,36 +1248,14 @@ def lm_backward_rows(dev, launches_bwd, kernel_row, timings):
             f"lse {turns[0]:.4f} / {turns[3]:.4f} ms, with lse {turns[1]:.4f} / {turns[2]:.4f} ms")
         del q, k, v
 
-    B = TRAIN_BATCH // TRAIN_MICRO
-    L = TRAIN_SEQ
-    q, do = (_randn(gen, (B, L, H, D), dev, torch.bfloat16) for _ in range(2))
-    k, v = (_randn(gen, (B, L, KV, D), dev, torch.bfloat16) for _ in range(2))
-    out, lse = flash_ops.flash_attention_lse(q, k, v)
-    call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do)
-    plain = lambda: attention_bwd_ref(q, k, v, out, lse, do, MaskSpec())
-    got, want = call(), plain()
-    err = max(max_abs(g, w) for g, w in zip(got, want))
-    share = max(lm_close(g, w, torch.bfloat16, f"attention backward at the training shape: {n}")[1]
-                for n, g, w in zip(("dq", "dk", "dv"), got, want))
-    t = timed("attention backward (smollm training shape)", call, "bwd_d", timings, per_call=3)
-    p_ms = cuda_ms(plain, reps=2, warmup=1)
-    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
-    lib_err = max(float((a.transpose(1, 2).double() - b.double()).abs().max()) for a, b in zip(lib(), got))
-    lib_ms = cuda_ms(lib)
-    pairs = visible_pairs(L, L, 0, 0)
-    nbytes = 2 * (4 * B * L * H * D + 4 * B * L * KV * D) + 4 * B * H * L   # q, o, do, dq; k, v, dk, dv; lse
+    shapes = {label: backward_timing(dev, gen, label, shape, timings) for label, shape in BWD_SHAPES.items()}
+    r = shapes["smollm training shape"]
     kernel_row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
                "none: no TPU kernel; the reference differentiates its einsum attention with XLA "
-               "(src/repro/models/layers.py:277)", launches_bwd, err, t, p_ms, nbytes, 10 * D * B * H * pairs,
-               lib_ms, BF16_OPS_PER_S)
-    log(f"attention backward [{B}, {H} H / {KV} KV, {L}, {L}, {D}] bf16 causal: call {t['ms']:.4f} ms (kernels "
-        f"alone {fmt_ms(t['kernel_ms'])}), SDPA backward {lib_ms:.4f} ms (max |d| vs the kernel {lib_err:.3g}), "
-        f"plain {p_ms:.4f} ms; kernel vs plain max |d| {err:.3g} ({share:.3g} of the allowance)")
-    del q, do, k, v, out, lse, got, want, qt, kt, vt, o_lib
-    torch.cuda.empty_cache()
-    return {"forward_lse_turns": fwd_lse, "sdpa_bwd_vs_kernel_max_abs": lib_err, "allowance_share": share}
+               "(src/repro/models/layers.py:277)", launches_bwd, r["max_abs_err"], r["t"], r["plain_ms"],
+               r["nbytes"], r["nops"], r["sdpa_bwd_ms"], BF16_OPS_PER_S)
+    return {"forward_lse_turns": fwd_lse, "shapes": shapes, "sdpa_bwd_vs_kernel_max_abs": r["sdpa_bwd_vs_kernel_max_abs"],
+            "allowance_share": r["allowance_share"]}
 
 
 def traverse_checks(dev):
@@ -2823,8 +2873,9 @@ def traverse_batch_ab(src: str) -> int:
 
 def tensor_core_sass():
     """The bf16 tensor-core kernels' SASS holds HGMMA (wgmma) instructions:
-    every instantiation of flash_tc_kernel (5) and ssd_tc_kernel (8); the
-    listings go to ``artifacts/{name}.sass``. Returns HGMMA lines per
+    every instantiation of flash_tc_kernel (5), ssd_tc_kernel (8) and the
+    attention backward's bwd_dkdv_dq_tc_kernel (3);
+    the listings go to ``artifacts/{name}.sass``. Returns HGMMA lines per
     instantiation, per kernel."""
     from repro_torch.kernels import _build
 
@@ -2834,7 +2885,8 @@ def tensor_core_sass():
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     counts = {}
-    for kernel, n_inst, show in (("flash_tc_kernel", 5, "ILi64E"), ("ssd_tc_kernel", 8, "ILi64ELi128E")):
+    for kernel, n_inst, show in (("flash_tc_kernel", 5, "ILi64E"), ("ssd_tc_kernel", 8, "ILi64ELi128E"),
+                                 ("bwd_dkdv_dq_tc_kernel", 3, "ILi64E")):
         funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
                  if kernel in blk.split("\n", 1)[0]}
         check(len(funcs) == n_inst, f"want {n_inst} instantiations of {kernel} in the SASS, found {list(funcs)}")
@@ -2859,7 +2911,7 @@ def lm_train_phase(dev, kernel_row, timings):
     checks = lm_backward_checks(dev)
     reduced = lm_train_reduced(dev)
     full = lm_train_full(dev)
-    rows = lm_backward_rows(dev, full["launches"]["bwd_bf16"], kernel_row, timings)
+    rows = lm_backward_rows(dev, full["launches"]["bwd_tc"], kernel_row, timings)
     return {"backward_checks": checks, "reduced": reduced, "smollm": full, "backward": rows}
 
 
@@ -3234,7 +3286,7 @@ def main(train_only: bool = False) -> int:
     train, t_train = sync_time(lambda: lm_train_phase(dev, kernel_row, timings))
     train["phase_s"] = t_train
     log(f"LM training phase (7): {t_train:.1f} s")
-    counts["flash_attention_bwd"] = train["smollm"]["launches"]["bwd_bf16"]
+    counts["flash_attention_bwd"] = train["smollm"]["launches"]["bwd_tc"]
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_train"] = train["smollm"]["launches"]["fwd_bf16"]

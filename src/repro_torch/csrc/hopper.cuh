@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA loads and stores, the swizzle
-// TMA writes, wgmma shared-memory descriptors and wgmma instructions
-// (bf16 operands, f32 accumulators), and the driver's tensor-map encoder.
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): mbarriers, TMA
+// loads and stores, bulk copies, the swizzle TMA writes, wgmma shared-memory
+// descriptors and wgmma instructions (bf16 operands, f32 accumulators), and
+// the CUDA driver's tensor-map encoder.
 //
 // Accumulator fragment of a 64-row wgmma, for thread (warp w, lane l) of
 // the warpgroup: register 4j + 2 half + e holds row 16 w + l / 4 + 8 half,
@@ -65,6 +66,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of device memory into shared memory (both
+// addresses 16-byte aligned, `bytes` a multiple of 16), completion on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)__cvta_generic_to_global(src)), "r"(bytes),
+        "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -17,11 +17,19 @@ answers that is in the source's note.
 Under autograd (grad enabled and an input that requires grad)
 ``flash_attention`` goes through ``FlashAttentionFn``: its forward runs
 the same kernel, which also writes each row's log-sum-exp, and its
-backward launches the backward kernel (no TPU counterpart: the reference
+backward calls the backward kernels (no TPU counterpart: the reference
 differentiates its einsums with XLA), counted in ``launches_bwd`` and
-its route's count. On CPU tensors the two halves are ``ref.gqa_attend_lse``
-and ``ref.attention_bwd_ref``. On the card nothing falls back to the
-plain versions: a failed build or launch raises.
+its route's count. The route follows dtype and head dim
+(``bwd_route``): bf16 at a padded head dim of 32, 64 or 128 runs the
+tensor-core kernels (wgmma + TMA, dK / dV and dQ blocks in one launch;
+``launches_bwd_tc``), the head dim padded to a multiple of 8 with zero
+columns in q, k, v, out and dout and the gradients' padded columns
+dropped; bf16 at 192 or 256 runs the CUDA-core kernels
+(``launches_bwd_bf16_fma``; their tensor-core form is still to do); f32
+runs the CUDA-core kernels (``launches_bwd_f32``).
+On CPU tensors the two halves are ``ref.gqa_attend_lse`` and
+``ref.attention_bwd_ref``. On the card nothing falls back to the plain
+versions or to another route: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -35,9 +43,12 @@ from .ref import MaskSpec, attention_bwd_ref, gqa_attend, gqa_attend_lse
 launches = 0        # forward kernel launches in this process (the CPU path does not count)
 launches_bf16 = 0   # of which the bf16 tensor-core kernel
 launches_f32 = 0    # of which the f32 CUDA-core kernel
-launches_bwd = 0        # backward kernel calls (each three launches: delta, dK / dV, dQ)
+launches_bwd = 0        # backward calls (tensor cores: two launches, delta and dK / dV + dQ; else three)
 launches_bwd_bf16 = 0   # of which on bf16 tensors
+launches_bwd_tc = 0     # of those, on the tensor-core kernels (padded head dim <= 128)
+launches_bwd_bf16_fma = 0   # and on the CUDA-core kernels (padded head dim 192 / 256)
 launches_bwd_f32 = 0    # of which on f32 tensors
+MAX_TC_BWD_HEAD_DIM = 128   # the widest head dim of the tensor-core backward
 MAX_HEAD_DIM = 256
 
 
@@ -128,11 +139,22 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, prefix=0):
     return _forward(q, k, v, causal, window, prefix, want_lse=True)
 
 
+def bwd_route(dtype: torch.dtype, D: int) -> tuple[bool, int]:
+    """(tensor cores?, the head dim the backward kernels read) for q's dtype
+    and head dim D: bf16 whose head dim, padded to a multiple of 8, is at
+    most ``MAX_TC_BWD_HEAD_DIM`` runs the tensor-core kernels at that padded
+    width; anything else the CUDA-core kernels at D."""
+    Dk = -(-D // 8) * 8
+    if dtype == torch.bfloat16 and Dk <= MAX_TC_BWD_HEAD_DIM:
+        return True, Dk
+    return False, D
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefix=0):
     """(dq, dk, dv) in the inputs' dtype from the forward's ``out`` and
-    ``lse``: the backward kernel on CUDA tensors (f32 arithmetic on f32 or
-    bf16 tensors; deterministic), ``attention_bwd_ref`` on the CPU."""
-    global launches_bwd, launches_bwd_bf16, launches_bwd_f32
+    ``lse``: the backward kernels on CUDA tensors (route by ``bwd_route``;
+    f32 accumulators; deterministic), ``attention_bwd_ref`` on the CPU."""
+    global launches_bwd, launches_bwd_bf16, launches_bwd_tc, launches_bwd_bf16_fma, launches_bwd_f32
     _check(q, k, v, causal, window, prefix)
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"out and dout must be q's shape {tuple(q.shape)} and lse [B, H, Lq]; got "
@@ -146,22 +168,36 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefi
     _check_cuda((q, k, v, out, dout), D)
     if lse.dtype != torch.float32:
         raise TypeError(f"lse must be float32, got {lse.dtype}")
-    if B * max(H, KV) > 65535:
+    tc, Dk = bwd_route(q.dtype, D)
+    if not tc and B * max(H, KV) > 65535:
         raise ValueError(f"batch x heads {B * H} > 65535 blocks of the grid's second axis")
-    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if Lq == 0 or Lk == 0 or B * H * D == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if Dk != D:
+        q, k, v, out, dout = (F.pad(t, (0, Dk - D)) for t in (q, k, v, out, dout))
+    q, k, v, out, dout, lse = (t.contiguous() for t in (q, k, v, out, dout, lse))
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("the bf16 tensor-core backward reads q, k, v, out, dout by TMA and in pairs: "
+                         "16-byte aligned bases")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     bf16 = q.dtype == torch.bfloat16
-    delta = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    # row-term scratch: per 64-query tile lse and delta (tensor cores), else delta [B, H, Lq]
+    n_scratch = B * H * (-(-Lq // 64) * 128 if tc else Lq)
+    delta = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     launch("lm_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           B, Lq, Lk, H, KV, D, int(causal), int(window), int(prefix), ctypes.c_float(D ** -0.5), int(bf16))
+           B, Lq, Lk, H, KV, Dk, int(causal), int(window), int(prefix), ctypes.c_float(D ** -0.5), int(bf16))
     launches_bwd += 1
     if bf16:
         launches_bwd_bf16 += 1
+        if tc:
+            launches_bwd_tc += 1
+        else:
+            launches_bwd_bf16_fma += 1
     else:
         launches_bwd_f32 += 1
+    if Dk != D:
+        dq, dk, dv = (g[..., :D].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

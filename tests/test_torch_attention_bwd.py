@@ -7,8 +7,24 @@ Inputs come from numpy with a seed and go to both sides; every mask kind
 (causal, window, prefix, none), GQA, odd head dims and Lq != Lk. Gradients
 agree within 1e-5 of their scale (largest magnitude) in f32: the sums run
 in another order. ``torch.autograd.gradcheck`` holds ``FlashAttentionFn``
-to finite differences in float64. The backward kernel itself runs only on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
+to finite differences in float64. The backward kernels themselves run only
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
+
+``emulate_tc_bwd`` repeats, on the CPU, the arithmetic of the bf16
+tensor-core backward (``csrc/flash_attention_bwd.cu``:
+``bwd_dkdv_dq_tc_kernel``'s dK / dV and dQ blocks): bf16 inputs, exact
+products with f32 sums for S and dP, P and dS fed to their products as
+bf16 parts hi = bf16(x) and lo = bf16(x - hi) (or one rounding), one
+rounding of dq, dk, dv to bf16.
+It is held to ``attention_bwd_ref`` on the same bf16 inputs in f32 at the
+LM kernels' bf16 tolerance (``chip_smoke.LM_TOL``, ``chip_smoke.lm_close``'s
+formula): per element ``|d| <= 2^-7 |want| + 1e-2 rms(want)``, one bf16
+ulp and 1% of a typical value near zero. Run as a script, it repeats the
+emulation at smollm-135m's training shape (one batch row of
+``[4, 9 H / 3 KV, 2048, 2048, 64]``, causal) and prints the share of the
+allowance used with both parts, and with P's or dS's lo part dropped:
+
+    PYTHONPATH=src python tests/test_torch_attention_bwd.py
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +49,13 @@ CASES = [
     (2, 9, 26, 6, 3, 56, False, 0, 0),       # unmasked, fewer queries, deepseek-v3's dense head dim
     (1, 15, 15, 2, 1, 5, False, 0, 0),       # unmasked, Lq = Lk (an encoder), an odd head dim
 ]
+
+
+LM_TOL_BF16 = (2.0 ** -7, 1e-2)   # chip_smoke.LM_TOL[torch.bfloat16]
+# CASES and two at the tensor-core kernels' tile sizes: 256 x 256, GQA 3:1,
+# causal (4 query and 4 key tiles of 64: both rings wrap); 130 queries over
+# 200 keys at hd 32 with a window of 40 (ragged tiles, Lq < Lk).
+EMULATION_CASES = CASES + [(1, 256, 256, 6, 2, 64, True, 0, 0), (1, 130, 200, 4, 2, 32, True, 40, 0)]
 
 
 def _rel(want, got):
@@ -123,6 +146,69 @@ def test_flash_attention_fn_gradcheck(case):
         lambda q, k, v: flash_ops.FlashAttentionFn.apply(q, k, v, causal, window, prefix), (q, k, v))
 
 
+def _parts(x, parts):
+    """x as the kernels feed it to a wgmma: bf16 hi + lo parts (2) or one rounding (1)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi if parts == 1 else hi + (x - hi).to(torch.bfloat16).float()
+
+
+def emulate_tc_bwd(q, k, v, o, lse, do, mask_spec=None, *, p_parts=2, ds_parts=2):
+    """The bf16 tensor-core backward's arithmetic: q, k, v, o, do bf16 in the
+    model's layout, lse [B, H, Sq] f32; returns (dq, dk, dv) in bf16.
+    hi + lo summed in f32 is exact, and so is its product with a bf16
+    operand, so this differs from the kernels only in summation order."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    dog = do.float().reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    scale = hd ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
+    if mask_spec is not None:
+        p = torch.where(mask_spec.block(0, Sq, k.shape[1])[:, None, None], p, 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    delta = (dog * o.float().reshape(B, Sq, KV, G, hd)).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (dp - delta[..., None])
+    pr, dsr = _parts(p, p_parts), _parts(ds, ds_parts)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", pr, dog)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", dsr, qg) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", dsr, kf).reshape(B, Sq, H, hd) * scale
+    return tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+
+
+def allowance_share(got, want):
+    """Largest share of ``|got - want| <= 2^-7 |want| + 1e-2 rms(want)`` used
+    (``chip_smoke.lm_close`` at bf16's tolerance)."""
+    rtol, atol = LM_TOL_BF16
+    got, want = got.double(), want.double()
+    d = (got - want).abs()
+    share = d / (rtol * want.abs() + atol * float(want.square().mean().sqrt()))
+    return float(torch.where(d == 0, 0.0, share).max())
+
+
+def _bf16_problem(case, seed):
+    """bf16 inputs, and the forward's out (rounded to bf16, as the kernel
+    writes it) and lse on them."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(case, seed))
+    out, lse = gqa_attend_lse(q.float(), k.float(), v.float(), mask_spec=_spec(case))
+    return q, k, v, out.to(torch.bfloat16), lse, do
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES)
+def test_tc_bwd_emulation_within_lm_tol(case):
+    """The tensor-core backward's roundings (P and dS as hi + lo parts) keep
+    dq, dk and dv within bf16's allowance of the f32 plain version on the
+    same bf16 inputs."""
+    q, k, v, out, lse, do = _bf16_problem(case, 6)
+    got = emulate_tc_bwd(q, k, v, out, lse, do, _spec(case))
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse, do.float(), _spec(case))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert allowance_share(g, w) <= 1.0, (case, name)
+
+
 def test_flash_attention_bwd_checks_its_inputs():
     q, k, v, do = map(torch.from_numpy, _inputs(CASES[0], 5))
     out, lse = flash_ops.flash_attention_lse(q, k, v)
@@ -134,3 +220,31 @@ def test_flash_attention_bwd_checks_its_inputs():
         flash_ops.flash_attention_bwd(q, k[:, :5], v[:, :5], out, lse, do)   # masked needs Lq <= Lk
     grads = flash_ops.flash_attention_bwd(q, k, v, out, lse, do)
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+
+
+@pytest.mark.parametrize("D", [5, 20, 56, 64, 120, 128, 130, 168, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_route_by_dtype_and_head_dim(dtype, D):
+    """bf16 at a padded head dim (a multiple of 8) up to 128 takes the
+    tensor-core kernels at that width; wider bf16 and every f32 head dim
+    the CUDA-core kernels at D."""
+    tc, Dk = flash_ops.bwd_route(dtype, D)
+    padded = -(-D // 8) * 8
+    assert tc == (dtype == torch.bfloat16 and padded <= 128)
+    assert Dk == (padded if tc else D)
+
+
+def _smollm_shares():
+    """The emulation at one batch row of smollm-135m's training shape, causal."""
+    case = (1, 2048, 2048, 9, 3, 64, True, 0, 0)
+    q, k, v, out, lse, do = _bf16_problem(case, 7)
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), lse, do.float(), _spec(case))
+    for p_parts, ds_parts in ((2, 2), (1, 2), (2, 1)):
+        got = emulate_tc_bwd(q, k, v, out, lse, do, _spec(case), p_parts=p_parts, ds_parts=ds_parts)
+        shares = {n: round(allowance_share(g, w), 4) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        print(f"P {'hi + lo' if p_parts == 2 else 'one rounding'}, dS {'hi + lo' if ds_parts == 2 else 'one rounding'}: "
+              f"largest share of the bf16 allowance {shares}")
+
+
+if __name__ == "__main__":
+    _smollm_shares()
