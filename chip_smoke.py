@@ -181,6 +181,23 @@ The first:
    heads at hd 128) beside their plain version, their bound (10 D flops a
    visible pair) and SDPA's backward, the forward with and without its
    lse in turns at the training shape and at phase 6's prefill shape;
+   (e) the SSD backward kernel (``csrc/ssd_scan_bwd.cu``) against
+   ``ssd_chunked_bwd`` per element at ``LM_TOL``, f32 and bf16 each counted
+   on its route, two calls bitwise equal, at ``SSD_BWD_SMALL`` (L off the
+   64-step chunk and below it, P 32 / 64, N 16 to 128) and ``SSD_BWD_FULL``
+   (mamba2's and hymba's training microbatches), and ``SSDScanFn``'s
+   backward against autograd of ``ssd_chunked``; (f) mamba2-780m and
+   hymba-1.5b in (b)'s list, SSD launches counted per route; (g)
+   mamba2-780m at published widths and full depth (48 layers), (c)'s
+   recipe: 10 steps, 960 SSD backward calls and 1920 forward launches (remat
+   recomputes each layer), all bf16 on the kernels, resume from step 5
+   bitwise, f32 kernel vs plain within 1e-2, s/step, tokens/s, peak and a
+   profiled step; (h) hymba-1.5b at published widths and
+   ``HYMBA_TRAIN_DEPTH`` layers, ``HYMBA_TRAIN_STEPS`` steps, attention
+   (window 1024, prefix 64) and the SSD scan forward and backward all on
+   kernels, counted, f32 kernel vs plain within 1e-2; then the SSD
+   backward at both training shapes beside its plain version and its bound
+   (``ssd_bwd_work``; mamba2's is the kernels line's ``ssd_scan_bwd`` row);
 8. the launch counts and one JSON line per the smoke contract, then
    the device line last. Each row's ``ms`` is CUDA events around the
    wrapper's whole call; ``kernel_ms`` is the kernel's own device time
@@ -879,6 +896,132 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 2048, 2, 
 
 
 BWD_COUNTERS = ("launches_bwd", "launches_bwd_bf16", "launches_bwd_tc", "launches_bwd_bf16_fma", "launches_bwd_f32")
+SSD_COUNTERS = ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16", "launches_bwd_f32")
+# Phase 7e: the SSD backward against its plain version at (B, L, H, P, N):
+# small shapes (L off the 64-step chunk, L < chunk, P 32 / 64, N 16 to 128,
+# several B x H), then the training microbatches of phases 7g and 7h.
+SSD_BWD_SMALL = [(2, 64, 3, 64, 16), (1, 200, 2, 64, 128), (2, 40, 4, 32, 32), (1, 384, 5, 32, 64),
+                 (3, 130, 7, 64, 128), (2, 256, 50, 64, 16)]
+SSD_BWD_FULL = {"mamba2-780m training microbatch": (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 48, 64, 128),
+                "hymba-1.5b training microbatch": (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 50, 64, 16)}
+HYMBA_TRAIN_DEPTH, HYMBA_TRAIN_STEPS = 8, 4     # phase 7h: 8 of hymba-1.5b's 32 layers, 4 steps
+
+
+def ssd_bwd_work(B, L, H, P, N, Q=64, elem=2):
+    """(bytes, operations) of the SSD backward in Q-step chunks: x, dy, dx, b,
+    c, db, dc of ``elem`` bytes and log a, d log a in f32, each once; over
+    the causal triangle the products c b^T and dS b, dS^T c (over N), dy x^T
+    and dx (over P), and the six Q N P products a chunk (the state's
+    recompute, c H_g, b dH, dH x, H dy and the dH update)."""
+    tri = Q * (Q + 1) // 2
+    per_chunk = 6 * tri * N + 4 * tri * P + 12 * Q * N * P
+    return (3 * B * L * H * P * elem + 4 * B * L * N * elem + 2 * B * L * H * 4,
+            B * H * -(-L // Q) * per_chunk)
+
+
+def ssd_route_counts(ssd_ops):
+    """(backward calls, of which bf16, of which f32) so far."""
+    return ssd_ops.launches_bwd, ssd_ops.launches_bwd_bf16, ssd_ops.launches_bwd_f32
+
+
+def lm_ssd_backward_checks(dev):
+    """7e: the SSD backward kernel against ``ssd_chunked_bwd`` per element at
+    LM_TOL (d log a, f32 in both dtypes, at f32's), f32 and bf16 each counted
+    on its route, two calls bitwise equal, at SSD_BWD_SMALL and SSD_BWD_FULL;
+    then ``SSDScanFn``'s whole backward (``torch.autograd.grad`` through the
+    forward and backward kernels) against autograd of ``ssd_chunked``.
+    Returns the largest allowance share per dtype and the full shapes'."""
+    import math
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_chunked_bwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    worst, full, fn = {}, {}, {}
+    cases = [(None, c) for c in SSD_BWD_SMALL] + list(SSD_BWD_FULL.items())
+    for label, (B, L, H, P, N) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"ssd backward at {label or (B, L, H, P, N)}, {dtype}"
+            x, loga, b, c = _ssd_inputs(gen, B, L, H, P, N, dev, dtype)
+            dy = _randn(gen, (B, L, H, P), dev, dtype)
+            n0 = ssd_route_counts(ssd_ops)
+            got = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+            bf16 = dtype == torch.bfloat16
+            check(ssd_route_counts(ssd_ops) == (n0[0] + 1, n0[1] + bf16, n0[2] + (not bf16)),
+                  f"{what}: launched on the wrong route")
+            want = ssd_chunked_bwd(x, loga, b, c, dy, math.gcd(128, L))
+            share = 0.0
+            for name, g, w in zip(("dx", "dloga", "db", "dc"), got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape, f"{what}: {name} {g.dtype} {tuple(g.shape)}")
+                share = max(share, lm_close(g, w, g.dtype, f"{what}: {name}")[1])
+            again = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+            check(all(torch.equal(u, v) for u, v in zip(got, again)), f"{what}: two calls differ")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), share)
+            if label:
+                full[f"{label} {dtype}"] = share
+            del x, loga, b, c, dy, got, want, again
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = [t.requires_grad_(True) for t in _ssd_inputs(gen, 2, 512, 8, 64, 128, dev, dtype)]
+        dy = _randn(gen, (2, 512, 8, 64), dev, dtype)
+        n0 = (ssd_ops.launches, ssd_ops.launches_bwd)
+        got = torch.autograd.grad(ssd_ops.SSDScanFn.apply(*ins, 128), ins, dy)
+        check((ssd_ops.launches, ssd_ops.launches_bwd) == (n0[0] + 1, n0[1] + 1),
+              f"SSDScanFn, {dtype}: one forward and one backward launch")
+        want = torch.autograd.grad(ssd_chunked(*ins, None, 128)[0], ins, dy)
+        fn[str(dtype)] = max(lm_close(g, w, g.dtype, f"SSDScanFn backward vs autograd of ssd_chunked, {dtype}: {n}")[1]
+                             for n, g, w in zip(("dx", "dloga", "db", "dc"), got, want))
+    log("ssd backward vs plain (largest share of the allowance used; every shape two calls bitwise equal): "
+        f"{worst}; full shapes {full}; SSDScanFn's backward vs autograd of ssd_chunked at [2, 512, 8, 64, N 128] {fn}")
+    return {"worst_share": worst, "full_shapes": full, "ssd_scan_fn_share": fn}
+
+
+def lm_ssd_backward_rows(dev, launches_bwd, kernel_row, timings):
+    """The SSD backward at SSD_BWD_FULL (bf16) beside its plain version and
+    its bound (``ssd_bwd_work``); mamba2's shape is the kernels line's row.
+    ``direct_ms``: CUDA events around direct launches of the C entry point on
+    preallocated outputs and scratch, the two kernels alone without the
+    profiler."""
+    from repro_torch.kernels._build import launch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    out = {}
+    for label, (B, L, H, P, N) in SSD_BWD_FULL.items():
+        x, loga, b, c = _ssd_inputs(gen, B, L, H, P, N, dev, torch.bfloat16)
+        dy = _randn(gen, (B, L, H, P), dev, torch.bfloat16)
+        call = lambda: ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+        plain = lambda: ssd_chunked_bwd(x, loga, b, c, dy, 128)
+        err = max(max_abs(g, w) for g, w in zip(call(), plain()))
+        t = timed(f"ssd backward ({label})", call, "ssd_bwd", timings, per_call=2)
+        f32 = dict(dtype=torch.float32, device=dev)
+        bufs = (x, loga, b, c, dy, torch.empty_like(x), torch.empty_like(loga), torch.empty_like(b),
+                torch.empty_like(c), torch.empty((B, H, -(-L // ssd_ops.BWD_CHUNK), N, P), **f32),
+                torch.empty((B, H, L, N), **f32), torch.empty((B, H, L, N), **f32))
+        args = [u.data_ptr() for u in bufs] + [B, L, H, P, N, 1]
+        t["direct_ms"] = cuda_ms(lambda: launch("lm_ssd_scan_bwd", *args))
+        del bufs
+        p_ms = cuda_ms(plain, reps=2, warmup=1)
+        nbytes, nops = ssd_bwd_work(B, L, H, P, N)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        out[label] = {"shape": [B, L, H, P, N], "t": t, "plain_ms": p_ms, "bound_ms": bound,
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations", "nbytes": nbytes, "nops": nops,
+                      "max_abs_err": err}
+        log(f"ssd backward [{B}, {L}, {H} heads, P {P}, N {N}] bf16 ({label}): call {t['ms']:.4f} ms (kernels alone "
+            f"{t['direct_ms']:.4f} by direct launches, {fmt_ms(t['kernel_ms'])} from the profiler), plain {p_ms:.4f} ms, bound {bound:.4f} ms by {out[label]['bound_by']} "
+            f"({nbytes} bytes, {nops} operations), share {bound / t['ms']:.4f}; kernel vs plain max |d| {err:.3g}")
+        del x, loga, b, c, dy
+        torch.cuda.empty_cache()
+    r = out["mamba2-780m training microbatch"]
+    kernel_row("ssd_scan_bwd", "src/repro_torch/csrc/ssd_scan_bwd.cu",
+               "none: no TPU kernel; the reference differentiates its chunked SSD scan with XLA "
+               "(src/repro/models/mamba.py:67)", launches_bwd, r["max_abs_err"], r["t"], r["plain_ms"],
+               r["nbytes"], r["nops"], None, BF16_OPS_PER_S)
+    return out
 
 
 def bwd_route_counts(flash_ops):
@@ -932,6 +1075,16 @@ def lm_backward_checks(dev):
     return {"worst_share": worst, "full_shapes": full}
 
 
+def train_ssd_launches(cfg):
+    """(forward, backward) SSD kernel launches of one ``loss_fn`` and its
+    backward: each ``ssm`` or ``hybrid`` layer once each way, and once more
+    forward where ``cfg.remat`` recomputes the layer."""
+    from repro_torch.configs.base import _layer_kinds
+
+    n = sum(k in ("ssm", "hybrid") for k in _layer_kinds(cfg))
+    return n * (1 if cfg.remat == "none" else 2), n
+
+
 def train_attention_launches(cfg):
     """(forward, backward) attention kernel launches of one ``loss_fn`` and its
     backward: each decoder-side attention once forward and once backward, and
@@ -954,17 +1107,19 @@ def _train_batch(cfg, B, S, dev, gen):
 
 def lm_train_reduced(dev):
     """Reduced widths, f32 (TF32 off): ``loss_fn`` and every gradient leaf on
-    the kernel path (forward and backward kernels, f32 routes) against the
-    plain path (``gqa_attend`` under autograd). MoE: the experts each path
-    routes to are recorded; rows where they differ would be masked."""
+    the kernel path (attention's and the SSD scan's forward and backward
+    kernels, f32 routes) against the plain path (``gqa_attend`` and
+    ``ssd_chunked`` under autograd). MoE: the experts each path routes to
+    are recorded; rows where they differ would be masked."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
     from repro_torch.training import AdamWConfig, init_state
 
     out = {}
     for arch in ("smollm-135m", "gemma3-12b", "qwen1.5-4b", "deepseek-moe-16b", "deepseek-v3-671b",
-                 "whisper-large-v3", "llama-3.2-vision-90b"):
+                 "whisper-large-v3", "llama-3.2-vision-90b", "mamba2-780m", "hymba-1.5b"):
         base = get_config(arch)
         kw = dict(n_layers=len(base.pattern) or 4, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
                   vocab_size=4096, compute_dtype="float32", param_dtype="float32",
@@ -990,19 +1145,24 @@ def lm_train_reduced(dev):
             model.use_kernels = use_kernels
             for name in ("launches", "launches_bf16", "launches_f32", *BWD_COUNTERS):
                 setattr(flash_ops, name, 0)
+            for name in SSD_COUNTERS:
+                setattr(ssd_ops, name, 0)
             with routing_recorded() as route:
                 loss, _ = model.loss_fn(batch)
                 grads = torch.autograd.grad(loss, params, allow_unused=True)
             counts = (flash_ops.launches_f32, flash_ops.launches_bwd_f32, flash_ops.launches_bf16,
-                      flash_ops.launches_bwd_bf16)
+                      flash_ops.launches_bwd_bf16, ssd_ops.launches_f32, ssd_ops.launches_bwd_f32,
+                      ssd_ops.launches_bf16, ssd_ops.launches_bwd_bf16)
             return float(loss.detach()), grads, route, counts
 
         lk, gk, rk, ck = run(True)
         lp, gp, rp, cp = run(False)
         fwd, bwd = train_attention_launches(cfg)
-        check(ck == (fwd, bwd, 0, 0), f"{arch}: kernel path launches (f32 fwd, f32 bwd, bf16 fwd, bf16 bwd) {ck}, "
-              f"want ({fwd}, {bwd}, 0, 0)")
-        check(cp == (0, 0, 0, 0), f"{arch}: the plain path launched kernels {cp}")
+        sfwd, sbwd = train_ssd_launches(cfg)
+        check(ck == (fwd, bwd, 0, 0, sfwd, sbwd, 0, 0),
+              f"{arch}: kernel path launches (attention f32 fwd, f32 bwd, bf16 fwd, bf16 bwd; the same of the SSD scan) "
+              f"{ck}, want ({fwd}, {bwd}, 0, 0, {sfwd}, {sbwd}, 0, 0)")
+        check(cp == (0,) * 8, f"{arch}: the plain path launched kernels {cp}")
         agree = all(torch.equal(a, b) for a, b in zip(rk, rp))
         check(agree, f"{arch}: MoE routing differs between the kernel and plain paths")
         loss_rel = abs(lk - lp) / abs(lp)
@@ -1013,32 +1173,39 @@ def lm_train_reduced(dev):
               f"{arch}: kernel vs plain loss {lk} / {lp}, worst leaf {worst} {leaves[worst]:.3g}")
         out[arch] = {"loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel, "worst_leaf": worst,
                      "worst_leaf_drift": leaves[worst], "leaves": len(leaves), "launches_fwd_bwd": [fwd, bwd],
-                     "moe_layers_routed": len(rk)}
+                     "ssd_launches_fwd_bwd": [sfwd, sbwd], "moe_layers_routed": len(rk)}
         del model, gk, gp, params
         torch.cuda.empty_cache()
-    log("reduced LM training (4-6 layers, d 256, f32, batch 2 x 256): kernel vs plain loss_fn and gradients, "
+    log("reduced LM training (4-6 layers, d 256, f32, batch 2 x 256; mamba2 and hymba at P 64, N 128 / 16): "
+        "kernel vs plain loss_fn and gradients, "
         "max |d| / max |plain| per leaf: " + ", ".join(
             f"{a} loss {r['loss_rel']:.2g}, worst leaf {r['worst_leaf']} {r['worst_leaf_drift']:.3g}"
             for a, r in out.items()))
     return out
 
 
-def lm_train_full(dev):
-    """smollm-135m at published widths and depth, bf16 compute, f32 params:
-    ``TokenPipeline`` batches of 8 x 2048 in 2 microbatches, TRAIN_STEPS steps
-    with launch counts read around them; the same steps resumed from a
-    checkpoint at TRAIN_RESUME_AT, bitwise; one microbatch's loss and
-    gradients on the kernel path against the plain path in f32."""
+def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume=True, profile=True):
+    """``arch`` at published widths (``depth`` of its layers, default all),
+    bf16 compute, f32 params: ``TokenPipeline`` batches of 8 x 2048 in 2
+    microbatches, ``steps`` steps with launch counts read around them
+    (attention and the SSD scan, forward and backward, per route); with
+    ``resume``, the steps after TRAIN_RESUME_AT run again from a checkpoint,
+    bitwise; with ``profile``, one more step under the profiler (its trace
+    takes seconds to read back); one microbatch's loss and gradients on the
+    kernel path against the plain path in f32."""
     import shutil
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
     from repro_torch.training import AdamWConfig, init_state, make_train_step
 
-    cfg = get_config("smollm-135m")
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, dev, seed=0)
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
@@ -1046,61 +1213,71 @@ def lm_train_full(dev):
     step = make_train_step(model, opt)
     pipe, t_data = sync_time(lambda: TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, n_docs=512, seed=0))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-               for b in pipe.batches(TRAIN_BATCH, TRAIN_STEPS, n_micro=TRAIN_MICRO)]
+               for b in pipe.batches(TRAIN_BATCH, steps, n_micro=TRAIN_MICRO)]
     ckpt_dir = ROOT / "build" / "lm_train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     mgr = CheckpointManager(str(ckpt_dir), keep=1, save_interval=TRAIN_RESUME_AT)
 
-    for name in ("launches", "launches_bf16", "launches_f32", *BWD_COUNTERS):
-        setattr(flash_ops, name, 0)
+    for n in ("launches", "launches_bf16", "launches_f32", *BWD_COUNTERS):
+        setattr(flash_ops, n, 0)
+    for n in SSD_COUNTERS:
+        setattr(ssd_ops, n, 0)
     torch.cuda.reset_peak_memory_stats()
     state, losses, step_s, save_s = state0, [], [], None
     for i, b in enumerate(batches):
         (state, m), t = sync_time(lambda: step(state, b))
         losses.append(float(m["loss"]))
         step_s.append(t)
-        if i + 1 == TRAIN_RESUME_AT:
+        if resume and i + 1 == TRAIN_RESUME_AT:
             _, save_s = sync_time(lambda: mgr.maybe_save(state, i + 1))
     peak = torch.cuda.max_memory_allocated()
     routes = {"fwd_bf16": flash_ops.launches_bf16, "fwd_f32": flash_ops.launches_f32,
               "bwd_bf16": flash_ops.launches_bwd_bf16, "bwd_tc": flash_ops.launches_bwd_tc,
-              "bwd_f32": flash_ops.launches_bwd_f32}
+              "bwd_f32": flash_ops.launches_bwd_f32, "ssd_fwd_bf16": ssd_ops.launches_bf16,
+              "ssd_fwd_f32": ssd_ops.launches_f32, "ssd_bwd_bf16": ssd_ops.launches_bwd_bf16,
+              "ssd_bwd_f32": ssd_ops.launches_bwd_f32}
     fwd, bwd = train_attention_launches(cfg)
-    n_calls = TRAIN_STEPS * TRAIN_MICRO
-    check(routes == {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_tc": bwd * n_calls,
-                     "bwd_f32": 0}
-          and flash_ops.launches == fwd * n_calls and flash_ops.launches_bwd == bwd * n_calls,
-          f"smollm training: launches per route {routes}, want {fwd * n_calls} forward and {bwd * n_calls} "
-          "backward, all bf16, the backward on the tensor cores")
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"smollm training: the loss did not fall {losses}")
+    sfwd, sbwd = train_ssd_launches(cfg)
+    n_calls = steps * TRAIN_MICRO
+    want = {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_tc": bwd * n_calls,
+            "bwd_f32": 0, "ssd_fwd_bf16": sfwd * n_calls, "ssd_fwd_f32": 0, "ssd_bwd_bf16": sbwd * n_calls,
+            "ssd_bwd_f32": 0}
+    check(routes == want and flash_ops.launches == fwd * n_calls and flash_ops.launches_bwd == bwd * n_calls
+          and ssd_ops.launches == sfwd * n_calls and ssd_ops.launches_bwd == sbwd * n_calls,
+          f"{arch} training: launches per route {routes}, want {want} (every call bf16 on a kernel, "
+          "attention's backward on the tensor cores)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{arch} training: the loss did not fall {losses}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = step_s[1:]
-    log(f"smollm-135m training ({cfg.n_layers} layers, d {cfg.d_model}, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+    log(f"{arch} training ({cfg.n_layers} layers, d {cfg.d_model}, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
         f"{TRAIN_MICRO} microbatches, remat {cfg.remat}): losses {[round(x, 4) for x in losses]}, s/step "
         f"{[round(x, 4) for x in step_s]} (first step with its warm-up), steady {np.mean(steady):.4f} s/step, "
-        f"{tokens / np.mean(steady):.1f} tokens/s, peak {peak / 2**30:.2f} GiB, launches {routes}, checkpoint "
-        f"save {save_s:.3f} s")
+        f"{tokens / np.mean(steady):.1f} tokens/s, peak {peak / 2**30:.2f} GiB, launches {routes}"
+        + (f", checkpoint save {save_s:.3f} s" if resume else ""))
 
     # where one step's device time goes: the step once more under the profiler
-    breakdown = train_step_breakdown(lambda: step(state, batches[0]))
+    breakdown = train_step_breakdown(lambda: step(state, batches[0])) if profile else None
 
-    # resume: restore step TRAIN_RESUME_AT into the state's form, run on to the end
-    restored, at = mgr.restore_latest_valid(state0)
-    check(at == TRAIN_RESUME_AT and restored.step == at, f"restored step {at}")
-    resumed = restored
-    resumed_losses = []
-    for b in batches[at:]:
-        resumed, m = step(resumed, b)
-        resumed_losses.append(float(m["loss"]))
-    same = resumed_losses == losses[at:] and resumed.step == state.step
-    for n in state.params:
-        same &= torch.equal(resumed.params[n], state.params[n]) and torch.equal(
-            resumed.opt["m"][n], state.opt["m"][n]) and torch.equal(resumed.opt["v"][n], state.opt["v"][n])
-    check(same, f"smollm training resumed at step {at}: not bitwise the uninterrupted run "
-          f"(losses {resumed_losses} vs {losses[at:]})")
+    t_resume = time.perf_counter()
+    if resume:      # restore step TRAIN_RESUME_AT into the state's form, run on to the end
+        restored, at = mgr.restore_latest_valid(state0)
+        check(at == TRAIN_RESUME_AT and restored.step == at, f"restored step {at}")
+        resumed = restored
+        resumed_losses = []
+        for b in batches[at:]:
+            resumed, m = step(resumed, b)
+            resumed_losses.append(float(m["loss"]))
+        same = resumed_losses == losses[at:] and resumed.step == state.step
+        for n in state.params:
+            same &= torch.equal(resumed.params[n], state.params[n]) and torch.equal(
+                resumed.opt["m"][n], state.opt["m"][n]) and torch.equal(resumed.opt["v"][n], state.opt["v"][n])
+        check(same, f"{arch} training resumed at step {at}: not bitwise the uninterrupted run "
+              f"(losses {resumed_losses} vs {losses[at:]})")
+        log(f"{arch} training: restored at step {at} and run to step {steps} in {time.perf_counter() - t_resume:.1f} s: "
+            "losses, params and moments bitwise the uninterrupted run")
+        del restored, resumed
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    log(f"smollm training: restored at step {at} and run to step {TRAIN_STEPS}: losses, params and moments "
-        "bitwise the uninterrupted run")
+    t_f32 = time.perf_counter()
 
     # kernel path vs plain path, one microbatch in f32 (TF32 off)
     with torch.no_grad():
@@ -1112,33 +1289,35 @@ def lm_train_full(dev):
     res = {}
     for use_kernels in (True, False):
         model.use_kernels = use_kernels
-        n0 = flash_ops.launches_bwd_f32
+        n0 = flash_ops.launches_bwd_f32 + ssd_ops.launches_bwd_f32
         loss, _ = model.loss_fn(mb)
         res[use_kernels] = (float(loss.detach()), torch.autograd.grad(loss, params))
-        check((flash_ops.launches_bwd_f32 > n0) == use_kernels, "f32 comparison: backward launches")
+        check((flash_ops.launches_bwd_f32 + ssd_ops.launches_bwd_f32 > n0) == use_kernels,
+              f"{arch} f32 comparison: backward launches")
     model.compute_dtype, model.use_kernels = torch.bfloat16, True
     (lk, gk), (lp, gp) = res[True], res[False]
     leaves = {n: drift(a, b) for (n, _), a, b in zip(model.named_parameters(), gk, gp)}
     worst = max(leaves, key=leaves.get)
     loss_drift = abs(lk - lp) / abs(lp)
     check(loss_drift <= 1e-2 and leaves[worst] <= 1e-2,
-          f"smollm f32 kernel vs plain: loss {lk} / {lp}, worst leaf {worst} {leaves[worst]:.3g}")
-    log(f"smollm-135m full width, f32, one microbatch of {TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}: kernel vs "
-        f"plain loss {lk:.6f} / {lp:.6f} (rel {loss_drift:.3g}), worst gradient leaf {worst} {leaves[worst]:.3g}")
-    result = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-              "n_micro": TRAIN_MICRO, "remat": cfg.remat, "losses": losses, "step_s": step_s,
+          f"{arch} f32 kernel vs plain: loss {lk} / {lp}, worst leaf {worst} {leaves[worst]:.3g}")
+    log(f"{arch} full width ({cfg.n_layers} layers), f32, one microbatch of {TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}: "
+        f"kernel vs plain loss {lk:.6f} / {lp:.6f} (rel {loss_drift:.3g}), worst gradient leaf {worst} "
+        f"{leaves[worst]:.3g} ({time.perf_counter() - t_f32:.1f} s)")
+    result = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "remat": cfg.remat, "losses": losses, "step_s": step_s,
               "steady_s_per_step": float(np.mean(steady)), "tokens_per_s": tokens / float(np.mean(steady)),
               "peak_bytes": peak, "launches": routes, "checkpoint_save_s": save_s, "data_s": t_data,
-              "step_breakdown": breakdown,
-              "resumed_bitwise": True, "resumed_at": at,
+              "step_breakdown": breakdown, "resumed_bitwise": resume, "resumed_at": TRAIN_RESUME_AT if resume else None,
               "f32_kernel_vs_plain": {"loss_rel": loss_drift, "worst_leaf": worst, "worst_leaf_drift": leaves[worst]}}
-    del model, state, state0, restored, resumed, res, gk, gp, params
+    del model, state, state0, res, gk, gp, params
     torch.cuda.empty_cache()
     return result
 
 
 # Kernel-name substrings of a training step's device time, by group (the rest is "other").
 STEP_GROUPS = {"attention backward": ("bwd_delta", "bwd_dkdv", "bwd_dq"), "attention forward": ("flash_tc_kernel",),
+               "ssd backward": ("ssd_bwd",), "ssd forward": ("ssd_tc_kernel",),
                "matmul": ("gemm", "Gemm", "nvjet", "xmma", "cutlass")}
 
 
@@ -2905,14 +3084,32 @@ def tensor_core_sass():
 
 
 def lm_train_phase(dev, kernel_row, timings):
-    """Phase 7: the backward kernel's checks, reduced kernel-vs-plain
-    training, smollm-135m at full width (its launch counts read around its
-    TRAIN_STEPS steps), and the backward kernel's row of the kernels line."""
-    checks = lm_backward_checks(dev)
-    reduced = lm_train_reduced(dev)
-    full = lm_train_full(dev)
-    rows = lm_backward_rows(dev, full["launches"]["bwd_tc"], kernel_row, timings)
-    return {"backward_checks": checks, "reduced": reduced, "smollm": full, "backward": rows}
+    """Phase 7: the attention backward kernel's checks, reduced
+    kernel-vs-plain training (7b, 7f), smollm-135m at full width (its launch
+    counts read around its TRAIN_STEPS steps), the attention backward's row
+    of the kernels line; the SSD backward kernel's checks (7e), mamba2-780m
+    at full width and depth (7g) and hymba-1.5b at published widths,
+    HYMBA_TRAIN_DEPTH layers (7h), and the SSD backward's row."""
+    part_s = {}
+
+    def part(name, fn):
+        out, part_s[name] = sync_time(fn)
+        return out
+
+    checks = part("7a", lambda: lm_backward_checks(dev))
+    reduced = part("7b, 7f", lambda: lm_train_reduced(dev))
+    full = part("7c", lambda: lm_train_full(dev))
+    rows = part("7d", lambda: lm_backward_rows(dev, full["launches"]["bwd_tc"], kernel_row, timings))
+    ssd_checks = part("7e", lambda: lm_ssd_backward_checks(dev))
+    mamba = part("7g", lambda: lm_train_full(dev, "mamba2-780m"))
+    hymba = part("7h", lambda: lm_train_full(dev, "hymba-1.5b", depth=HYMBA_TRAIN_DEPTH, steps=HYMBA_TRAIN_STEPS,
+                                             resume=False, profile=False))
+    ssd_rows = part("7e rows", lambda: lm_ssd_backward_rows(dev, mamba["launches"]["ssd_bwd_bf16"], kernel_row,
+                                                            timings))
+    log("phase 7 parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return {"backward_checks": checks, "reduced": reduced, "smollm": full, "backward": rows,
+            "ssd_backward_checks": ssd_checks, "mamba2": mamba, "hymba": hymba, "ssd_backward": ssd_rows,
+            "part_s": part_s}
 
 
 def main(train_only: bool = False) -> int:
@@ -2968,7 +3165,8 @@ def main(train_only: bool = False) -> int:
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms, "kernel_ms": t["kernel_ms"], "launches_traced": t["launches_traced"]}
+               "library_ms": library_ms, "kernel_ms": t["kernel_ms"], "launches_traced": t["launches_traced"],
+               **({"direct_ms": t["direct_ms"]} if "direct_ms" in t else {})}
         rows.append(row)
         log(f"{name}: {row['ms']:.4f} ms (kernel alone {fmt_ms(row['kernel_ms'])}; plain {plain_ms:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}, of the "
@@ -3287,9 +3485,12 @@ def main(train_only: bool = False) -> int:
     train["phase_s"] = t_train
     log(f"LM training phase (7): {t_train:.1f} s")
     counts["flash_attention_bwd"] = train["smollm"]["launches"]["bwd_tc"]
+    counts["ssd_scan_bwd"] = train["mamba2"]["launches"]["ssd_bwd_bf16"]
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_train"] = train["smollm"]["launches"]["fwd_bf16"]
+        if row["name"] == "ssd_scan":
+            row["launches_train"] = train["mamba2"]["launches"]["ssd_fwd_bf16"]
 
     # 8. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,

@@ -13,8 +13,8 @@ reports each kernel's registers, shared memory and spills into
 Flags: the PRF sources build with ``-fmad=false`` and no
 ``--use_fast_math``, so the split-scan kernel's ``logf`` and divisions
 round op for op like the plain PyTorch version on the card. The LM
-sources (``FMAD_SOURCES``: attention's forward and backward, the SSD
-scan) let the compiler contract multiply-adds: they are held to their
+sources (``FMAD_SOURCES``: attention's and the SSD scan's forward and
+backward) let the compiler contract multiply-adds: they are held to their
 plain versions by a tolerance, so the op-for-op rounding that the PRF
 sources keep buys them nothing. A build is deterministic, so two launches
 on the same inputs still give the same bits.
@@ -38,7 +38,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-FMAD_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu")
+FMAD_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every exported launcher (all return cudaGetLastError()).
@@ -61,6 +61,8 @@ SIGNATURES = {
     "lm_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
     # x, loga, b, c, y, h, B, L, H, P, N, chunk, bf16, stream
     "lm_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, loga, b, c, dy, dx, dloga, db, dc, states, db_part, dc_part, B, L, H, P, N, bf16, stream
+    "lm_ssd_scan_bwd": [_P] * 12 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -16,8 +16,6 @@ sequence, no cache, under autograd), "prefill" (full sequence -> cache)
 or "decode" (one token + cache), and returns (x, cache, aux) as the
 reference does (aux: the MoE load-balance loss, 0.0 for other kinds).
 ``enc`` layers run only inside ``Model._encode`` and keep no cache.
-``ssm`` and ``hybrid`` do not train yet: their SSD scan has no backward
-kernel (ROADMAP.md item 22), and "train" raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -121,7 +119,7 @@ def _self_attn(p, h, ctx: Ctx, kind: str, cache=None):
         return attention_decode(p, h, ctx.pos + M, cache, cfg, window=window, theta=theta, prefix=M)
     if ctx.mode == "train":
         return attention_train(p, h, ctx.positions, cfg, window=window, theta=theta,
-                               use_kernels=ctx.use_kernels), None
+                               use_kernels=ctx.use_kernels, meta=ctx.meta if M else None), None
     return attention_prefill(p, h, ctx.positions, cfg, window=window, theta=theta, s_max=ctx.s_max,
                              use_kernels=ctx.use_kernels, meta=ctx.meta if M else None)
 
@@ -129,6 +127,8 @@ def _self_attn(p, h, ctx: Ctx, kind: str, cache=None):
 def _ssm(p, h, ctx: Ctx, cache=None):
     if ctx.mode == "decode":
         return mb.mamba_decode(p, h, cache, ctx.cfg)
+    if ctx.mode == "train":
+        return mb.mamba_train(p, h, ctx.cfg, use_kernels=ctx.use_kernels), None
     return mb.mamba_prefill(p, h, ctx.cfg, use_kernels=ctx.use_kernels)
 
 
@@ -143,9 +143,6 @@ def _cross_attn(p, h, ctx: Ctx, cache=None):
 def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
     """Returns (x, new_cache, aux); in "train" the cache is None."""
     check_kind(kind)
-    if ctx.mode == "train" and kind in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{kind} training waits for an SSD-scan backward kernel "
-                                  "(ROADMAP.md Queue 1 item 22)")
     cfg = ctx.cfg
     if kind in ATTN_KINDS:
         a, kv = _self_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, kind, cache)
@@ -173,7 +170,7 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
         x = x + (p["gate_attn"].to(x.dtype) * rmsnorm(p["attn_norm"], a)
                  + p["gate_ssm"].to(x.dtype) * rmsnorm(p["ssm_norm"], s))
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
-        return x, {"attn": kv, "ssm": st}, 0.0
+        return x, (None if ctx.mode == "train" else {"attn": kv, "ssm": st}), 0.0
     if kind == "cross":
         a, kv = _cross_attn(p["attn"], rmsnorm(p["ln1"], x), ctx, cache)
         x = x + torch.tanh(p["xgate"]).to(x.dtype) * a

@@ -225,21 +225,13 @@ def roll_to_window(k: torch.Tensor, window: int) -> torch.Tensor:
     return torch.roll(last, shifts=(S - window) % window, dims=1)
 
 
-def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
-                      theta: Optional[float] = None, s_max: Optional[int] = None,
-                      use_kernels: bool = True, meta: Optional[torch.Tensor] = None):
-    """Full-sequence causal attention; also returns the KV cache.
-
-    Full-attention layers pad the cache to ``s_max``; windowed layers
-    return a rolling buffer of length ``window`` (position p at slot p % W).
-
-    ``meta`` [M, D] (hymba, ``blocks.py:_self_attn`` of the reference): M
-    learned tokens in front of the keys, at positions 0..M-1 with the
-    prompt after them, visible to every query (``MaskSpec.prefix``) and
-    kept in front of the cache: ``k[:, :M]`` then the rolling window, or
-    the cache padded to ``s_max + M``.
-    """
-    theta = cfg.rope_theta if theta is None else theta
+def _attend_causal(p, x, positions, cfg: ArchConfig, window: int, theta: float, use_kernels: bool,
+                   meta: Optional[torch.Tensor]):
+    """Causal (windowed) self-attention of ``x`` [B, S, D]: (o [B, S, H,
+    hd], k, v). ``meta`` [M, D] (hymba, the reference's ``_self_attn`` M
+    branch): M learned tokens in front of the keys at positions 0..M-1,
+    the queries at positions M.., every query sees them (``prefix=M``);
+    k and v then cover all M + S positions."""
     B, S, _ = x.shape
     M = 0 if meta is None else meta.shape[0]
     if M:
@@ -253,6 +245,24 @@ def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
     else:
         o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window, offset=M, prefix=M),
                        q_chunk=_auto_q_chunk(S, M + S, B * cfg.n_heads))
+    return o, k, v
+
+
+def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
+                      theta: Optional[float] = None, s_max: Optional[int] = None,
+                      use_kernels: bool = True, meta: Optional[torch.Tensor] = None):
+    """Full-sequence causal attention; also returns the KV cache.
+
+    Full-attention layers pad the cache to ``s_max``; windowed layers
+    return a rolling buffer of length ``window`` (position p at slot p % W).
+    Hymba's ``meta`` tokens (``_attend_causal``) are kept in front of the
+    cache: ``k[:, :M]`` then the rolling window, or the cache padded to
+    ``s_max + M``.
+    """
+    theta = cfg.rope_theta if theta is None else theta
+    S = x.shape[1]
+    M = 0 if meta is None else meta.shape[0]
+    o, k, v = _attend_causal(p, x, positions, cfg, window, theta, use_kernels, meta)
     if window > 0:
         k = torch.cat([k[:, :M], roll_to_window(k[:, M:], window)], dim=1)
         v = torch.cat([v[:, :M], roll_to_window(v[:, M:], window)], dim=1)
@@ -265,22 +275,15 @@ def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
 
 
 def attention_train(p, x, positions, cfg: ArchConfig, *, window: int = 0,
-                    theta: Optional[float] = None, use_kernels: bool = True) -> torch.Tensor:
+                    theta: Optional[float] = None, use_kernels: bool = True,
+                    meta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence causal (windowed) self-attention without a cache: the
     training forward (the reference's ``attention_train`` without
-    ``cross_src``; cross-attention trains through ``cross_attention_prefill``).
-    Differentiable on both paths."""
+    ``cross_src``, and its ``_self_attn`` M branch with hymba's ``meta``;
+    cross-attention trains through ``cross_attention_prefill``).
+    Differentiable on both paths; ``meta`` gets its gradient through k and v."""
     theta = cfg.rope_theta if theta is None else theta
-    q, k, v = _qkv(p, x, cfg)
-    q = rope_apply(q, positions, theta)
-    k = rope_apply(k, positions, theta)
-    if use_kernels:
-        o = flash_attention(q, k, v, causal=True, window=window)
-    else:
-        B, S, _ = x.shape
-        o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window),
-                       q_chunk=_auto_q_chunk(S, S, B * cfg.n_heads))
-    return attn_out(p, o)
+    return attn_out(p, _attend_causal(p, x, positions, cfg, window, theta, use_kernels, meta)[0])
 
 
 def _attend_unmasked(q, k, v, use_kernels: bool) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Mamba-2 block (SSD, state-space duality, arXiv:2405.21060).
 
 Counterpart of ``repro/models/mamba.py``. Prefill runs the chunked SSD
-through the hand-written CUDA kernel (``kernels/ssd_scan``); the plain
-chunked form (``_ssd_chunked``) runs with ``use_kernels=False`` and on
-the CPU. Decode carries (conv window, SSD state): O(1) per token.
+through the hand-written CUDA kernel (``kernels/ssd_scan``), training
+through ``SSDScanFn`` (that kernel forward, the backward kernel
+backward); the plain chunked form (``_ssd_chunked``, under autograd in
+training) runs with ``use_kernels=False``, and each kernel's plain
+version on the CPU. The projections, the causal conv, softplus, the gate
+and the norm are plain torch under autograd, as the reference leaves them
+to XLA. Decode carries (conv window, SSD state): O(1) per token.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.ssd_scan.ops import ssd_scan
+from ..kernels.ssd_scan.ops import SSDScanFn, ssd_scan
 from ..kernels.ssd_scan.ref import ssd_chunked as _ssd_chunked
 from .layers import _dense_init, init_rmsnorm, rmsnorm
 
@@ -59,9 +63,10 @@ def _causal_conv(p, xbc):
     return F.silu(out + p["conv_b"].to(xbc.dtype))
 
 
-def mamba_prefill(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_kernels: bool = True):
-    """Full-sequence pass that also returns (conv_state, ssd_state)."""
-    d_in = d_in or cfg.d_model
+def _scan_inputs(p, x, cfg: ArchConfig, d_in: int):
+    """The projections and causal conv of a full sequence: (z, the raw conv
+    inputs, xs [B,S,H,P], b, c, log a [B,S,H] f32, x dt), the reference's
+    steps before ``_ssd_chunked``."""
     d_inner, H, P, N = _dims(cfg, d_in)
     B, S, _ = x.shape
     z, xbc_raw, dt = _split_proj(p, x, cfg, d_in)
@@ -69,17 +74,40 @@ def mamba_prefill(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_ker
     xs = xbc[..., :d_inner].reshape(B, S, H, P)
     b = xbc[..., d_inner:d_inner + N]
     c = xbc[..., d_inner + N:]
-    dtf = F.softplus(dt.float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
-    loga = dtf * a
-    xdt = xs * dtf[..., None].to(xs.dtype)
+    dtf = F.softplus(dt.float() + p["dt_bias"])                   # [B,S,H]
+    loga = dtf * -torch.exp(p["a_log"])                           # a = -exp(a_log) < 0
+    return z, xbc_raw, xs, b, c, loga, xs * dtf[..., None].to(xs.dtype)
+
+
+def _scan_out(p, y, xs, z):
+    """The skip, gate, norm and out projection after the scan."""
+    B, S, H, P = xs.shape
+    y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
+    y = rmsnorm(p["norm"], y.reshape(B, S, H * P) * F.silu(z))
+    return y @ p["out_proj"].to(y.dtype)
+
+
+def mamba_train(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_kernels: bool = True):
+    """Full-sequence pass without a cache, differentiable on both paths
+    (the reference's ``mamba_train``)."""
+    z, _, xs, b, c, loga, xdt = _scan_inputs(p, x, cfg, d_in or cfg.d_model)
+    S = x.shape[1]
+    if use_kernels:
+        y = SSDScanFn.apply(xdt, loga, b, c, min(chunk, S))
+    else:
+        y, _ = _ssd_chunked(xdt, loga, b, c, None, min(chunk, S))
+    return _scan_out(p, y, xs, z)
+
+
+def mamba_prefill(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_kernels: bool = True):
+    """Full-sequence pass that also returns (conv_state, ssd_state)."""
+    z, xbc_raw, xs, b, c, loga, xdt = _scan_inputs(p, x, cfg, d_in or cfg.d_model)
+    S = x.shape[1]
     if use_kernels:
         y, h_fin = ssd_scan(xdt, loga, b, c, chunk=min(chunk, S))
     else:
         y, h_fin = _ssd_chunked(xdt, loga, b, c, None, min(chunk, S))
-    y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
-    y = rmsnorm(p["norm"], y.reshape(B, S, d_inner) * F.silu(z))
-    out = y @ p["out_proj"].to(y.dtype)
+    out = _scan_out(p, y, xs, z)
     # last raw inputs; a copy, so the cache does not hold the whole projection
     conv_state = xbc_raw[:, -(cfg.conv_width - 1):, :].clone()
     return out, {"conv": conv_state, "h": h_fin}

@@ -21,7 +21,7 @@ from repro_torch.kernels.gain_ratio.ref import (
 from repro_torch.kernels.split_scan import ops as scan_ops
 from repro_torch.kernels.split_scan.ref import init_carry, split_scan_block_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_chunked_bwd
 from repro_torch.kernels.tree_traverse import ops as trav_ops
 from repro_torch.kernels.tree_traverse.ref import traverse_block_ref
 
@@ -558,6 +558,57 @@ def test_ssd_scan_bf16_raises_on_shapes_it_does_not_take(cuda_device, P, N):
     with pytest.raises(ValueError):
         ssd_ops.ssd_scan(x, loga, b, c)
     assert ssd_ops.launches == n0
+
+
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (2, 64, 3, 64, 16),           # one chunk
+    (1, 200, 2, 64, 128),         # L off the 64-step chunk
+    (2, 40, 4, 32, 32),           # L < chunk
+    (1, 384, 5, 32, 64),
+    (2, 256, 50, 64, 16),         # hymba's heads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain(cuda_device, B, S, H, P, N, dtype):
+    """The backward kernel against ``ssd_chunked_bwd`` per element at
+    LM_TOL (d log a, f32 in both dtypes, at f32's), one launch counted on
+    its dtype's route, two calls bitwise equal."""
+    x, loga, b, c = _ssd_inputs(cuda_device, B, S, H, P, N, dtype)
+    dy = torch.from_numpy(RNG.standard_normal((B, S, H, P)).astype(np.float32)).to(cuda_device, dtype)
+    n0, n_bf16, n_f32 = ssd_ops.launches_bwd, ssd_ops.launches_bwd_bf16, ssd_ops.launches_bwd_f32
+    got = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+    bf16 = dtype == torch.bfloat16
+    assert (ssd_ops.launches_bwd, ssd_ops.launches_bwd_bf16, ssd_ops.launches_bwd_f32) == (
+        n0 + 1, n_bf16 + bf16, n_f32 + (not bf16))
+    again = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+    want = ssd_chunked_bwd(x, loga, b, c, dy, math.gcd(min(128, S), S))
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _scaled_close(g, w, g.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_fn_backward_on_the_card(cuda_device, dtype):
+    """Autograd through ``SSDScanFn`` (forward kernel, backward kernel)
+    against autograd of ``ssd_chunked``."""
+    x, loga, b, c = _ssd_inputs(cuda_device, 2, 256, 3, 64, 64, dtype)
+    dy = torch.from_numpy(RNG.standard_normal((2, 256, 3, 64)).astype(np.float32)).to(cuda_device, dtype)
+    ins = [t.clone().requires_grad_(True) for t in (x, loga, b, c)]
+    n0, nb0 = ssd_ops.launches, ssd_ops.launches_bwd
+    got = torch.autograd.grad(ssd_ops.SSDScanFn.apply(*ins, 128), ins, dy)
+    assert (ssd_ops.launches, ssd_ops.launches_bwd) == (n0 + 1, nb0 + 1)
+    want = torch.autograd.grad(ssd_chunked(*ins, None, 128)[0], ins, dy)
+    for g, w in zip(got, want):
+        _scaled_close(g, w, g.dtype)
+
+
+@pytest.mark.parametrize("P,N", [(48, 64), (64, 256), (16, 16)])
+def test_ssd_backward_raises_on_shapes_it_does_not_take(cuda_device, P, N):
+    x, loga, b, c = _ssd_inputs(cuda_device, 1, 64, 2, P, N, torch.float32)
+    n0 = ssd_ops.launches_bwd
+    with pytest.raises(ValueError, match="backward kernel"):
+        ssd_ops.ssd_scan_bwd(x, loga, b, c, torch.ones_like(x))
+    assert ssd_ops.launches_bwd == n0
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "whisper-large-v3", "llama-3.2-vision-90b"])

@@ -1,10 +1,12 @@
 """Port parity: ``Model.loss_fn`` and every gradient leaf against
 ``jax.value_and_grad(repro.models.Model.loss_fn)`` for the LM kinds that
 train (``dense``, ``local`` / ``global``, ``moe`` with and without MLA,
-``cross``, ``enc`` / ``dec``), on reduced configs (``conftest.reduce_cfg``)
-with the reference's params carried across by ``convert.lm_params_from_numpy``:
-smollm-135m, gemma3-12b, qwen1.5-4b, deepseek-moe-16b, deepseek-v3-671b,
-whisper-large-v3 (frames) and llama-3.2-vision-90b (vision embeddings, its
+``cross``, ``enc`` / ``dec``, ``ssm``, ``hybrid``), on reduced configs
+(``conftest.reduce_cfg``) with the reference's params carried across by
+``convert.lm_params_from_numpy``: smollm-135m, gemma3-12b, qwen1.5-4b,
+deepseek-moe-16b, deepseek-v3-671b, whisper-large-v3 (frames), mamba2-780m,
+hymba-1.5b (meta tokens in front of the keys) and llama-3.2-vision-90b
+(vision embeddings, its
 ``xgate`` set from the seed to [0.5, 1.5]: the reference's zeros would hide
 every cross-attention, as in ``tests/test_torch_lm_encdec.py``).
 
@@ -12,10 +14,11 @@ The batch masks three targets (< 0) to exercise the reference's ``ntok``.
 f32 compute: the loss within 1e-5 (relative), each gradient leaf within
 1e-4 of the reference leaf's largest magnitude. deepseek-v3's bf16 params
 have bf16 gradients on both sides, held within one bf16 rounding (2^-7 of
-the leaf's scale), and once more with f32 params at 1e-4. Both attention
-paths (the kernel's ``FlashAttentionFn``, plain on the CPU, and
-``use_kernels=False``, ``gqa_attend`` under autograd) and every ``remat``
-mode give the same gradients. ``ssm`` and ``hybrid`` raise.
+the leaf's scale), and once more with f32 params at 1e-4. Both kernel
+paths (the kernels' ``FlashAttentionFn`` and ``SSDScanFn``, their plain
+halves on the CPU, and ``use_kernels=False``, ``gqa_attend`` and
+``ssd_chunked`` under autograd) and every ``remat`` mode give the same
+gradients.
 """
 import dataclasses
 
@@ -34,7 +37,7 @@ from repro_torch.models import build_model
 from conftest import reduce_cfg
 
 ARCHS = ["smollm-135m", "gemma3-12b", "qwen1.5-4b", "deepseek-moe-16b", "deepseek-v3-671b",
-         "deepseek-v3-671b/f32", "whisper-large-v3", "llama-3.2-vision-90b"]
+         "deepseek-v3-671b/f32", "whisper-large-v3", "llama-3.2-vision-90b", "mamba2-780m", "hymba-1.5b"]
 B, S = 2, 16
 
 
@@ -109,7 +112,8 @@ def test_loss_and_grads_match_reference(family):
 
 
 def test_plain_attention_path_matches_reference(family):
-    """``use_kernels=False``: attention as ``gqa_attend`` under autograd."""
+    """``use_kernels=False``: attention as ``gqa_attend``, the SSD scan as
+    ``ssd_chunked``, under autograd."""
     arch, cfg, sd, batch, want = family
     loss, _, grads = _port_grads(cfg, sd, batch, use_kernels=False)
     assert loss == pytest.approx(want["loss"], rel=1e-5), arch
@@ -119,7 +123,7 @@ def test_plain_attention_path_matches_reference(family):
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
-@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b", "mamba2-780m", "hymba-1.5b"])
 def test_remat_gives_the_same_gradients(arch, remat):
     """Recomputing each layer in the backward ("full"), or all but its
     matrix products ("dots"), changes no gradient bit on the CPU."""
@@ -134,10 +138,3 @@ def test_remat_gives_the_same_gradients(arch, remat):
     for n in g0:
         assert torch.equal(g0[n], g1[n]), (arch, remat, n)
 
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
-def test_ssm_and_hybrid_training_raises(arch):
-    r = reduce_cfg(j_get_config(arch))
-    tm = build_model(ArchConfig(**dataclasses.asdict(r)), "cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tm.loss_fn(_batch(r))
