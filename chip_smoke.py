@@ -13,8 +13,9 @@ The first:
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together, then one link), and checks with
    ``cuobjdump -sass`` that the bf16 attention kernels (the forward, and
-   the backward's dK / dV + dQ kernel) and the SSD kernel run ``HGMMA``
-   (wgmma) instructions in every instantiation;
+   the backward's dK / dV + dQ kernel), the SSD kernel and the SSD
+   backward's two tensor-core kernels run ``HGMMA`` (wgmma) instructions
+   in every instantiation;
 3. holds each kernel against its plain PyTorch version at small shapes:
    the three PRF kernels (the histogram and the split scan also at
    B 256, C 300, past their shared memory's class limits, in class
@@ -181,16 +182,17 @@ The first:
    heads at hd 128) beside their plain version, their bound (10 D flops a
    visible pair) and SDPA's backward, the forward with and without its
    lse in turns at the training shape and at phase 6's prefill shape;
-   (e) the SSD backward kernel (``csrc/ssd_scan_bwd.cu``) against
-   ``ssd_chunked_bwd`` per element at ``LM_TOL``, f32 and bf16 each counted
-   on its route, two calls bitwise equal, at ``SSD_BWD_SMALL`` (L off the
+   (e) the SSD backward kernels (``csrc/ssd_scan_bwd.cu``) against
+   ``ssd_chunked_bwd`` per element at ``LM_TOL``, f32 (the CUDA cores) and
+   bf16 (the tensor cores) each counted on its route, two calls bitwise equal, at ``SSD_BWD_SMALL`` (L off the
    64-step chunk and below it, P 32 / 64, N 16 to 128) and ``SSD_BWD_FULL``
    (mamba2's and hymba's training microbatches), and ``SSDScanFn``'s
    backward against autograd of ``ssd_chunked``; (f) mamba2-780m and
    hymba-1.5b in (b)'s list, SSD launches counted per route; (g)
    mamba2-780m at published widths and full depth (48 layers), (c)'s
    recipe: 10 steps, 960 SSD backward calls and 1920 forward launches (remat
-   recomputes each layer), all bf16 on the kernels, resume from step 5
+   recomputes each layer), all bf16 on the kernels (every backward call on
+   the tensor cores), resume from step 5
    bitwise, f32 kernel vs plain within 1e-2, s/step, tokens/s, peak and a
    profiled step; (h) hymba-1.5b at published widths and
    ``HYMBA_TRAIN_DEPTH`` layers, ``HYMBA_TRAIN_STEPS`` steps, attention
@@ -295,7 +297,9 @@ def device_ms(fn, match, reps=10, warmup=2, sessions=3, per_call=1):
         held.append(n)
         if n == reps * per_call:
             return sum(e.self_device_time_total for e in mine) / reps / 1e3, taken, held
-        log(f"the profiler's trace holds {n} launches of {match}, want {reps * per_call}: trace discarded")
+        every = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        log(f"the profiler's trace holds {n} launches of {match}, want {reps * per_call}: trace discarded "
+            f"(per kernel: {[(e.key[:90], e.count) for e in mine]}; device records of any kernel: {every})")
     return None, sessions, held
 
 
@@ -896,7 +900,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 2048, 2, 
 
 
 BWD_COUNTERS = ("launches_bwd", "launches_bwd_bf16", "launches_bwd_tc", "launches_bwd_bf16_fma", "launches_bwd_f32")
-SSD_COUNTERS = ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16", "launches_bwd_f32")
+SSD_COUNTERS = ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16", "launches_bwd_tc",
+                "launches_bwd_f32")
 # Phase 7e: the SSD backward against its plain version at (B, L, H, P, N):
 # small shapes (L off the 64-step chunk, L < chunk, P 32 / 64, N 16 to 128,
 # several B x H), then the training microbatches of phases 7g and 7h.
@@ -909,28 +914,59 @@ HYMBA_TRAIN_DEPTH, HYMBA_TRAIN_STEPS = 8, 4     # phase 7h: 8 of hymba-1.5b's 32
 
 def ssd_bwd_work(B, L, H, P, N, Q=64, elem=2):
     """(bytes, operations) of the SSD backward in Q-step chunks: x, dy, dx, b,
-    c, db, dc of ``elem`` bytes and log a, d log a in f32, each once; over
-    the causal triangle the products c b^T and dS b, dS^T c (over N), dy x^T
-    and dx (over P), and the six Q N P products a chunk (the state's
-    recompute, c H_g, b dH, dH x, H dy and the dH update)."""
+    c, db, dc of ``elem`` bytes and log a, d log a in f32, each once. Over
+    the causal triangle, once a (batch, chunk): the products over N, c b^T
+    and (sum_h dS) b, (sum_h dS)^T c (S is shared over the heads, and db's
+    and dc's pair terms are linear in dS); once a head: dy x^T and dx (over
+    P), and the six Q N P products (the state's recompute, c H_g, b dH, dH x,
+    H dy and the dH update)."""
     tri = Q * (Q + 1) // 2
-    per_chunk = 6 * tri * N + 4 * tri * P + 12 * Q * N * P
+    per_head = 4 * tri * P + 12 * Q * N * P
     return (3 * B * L * H * P * elem + 4 * B * L * N * elem + 2 * B * L * H * 4,
-            B * H * -(-L // Q) * per_chunk)
+            B * -(-L // Q) * (6 * tri * N + H * per_head))
+
+
+def worst_element(outs, wants, exacts):
+    """Of the outputs ``outs`` (dx, d log a, db, dc) against the plain
+    version's ``wants`` at LM_TOL of their dtypes, the element that uses
+    the largest share of its allowance: its output, flat index, share, the
+    kernel's, the plain version's and the exact value (``exacts``, f64), and
+    the distances kernel - plain, kernel - exact and plain - exact in ulps of
+    the output's dtype at the plain value's binade."""
+    import math
+
+    best = None
+    for name, g, w, e in zip(("dx", "dloga", "db", "dc"), outs, wants, exacts):
+        rtol, atol = LM_TOL[g.dtype]
+        eps = torch.finfo(g.dtype).eps
+        g, w = g.double().flatten(), w.double().flatten()
+        d = (g - w).abs()
+        share = torch.where(d == 0, 0.0, d / (rtol * w.abs() + atol * rms(w)))
+        k = int(share.argmax())
+        if best is None or float(share[k]) > best["share"]:
+            gk, wk, ek = float(g[k]), float(w[k]), float(e.flatten()[k])
+            ulp = eps * 2.0 ** math.floor(math.log2(abs(wk) or abs(ek) or 1.0))
+            best = {"output": name, "index": k, "share": float(share[k]), "kernel": gk, "plain": wk, "exact": ek,
+                    "ulps_kernel_plain": (gk - wk) / ulp, "ulps_kernel_exact": (gk - ek) / ulp,
+                    "ulps_plain_exact": (wk - ek) / ulp}
+    return best
 
 
 def ssd_route_counts(ssd_ops):
-    """(backward calls, of which bf16, of which f32) so far."""
-    return ssd_ops.launches_bwd, ssd_ops.launches_bwd_bf16, ssd_ops.launches_bwd_f32
+    """(backward calls, of which bf16, of which on the tensor cores, of which f32) so far."""
+    return ssd_ops.launches_bwd, ssd_ops.launches_bwd_bf16, ssd_ops.launches_bwd_tc, ssd_ops.launches_bwd_f32
 
 
 def lm_ssd_backward_checks(dev):
-    """7e: the SSD backward kernel against ``ssd_chunked_bwd`` per element at
-    LM_TOL (d log a, f32 in both dtypes, at f32's), f32 and bf16 each counted
-    on its route, two calls bitwise equal, at SSD_BWD_SMALL and SSD_BWD_FULL;
+    """7e: the SSD backward kernels against ``ssd_chunked_bwd`` per element at
+    LM_TOL (d log a, f32 in both dtypes, at f32's), f32 (the CUDA cores) and
+    bf16 (the tensor cores) each counted on its route, two calls bitwise
+    equal, at SSD_BWD_SMALL and SSD_BWD_FULL;
     then ``SSDScanFn``'s whole backward (``torch.autograd.grad`` through the
     forward and backward kernels) against autograd of ``ssd_chunked``.
-    Returns the largest allowance share per dtype and the full shapes'."""
+    Returns the largest allowance share per dtype and the full shapes', and
+    the element behind each share beside the exact (f64) value
+    (``worst_element``)."""
     import math
 
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -938,7 +974,7 @@ def lm_ssd_backward_checks(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    worst, full, fn = {}, {}, {}
+    worst, full, fn, elements = {}, {}, {}, {}
     cases = [(None, c) for c in SSD_BWD_SMALL] + list(SSD_BWD_FULL.items())
     for label, (B, L, H, P, N) in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -948,8 +984,8 @@ def lm_ssd_backward_checks(dev):
             n0 = ssd_route_counts(ssd_ops)
             got = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
             bf16 = dtype == torch.bfloat16
-            check(ssd_route_counts(ssd_ops) == (n0[0] + 1, n0[1] + bf16, n0[2] + (not bf16)),
-                  f"{what}: launched on the wrong route")
+            check(ssd_route_counts(ssd_ops) == (n0[0] + 1, n0[1] + bf16, n0[2] + bf16, n0[3] + (not bf16)),
+                  f"{what}: launched on the wrong route (bf16 on the tensor cores, f32 on the CUDA cores)")
             want = ssd_chunked_bwd(x, loga, b, c, dy, math.gcd(128, L))
             share = 0.0
             for name, g, w in zip(("dx", "dloga", "db", "dc"), got, want):
@@ -957,9 +993,14 @@ def lm_ssd_backward_checks(dev):
                 share = max(share, lm_close(g, w, g.dtype, f"{what}: {name}")[1])
             again = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
             check(all(torch.equal(u, v) for u, v in zip(got, again)), f"{what}: two calls differ")
-            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), share)
-            if label:
-                full[f"{label} {dtype}"] = share
+            if share > worst.get(str(dtype), 0.0) or label:
+                exact = ssd_chunked_bwd(*(u.double() for u in (x, loga, b, c, dy)), math.gcd(128, L))
+                el = dict(worst_element(got, want, exact), case=what)
+                del exact
+                if share > worst.get(str(dtype), 0.0):
+                    worst[str(dtype)], elements[str(dtype)] = share, el
+                if label:
+                    full[f"{label} {dtype}"], elements[f"{label} {dtype}"] = share, el
             del x, loga, b, c, dy, got, want, again
         torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.bfloat16):
@@ -972,9 +1013,13 @@ def lm_ssd_backward_checks(dev):
         want = torch.autograd.grad(ssd_chunked(*ins, None, 128)[0], ins, dy)
         fn[str(dtype)] = max(lm_close(g, w, g.dtype, f"SSDScanFn backward vs autograd of ssd_chunked, {dtype}: {n}")[1]
                              for n, g, w in zip(("dx", "dloga", "db", "dc"), got, want))
+        exact = ssd_chunked_bwd(*(u.detach().double() for u in (*ins, dy)), 128)
+        elements[f"SSDScanFn {dtype}"] = worst_element(got, want, exact)
     log("ssd backward vs plain (largest share of the allowance used; every shape two calls bitwise equal): "
         f"{worst}; full shapes {full}; SSDScanFn's backward vs autograd of ssd_chunked at [2, 512, 8, 64, N 128] {fn}")
-    return {"worst_share": worst, "full_shapes": full, "ssd_scan_fn_share": fn}
+    for what, el in elements.items():
+        log(f"ssd backward, worst element ({what}): {el}")
+    return {"worst_share": worst, "full_shapes": full, "ssd_scan_fn_share": fn, "worst_elements": elements}
 
 
 def lm_ssd_backward_rows(dev, launches_bwd, kernel_row, timings):
@@ -982,7 +1027,10 @@ def lm_ssd_backward_rows(dev, launches_bwd, kernel_row, timings):
     its bound (``ssd_bwd_work``); mamba2's shape is the kernels line's row.
     ``direct_ms``: CUDA events around direct launches of the C entry point on
     preallocated outputs and scratch, the two kernels alone without the
-    profiler."""
+    profiler. ``kernel_ms`` is the profiler's where a trace held every
+    launch, which late in this process traces of any kernel often do not
+    (``device_ms``); each of the two kernels' own time is
+    ``tools/ssd_bwd_ab.py``'s."""
     from repro_torch.kernels._build import launch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
@@ -997,11 +1045,9 @@ def lm_ssd_backward_rows(dev, launches_bwd, kernel_row, timings):
         plain = lambda: ssd_chunked_bwd(x, loga, b, c, dy, 128)
         err = max(max_abs(g, w) for g, w in zip(call(), plain()))
         t = timed(f"ssd backward ({label})", call, "ssd_bwd", timings, per_call=2)
-        f32 = dict(dtype=torch.float32, device=dev)
         bufs = (x, loga, b, c, dy, torch.empty_like(x), torch.empty_like(loga), torch.empty_like(b),
-                torch.empty_like(c), torch.empty((B, H, -(-L // ssd_ops.BWD_CHUNK), N, P), **f32),
-                torch.empty((B, H, L, N), **f32), torch.empty((B, H, L, N), **f32))
-        args = [u.data_ptr() for u in bufs] + [B, L, H, P, N, 1]
+                torch.empty_like(c), *ssd_ops.bwd_scratch(B, L, H, P, N, True, dev))
+        args = [u.data_ptr() if u is not None else 0 for u in bufs] + [B, L, H, P, N, 1]
         t["direct_ms"] = cuda_ms(lambda: launch("lm_ssd_scan_bwd", *args))
         del bufs
         p_ms = cuda_ms(plain, reps=2, warmup=1)
@@ -1235,17 +1281,17 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
               "bwd_bf16": flash_ops.launches_bwd_bf16, "bwd_tc": flash_ops.launches_bwd_tc,
               "bwd_f32": flash_ops.launches_bwd_f32, "ssd_fwd_bf16": ssd_ops.launches_bf16,
               "ssd_fwd_f32": ssd_ops.launches_f32, "ssd_bwd_bf16": ssd_ops.launches_bwd_bf16,
-              "ssd_bwd_f32": ssd_ops.launches_bwd_f32}
+              "ssd_bwd_tc": ssd_ops.launches_bwd_tc, "ssd_bwd_f32": ssd_ops.launches_bwd_f32}
     fwd, bwd = train_attention_launches(cfg)
     sfwd, sbwd = train_ssd_launches(cfg)
     n_calls = steps * TRAIN_MICRO
     want = {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_tc": bwd * n_calls,
             "bwd_f32": 0, "ssd_fwd_bf16": sfwd * n_calls, "ssd_fwd_f32": 0, "ssd_bwd_bf16": sbwd * n_calls,
-            "ssd_bwd_f32": 0}
+            "ssd_bwd_tc": sbwd * n_calls, "ssd_bwd_f32": 0}
     check(routes == want and flash_ops.launches == fwd * n_calls and flash_ops.launches_bwd == bwd * n_calls
           and ssd_ops.launches == sfwd * n_calls and ssd_ops.launches_bwd == sbwd * n_calls,
           f"{arch} training: launches per route {routes}, want {want} (every call bf16 on a kernel, "
-          "attention's backward on the tensor cores)")
+          "attention's and the SSD scan's backward on the tensor cores)")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{arch} training: the loss did not fall {losses}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = step_s[1:]
@@ -3052,10 +3098,11 @@ def traverse_batch_ab(src: str) -> int:
 
 def tensor_core_sass():
     """The bf16 tensor-core kernels' SASS holds HGMMA (wgmma) instructions:
-    every instantiation of flash_tc_kernel (5), ssd_tc_kernel (8) and the
-    attention backward's bwd_dkdv_dq_tc_kernel (3);
-    the listings go to ``artifacts/{name}.sass``. Returns HGMMA lines per
-    instantiation, per kernel."""
+    every instantiation of flash_tc_kernel (5), ssd_tc_kernel (8), the
+    attention backward's bwd_dkdv_dq_tc_kernel (3) and the SSD backward's
+    ssd_bwd_state_tc_kernel and ssd_bwd_chunk_tc_kernel (8 each, one
+    listing); the listings go to ``artifacts/{name}.sass``. Returns HGMMA
+    lines per instantiation, per listing."""
     from repro_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -3064,10 +3111,13 @@ def tensor_core_sass():
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     counts = {}
-    for kernel, n_inst, show in (("flash_tc_kernel", 5, "ILi64E"), ("ssd_tc_kernel", 8, "ILi64ELi128E"),
-                                 ("bwd_dkdv_dq_tc_kernel", 3, "ILi64E")):
+    for kernel, names, n_inst, show in (
+            ("flash_tc_kernel", ("flash_tc_kernel",), 5, "ILi64E"),
+            ("ssd_tc_kernel", ("ssd_tc_kernel",), 8, "ILi64ELi128E"),
+            ("bwd_dkdv_dq_tc_kernel", ("bwd_dkdv_dq_tc_kernel",), 3, "ILi64E"),
+            ("ssd_bwd_tc_kernel", ("ssd_bwd_state_tc_kernel", "ssd_bwd_chunk_tc_kernel"), 16, None)):
         funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
-                 if kernel in blk.split("\n", 1)[0]}
+                 if any(n in blk.split("\n", 1)[0] for n in names)}
         check(len(funcs) == n_inst, f"want {n_inst} instantiations of {kernel} in the SASS, found {list(funcs)}")
         (out_dir / f"{kernel}.sass").write_text("".join(f"Function : {b}" for b in funcs.values()))
         hgmma = {}
@@ -3075,9 +3125,10 @@ def tensor_core_sass():
             lines = [ln.strip() for ln in blk.splitlines() if "HGMMA" in ln]
             check(lines, f"{name}: no HGMMA in its SASS")
             hgmma[name] = len(lines)
-        main = next(blk for name, blk in funcs.items() if show in name)
-        log(f"cuobjdump -sass, {kernel} ({show}), its HGMMA lines:\n" +
-            "\n".join(ln.strip() for ln in main.splitlines() if "HGMMA" in ln))
+        if show:
+            main = next(blk for name, blk in funcs.items() if show in name)
+            log(f"cuobjdump -sass, {kernel} ({show}), its HGMMA lines:\n" +
+                "\n".join(ln.strip() for ln in main.splitlines() if "HGMMA" in ln))
         log(f"{kernel}: HGMMA instructions per instantiation: {hgmma}")
         counts[kernel] = hgmma
     return counts

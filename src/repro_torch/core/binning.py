@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 MAX_BINS = 256
 
 # Per-feature summary size the sketch compresses down to. A summary is kept
@@ -392,8 +394,11 @@ def host_digitize(x: np.ndarray, edges: np.ndarray) -> np.ndarray:
     return out
 
 
-def bin_dataset(x: np.ndarray, n_bins: int = 64, *, device="cpu"):
-    """Fit + apply. Returns (binned [N, F] uint8 tensor on ``device``, edges)."""
+def bin_dataset(x: np.ndarray, n_bins: int = 64, *, device=None):
+    """Fit + apply. Returns (binned [N, F] uint8 tensor on ``device``, edges).
+    ``device`` as ``device.resolve_device``: ``cuda`` unless the caller asks
+    for the CPU, and ``RuntimeError`` without a card."""
+    device = resolve_device(device)
     edges = fit_bins(x, n_bins)
     xt = torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32))).to(device)
     return apply_bins(xt, torch.from_numpy(edges).to(device)), edges

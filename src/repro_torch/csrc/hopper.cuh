@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu): mbarriers, TMA
-// loads and stores, bulk copies, the swizzle TMA writes, wgmma shared-memory
-// descriptors and wgmma instructions (bf16 operands, f32 accumulators), and
-// the CUDA driver's tensor-map encoder.
+// (flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu, ssd_scan_bwd.cu):
+// mbarriers, TMA loads and stores, bulk copies, the swizzle TMA writes,
+// ldmatrix / stmatrix, wgmma shared-memory descriptors and wgmma
+// instructions (bf16 operands, f32 accumulators; B K-major or MN-major),
+// and the CUDA driver's tensor-map encoder.
 //
 // Accumulator fragment of a 64-row wgmma, for thread (warp w, lane l) of
 // the warpgroup: register 4j + 2 half + e holds row 16 w + l / 4 + 8 half,
@@ -79,6 +80,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// `bytes` contiguous bytes of shared memory into device memory (both
+// addresses 16-byte aligned, `bytes` a multiple of 16), in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"((uint64_t)__cvta_generic_to_global(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
 // One box from shared memory to a 3-D tensor map (rows past the map's
 // extent are not written), in this thread's bulk group.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
@@ -115,11 +124,27 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* addr
                : "r"(smem_u32(addr)));
 }
 
+// Four 8 x 8 bf16 matrices from shared memory into the register fragment
+// layout: lanes 8m .. 8m + 7 give the row addresses (16 bytes each) of
+// matrix m; r[m] gets row lane / 4, columns 2 (lane % 4) + {0, 1} of it.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(addr)));
+}
+
 // Four 8 x 8 bf16 matrices from the register fragment layout (r[m] holds
 // row lane / 4, columns 2 (lane % 4) + {0, 1} of matrix m) into shared
 // memory: lanes 8m .. 8m + 7 give the row addresses (16 bytes each) of matrix m.
 __device__ __forceinline__ void stsm_x4(void* addr, const uint32_t (&r)[4]) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(smem_u32(addr)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
+// As stsm_x4, each matrix stored transposed: lanes 8m .. 8m + 7 give the
+// addresses of its columns 0 .. 7, each written as 8 contiguous bf16.
+__device__ __forceinline__ void stsm_x4_trans(void* addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
                ::"r"(smem_u32(addr)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
 }
 
@@ -136,7 +161,9 @@ __device__ __forceinline__ uint32_t swz(uint32_t off) {
 // wgmma shared-memory descriptor of a tile in the SW-byte swizzled layout
 // TMA writes: rows of SW bytes, 8-row groups SW * 8 bytes apart (the
 // stride byte offset). The leading byte offset is unused: every operand
-// spans one swizzle atom along its contiguous dimension.
+// spans one swizzle atom along its contiguous dimension. The same tile is
+// a K-major operand (rows along M or N, K contiguous; a k16 step 32 bytes
+// on) or an MN-major one (rows along K, a k16 step 16 rows on).
 template <int SW>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;   // 128-, 64- or 32-byte swizzle
@@ -171,74 +198,81 @@ __device__ __forceinline__ void reg_keep(const uint32_t (&a)[K][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(a[k][i]) : "memory");
 }
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A and B K-major in shared memory.
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A K-major in shared memory, B
+// K-major (TB = 0) or MN-major (TB = 1) in shared memory.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accum) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accum));
+      : "l"(da), "l"(db), "r"(accum), "n"(TB));
 }
 
 // d[64 x 32] (+)= A[64 x 16] B[16 x 32]^T, as above.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int accum) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accum));
+      : "l"(da), "l"(db), "r"(accum), "n"(TB));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major (transposed) in shared memory.
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major (TB = 1,
+// transposed) or K-major (TB = 0) in shared memory.
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 // d[64 x 32] += A[64 x 16] B[16 x 32], as above.
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 // d[64 x 16] += A[64 x 16] B[16 x 16], as above.
+template <int TB = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }

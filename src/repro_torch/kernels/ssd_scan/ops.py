@@ -14,11 +14,13 @@ source's note.
 The training path (``models/mamba.mamba_train``) runs ``SSDScanFn``:
 its forward is the forward kernel's y (the final state is no output
 there: training never reads it), its backward under autograd
-``ssd_scan_bwd``, the backward kernel (no TPU counterpart: the
-reference differentiates its chunked einsums with XLA), f32 arithmetic
-on the CUDA cores for both dtypes, one call counted in ``launches_bwd``
-and its dtype's count. On CPU tensors the two halves are
-``ref.ssd_chunked`` and ``ref.ssd_chunked_bwd``. On the card nothing
+``ssd_scan_bwd``, the backward kernels (no TPU counterpart: the
+reference differentiates its chunked einsums with XLA), two launches a
+call by dtype: bfloat16 on the tensor cores (the chunk states' pass, then
+the chunk-parallel pass; ``launches_bwd_tc``), float32 on the CUDA cores
+(exact f32 products; ``launches_bwd_f32``), one call counted in
+``launches_bwd`` and its dtype's count. On CPU tensors the two halves
+are ``ref.ssd_chunked`` and ``ref.ssd_chunked_bwd``. On the card nothing
 falls back to the plain versions: a failed build or launch raises.
 """
 from __future__ import annotations
@@ -30,9 +32,10 @@ from .ref import ssd_chunked, ssd_chunked_bwd
 launches = 0        # kernel launches in this process (the CPU path does not count)
 launches_bf16 = 0   # of which the bf16 tensor-core kernel
 launches_f32 = 0    # of which the f32 CUDA-core kernel
-launches_bwd = 0        # backward calls (two launches each: the block walk, then the head sums of db, dc)
+launches_bwd = 0        # backward calls (two launches each)
 launches_bwd_bf16 = 0   # of which on bf16 tensors
-launches_bwd_f32 = 0    # of which on f32 tensors
+launches_bwd_tc = 0     # of which on the tensor cores (every bf16 call)
+launches_bwd_f32 = 0    # of which on f32 tensors (the CUDA cores)
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 256   # the f32 kernel's limits
 TC_HEAD_DIMS, TC_STATES = (32, 64), (16, 32, 64, 128)   # shapes the tensor-core kernel takes
 BWD_HEAD_DIMS, BWD_STATES = (32, 64), (16, 32, 64, 128)  # shapes the backward kernel takes
@@ -104,12 +107,13 @@ def ssd_scan(
 
 def ssd_scan_bwd(x, loga, b, c, dy, *, chunk: int = 128):
     """(dx, dloga, db, dc) of ``ssd_scan``'s y against ``dy`` [B, L, H, P]
-    (in x's, loga's, b's and c's dtypes). CUDA tensors: the backward kernel
-    (64-step chunks of its own, any ``L``; P in ``BWD_HEAD_DIMS``, N in
-    ``BWD_STATES``, else ``ValueError``; f32 arithmetic; bitwise run to
-    run). CPU tensors: ``ref.ssd_chunked_bwd`` in chunks of
-    ``min(chunk, L)``, which must divide ``L``."""
-    global launches_bwd, launches_bwd_bf16, launches_bwd_f32
+    (in x's, loga's, b's and c's dtypes). CUDA tensors: the backward kernels
+    (64-step chunks of their own, any ``L``; P in ``BWD_HEAD_DIMS``, N in
+    ``BWD_STATES``, else ``ValueError``; bf16 on the tensor cores, f32 on
+    the CUDA cores; bitwise run to run). CPU tensors:
+    ``ref.ssd_chunked_bwd`` in chunks of ``min(chunk, L)``, which must
+    divide ``L``."""
+    global launches_bwd, launches_bwd_bf16, launches_bwd_tc, launches_bwd_f32
     _check(x, loga, b, c)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must be x's shape {tuple(x.shape)}")
@@ -131,21 +135,36 @@ def ssd_scan_bwd(x, loga, b, c, dy, *, chunk: int = 128):
     if x.numel() == 0:
         return torch.zeros_like(x), torch.zeros_like(loga), torch.zeros_like(b), torch.zeros_like(c)
     x, loga, b, c, dy = (t.contiguous() for t in (x, loga, b, c, dy))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (x, b, c, dy)):
+        raise ValueError("the bf16 SSD backward kernel reads x, b, c, dy by TMA: 16-byte aligned bases")
     dx, dloga = torch.empty_like(x), torch.empty_like(loga)
     db, dc = torch.empty_like(b), torch.empty_like(c)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    states = torch.empty((B, H, -(-L // BWD_CHUNK), N, P), **f32)      # the state entering each chunk
-    db_part, dc_part = torch.empty((B, H, L, N), **f32), torch.empty((B, H, L, N), **f32)
-    bf16 = x.dtype == torch.bfloat16
+    scratch = bwd_scratch(B, L, H, P, N, bf16, x.device)
     launch("lm_ssd_scan_bwd", x.data_ptr(), loga.data_ptr(), b.data_ptr(), c.data_ptr(), dy.data_ptr(),
-           dx.data_ptr(), dloga.data_ptr(), db.data_ptr(), dc.data_ptr(), states.data_ptr(),
-           db_part.data_ptr(), dc_part.data_ptr(), B, L, H, P, N, int(bf16))
+           dx.data_ptr(), dloga.data_ptr(), db.data_ptr(), dc.data_ptr(),
+           *(t.data_ptr() if t is not None else 0 for t in scratch), B, L, H, P, N, int(bf16))
     launches_bwd += 1
     if bf16:
         launches_bwd_bf16 += 1
+        launches_bwd_tc += 1
     else:
         launches_bwd_f32 += 1
     return dx, dloga, db, dc
+
+
+def bwd_scratch(B, L, H, P, N, bf16, device):
+    """The backward kernels' scratch (states, db_part, dc_part). bf16: the
+    state entering each 64-step chunk and its gradient leaving it, as bf16
+    hi and lo planes, ``[2, B, H, G, N, P]`` f32's bytes; no partials. f32:
+    the states ``[B, H, G, N, P]`` and the per-head db, dc partials
+    ``[B, H, L, N]``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    G = -(-L // BWD_CHUNK)
+    if bf16:
+        return torch.empty((2, B, H, G, N, P), **f32), None, None
+    return (torch.empty((B, H, G, N, P), **f32), torch.empty((B, H, L, N), **f32),
+            torch.empty((B, H, L, N), **f32))
 
 
 class SSDScanFn(torch.autograd.Function):

@@ -587,6 +587,49 @@ def test_ssd_backward_kernel_matches_plain(cuda_device, B, S, H, P, N, dtype):
         _scaled_close(g, w, g.dtype)
 
 
+def _ssd_bwd_route(dev, B, S, H, P, N, dtype):
+    """One backward call against ``ssd_chunked_bwd`` at LM_TOL (d log a at
+    f32's), counted on its route (bf16: the tensor cores; f32: the CUDA
+    cores), two calls bitwise equal."""
+    x, loga, b, c = _ssd_inputs(dev, B, S, H, P, N, dtype)
+    dy = torch.from_numpy(RNG.standard_normal((B, S, H, P)).astype(np.float32)).to(dev, dtype)
+    n0 = (ssd_ops.launches_bwd, ssd_ops.launches_bwd_tc, ssd_ops.launches_bwd_f32)
+    got = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+    bf16 = dtype == torch.bfloat16
+    assert (ssd_ops.launches_bwd, ssd_ops.launches_bwd_tc, ssd_ops.launches_bwd_f32) == (
+        n0[0] + 1, n0[1] + bf16, n0[2] + (not bf16))
+    again = ssd_ops.ssd_scan_bwd(x, loga, b, c, dy)
+    want = ssd_chunked_bwd(x, loga, b, c, dy, math.gcd(min(128, S), S))
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _scaled_close(g, w, g.dtype)
+
+
+@pytest.mark.parametrize("P", [32, 64])
+@pytest.mark.parametrize("N", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_routes_per_shape(cuda_device, P, N, dtype):
+    """Every (P, N) the backward takes: bf16 on the tensor cores, f32 on the CUDA cores."""
+    _ssd_bwd_route(cuda_device, 2, 192, 5, P, N, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 130, 1000])
+def test_ssd_backward_tensor_cores_any_length(cuda_device, S):
+    """L off the 64-step chunk and below it: TMA zero-fills the rows past L."""
+    _ssd_bwd_route(cuda_device, 2, S, 3, 64, 128, torch.bfloat16)
+    _ssd_bwd_route(cuda_device, 1, S, 4, 32, 16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("P,N", [(48, 64), (64, 256), (16, 16), (64, 8)])
+def test_ssd_backward_tensor_cores_raise_on_shapes_they_do_not_take(cuda_device, P, N):
+    x, loga, b, c = _ssd_inputs(cuda_device, 1, 64, 2, P, N, torch.bfloat16)
+    n0 = (ssd_ops.launches_bwd, ssd_ops.launches_bwd_tc)
+    with pytest.raises(ValueError, match="backward kernel"):
+        ssd_ops.ssd_scan_bwd(x, loga, b, c, torch.ones_like(x))
+    assert (ssd_ops.launches_bwd, ssd_ops.launches_bwd_tc) == n0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_fn_backward_on_the_card(cuda_device, dtype):
     """Autograd through ``SSDScanFn`` (forward kernel, backward kernel)

@@ -92,6 +92,17 @@ def test_bin_dataset_matches():
     np.testing.assert_array_equal(bj, bt.numpy())
 
 
+def test_bin_dataset_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """No device: ``cuda``, as every entry point of the port; without a card
+    that raises rather than falling back to the CPU."""
+    x = RNG.normal(size=(50, 3)).astype(np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbin.bin_dataset(x, 8)
+    bt, _ = tbin.bin_dataset(x, 8, device="cpu")
+    assert bt.device.type == "cpu"
+
+
 @pytest.mark.parametrize("k,n", [(1, 7), (5, 600)])
 def test_dsi_counts_from_one_index_table(k, n):
     dsi = RNG.integers(0, n, (k, n)).astype(np.int32)
