@@ -3,10 +3,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --traverse-ab [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --train-only
+    python3 chip_smoke.py --mesh-only
 
 The second form only times the traversal at a 256-row batch under each
 tile plan (``traverse_batch_ab``); the third runs 1, 2 and 7 below and
-prints no result line (its numbers go to ``artifacts/chip_smoke_train.json``).
+prints no result line (its numbers go to ``artifacts/chip_smoke_train.json``);
+the fourth runs 1, 2, 7c (no resume, no profiled step) and 8, no result
+line (``artifacts/chip_smoke_mesh.json``).
 The first:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
@@ -180,7 +183,8 @@ The first:
    backward kernels at ``BWD_SHAPES`` (the training shape, the kernels
    line's ``flash_attention_bwd`` row, and llama-vision's self-attention
    heads at hd 128) beside their plain version, their bound (10 D flops a
-   visible pair) and SDPA's backward, the forward with and without its
+   visible pair) and SDPA's backward, and gemma3-27b's heads at hd 168 (the
+   CUDA-core kernels, padded to 192), the forward with and without its
    lse in turns at the training shape and at phase 6's prefill shape;
    (e) the SSD backward kernels (``csrc/ssd_scan_bwd.cu``) against
    ``ssd_chunked_bwd`` per element at ``LM_TOL``, f32 (the CUDA cores) and
@@ -200,7 +204,26 @@ The first:
    kernels, counted, f32 kernel vs plain within 1e-2; then the SSD
    backward at both training shapes beside its plain version and its bound
    (``ssd_bwd_work``; mamba2's is the kernels line's ``ssd_scan_bwd`` row);
-8. the launch counts and one JSON line per the smoke contract, then
+8. the LM mesh glue (``lm_mesh_phase``): (a) the attention forward (with
+   its lse) and backward kernels at a query offset, one shard of
+   smollm-135m's training microbatch on a 16-wide ``model`` axis
+   (``MESH_Q``: q [4, 128, 9, 64] at offsets 0, 896 and 1920 over k / v
+   [4, 2048, 3, 64]; then hymba's mask, window 1024 and a 64-key prefix,
+   over [4, 2112, 3, 64]), bf16 and f32, against ``gqa_attend_lse`` and
+   ``attention_bwd_ref`` with that ``MaskSpec`` offset per element at
+   ``LM_TOL``, two calls bitwise equal, one shard timed beside its bound;
+   (b) ``make_sharded_train_step`` in an NCCL world of one
+   (``make_mesh((1, 1))``) on 7c's smollm-135m, 3 steps from
+   ``make_train_step``'s initial state: losses and every gathered leaf
+   within 1e-2 of ``make_train_step``'s (bitwise reported), the attention
+   kernels launched as often a step as in 7c, s/step and peak beside 7c's;
+   (c) the dry run (``launch/dryrun.py``) of the eight ``TRAIN_ARCHS``'
+   ``train_4k`` cells on both production meshes, 16 cells, each a process
+   of its own (no card) started after the build and run beside phases 3-7
+   (``DryRunPool``), every cell ``OK``, its per-device FLOPs, bytes,
+   collectives, peak memory, ``fits_hbm`` and roofline terms logged, the
+   JSON under ``artifacts/dryrun_torch``;
+9. the launch counts and one JSON line per the smoke contract, then
    the device line last. Each row's ``ms`` is CUDA events around the
    wrapper's whole call; ``kernel_ms`` is the kernel's own device time
    from the profiler, over ``launches_traced`` launches (None, "not
@@ -789,12 +812,13 @@ def lm_kernel_rows(dev, counts, kernel_row, timings):
     return {"wide_d": wide, "path_shapes": path}
 
 
-def visible_pairs(Lq, Lk, window, prefix, causal=True):
-    """(query, key) pairs the mask admits, ends aligned: all Lq x Lk unmasked,
-    else the causal mask with ``window`` and ``prefix``."""
+def visible_pairs(Lq, Lk, window, prefix, causal=True, offset=None):
+    """(query, key) pairs the mask admits, query i at key position i +
+    ``offset`` (default Lk - Lq, ends aligned): all Lq x Lk unmasked, else
+    the causal mask with ``window`` and ``prefix``."""
     if not causal:
         return Lq * Lk
-    qpos = np.arange(Lq, dtype=np.int64) + (Lk - Lq)
+    qpos = np.arange(Lq, dtype=np.int64) + (Lk - Lq if offset is None else offset)
     prefix = min(prefix, Lk)
     lo = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros_like(qpos)
     # [lo, qpos] and the prefix keys outside it
@@ -1392,9 +1416,11 @@ def train_step_breakdown(fn):
 
 
 # The backward timed beside SDPA's (phase 7d): smollm-135m's training microbatch,
-# and llama-3.2-vision-90b's self-attention heads at hd 128 (B, H, KV, L, D), causal.
+# llama-3.2-vision-90b's self-attention heads at hd 128 and gemma3-27b's at hd 168
+# (padded to 192: the CUDA-core kernels) (B, H, KV, L, D), causal.
 BWD_SHAPES = {"smollm training shape": (TRAIN_BATCH // TRAIN_MICRO, 9, 3, TRAIN_SEQ, 64),
-              "llama-vision self-attention, hd 128": (TRAIN_BATCH // TRAIN_MICRO, 64, 8, TRAIN_SEQ, 128)}
+              "llama-vision self-attention, hd 128": (TRAIN_BATCH // TRAIN_MICRO, 64, 8, TRAIN_SEQ, 128),
+              "gemma3-27b heads, hd 168": (TRAIN_BATCH // TRAIN_MICRO, 32, 16, TRAIN_SEQ, 168)}
 
 
 def backward_timing(dev, gen, label, shape, timings):
@@ -3134,6 +3160,281 @@ def tensor_core_sass():
     return counts
 
 
+# Phase 8: the LM mesh glue. 8a: the attention kernels at a query offset: one
+# shard of smollm-135m's training microbatch on a 16-wide "model" axis, q
+# (B, Lq, H, KV, D), against k / v of the whole sequence, at the first, a middle
+# and the last shard's offsets; causal, then hymba's mask (k / v the meta prefix
+# longer, each offset with it).
+MESH_Q = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ // 16, 9, 3, 64)
+MESH_OFFSETS = (0, 896, 1920)
+MESH_MASKS = {"causal": (0, 0), "window 1024, prefix 64 (hymba's mask)": (1024, 64)}
+MESH_TIMED = ("causal", 896)                     # the shard timed beside its bound
+MESH_STEPS = 3                                   # 8b: sharded steps against make_train_step's
+DRYRUN_LIMIT_S = 900                             # 8c: wall-clock limit of one dry-run cell
+DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch"
+
+
+def mesh_offset_checks(dev, timings):
+    """8a: ``flash_attention_lse`` and ``flash_attention_bwd`` at ``MESH_OFFSETS``
+    against ``gqa_attend_lse`` and ``attention_bwd_ref`` with that
+    ``MaskSpec`` offset, per element at LM_TOL (lse at f32's), bf16 (the
+    tensor cores) and f32, two calls bitwise equal; then the forward and the
+    backward at ``MESH_TIMED`` timed beside their bounds (their visible pairs
+    at that offset)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref, gqa_attend_lse
+
+    B, Lq, H, KV, D = MESH_Q
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    worst, out_rows = {}, {}
+    for label, (W, P) in MESH_MASKS.items():
+        Lk = TRAIN_SEQ + P
+        for dtype in (torch.bfloat16, torch.float32):
+            q, do = (_randn(gen, (B, Lq, H, D), dev, dtype) for _ in range(2))
+            k, v = (_randn(gen, (B, Lk, KV, D), dev, dtype) for _ in range(2))
+            for off0 in MESH_OFFSETS:
+                off = off0 + P
+                what = f"attention at query offset {off} ({label}), {dtype}"
+                spec = MaskSpec(True, W, off, P)
+                kw = dict(causal=True, window=W, prefix=P, offset=off)
+                n0 = (flash_ops.launches, flash_ops.launches_bwd)
+                out, lse = flash_ops.flash_attention_lse(q, k, v, **kw)
+                want_out, want_lse = gqa_attend_lse(q, k, v, mask_spec=spec)
+                share = max(lm_close(out, want_out, dtype, what + " out")[1],
+                            lm_close(lse, want_lse, torch.float32, what + " lse")[1])
+                got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                want = attention_bwd_ref(q, k, v, out, lse, do, spec)
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    share = max(share, lm_close(g, w, dtype, f"{what}: {name}")[1])
+                out2, lse2 = flash_ops.flash_attention_lse(q, k, v, **kw)
+                again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                check(torch.equal(out, out2) and torch.equal(lse, lse2)
+                      and all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two calls differ")
+                check((flash_ops.launches, flash_ops.launches_bwd) == (n0[0] + 2, n0[1] + 2),
+                      f"{what}: launches {flash_ops.launches}, {flash_ops.launches_bwd}")
+                worst[f"{label} {dtype}"] = max(worst.get(f"{label} {dtype}", 0.0), share)
+                if (label, off0) == MESH_TIMED and dtype == torch.bfloat16:
+                    fwd = lambda: flash_ops.flash_attention_lse(q, k, v, **kw)          # noqa: E731
+                    bwd = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+                    pairs = visible_pairs(Lq, Lk, W, P, offset=off)
+                    io = 2 * (B * Lq * H * D + B * Lk * KV * D)             # bf16 q, o; k, v
+                    rows = {"fwd": (cuda_ms(fwd), io + 4 * B * H * Lq, 4 * D * B * H * pairs),
+                            "bwd": (cuda_ms(bwd), 2 * io + 4 * B * H * Lq, 10 * D * B * H * pairs)}
+                    for part, (ms, nbytes, nops) in rows.items():
+                        bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
+                        out_rows[part] = {"ms": ms, "bound_ms": bound, "bytes": nbytes, "ops": nops,
+                                          "pairs": pairs, "offset": off}
+                        log(f"attention {part} at query offset {off} ([{B}, {Lq} of {Lk}, {H} H / {KV} KV, {D}], "
+                            f"bf16, causal): {ms:.4f} ms, bound {bound:.4f} ms (share {bound / ms:.3f}; {pairs} "
+                            f"visible pairs)")
+                del out, lse, got, want, again, out2, lse2, want_out, want_lse
+            del q, do, k, v
+            torch.cuda.empty_cache()
+    log(f"8a: the attention kernels at query offsets {MESH_OFFSETS} (+ prefix) within LM_TOL, bitwise run to run; "
+        f"largest share of the allowance {worst}")
+    return {"worst_share": worst, "timed": out_rows}
+
+
+def mesh_train(dev, smollm_7c):
+    """8b: ``make_sharded_train_step`` in an NCCL world of one on the card
+    (``make_mesh((1, 1))``): smollm-135m as 7c (full width and depth, f32
+    params, batch 8 x 2048 in 2 microbatches), ``MESH_STEPS`` steps from
+    ``make_train_step``'s initial state; losses and every gathered leaf
+    against ``make_train_step``'s within 1e-2 of the scale (bitwise
+    reported), the attention kernels launched as often a step as in 7c,
+    s/step and peak beside 7c's."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.mesh import init_rank, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_state, make_sharded_train_step, make_train_step
+    from repro_torch.training.sharding import gather
+
+    store = ROOT / "build" / "mesh_world_of_one"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    init_rank(0, 1, f"file://{store / 'store'}", "nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        cfg = get_config("smollm-135m")
+        opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, n_docs=512, seed=0)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                   for b in pipe.batches(TRAIN_BATCH, MESH_STEPS, n_micro=TRAIN_MICRO)]
+        model = build_model(cfg, dev, seed=0)
+        state0 = init_state(model, opt)
+        step = make_train_step(model, opt)
+        want, want_losses = state0, []
+        for b in batches:
+            want, m = step(want, b)
+            want_losses.append(float(m["loss"]))
+        del model, step
+        smodel = build_model(cfg, dev, mesh=mesh, seed=0)
+        smodel.requires_grad_(True)
+        sstep, shardings, _ = make_sharded_train_step(smodel, opt, mesh, donate=False)
+        for n in ("launches", "launches_bf16", "launches_f32", *BWD_COUNTERS):
+            setattr(flash_ops, n, 0)
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, step_s = state0, [], []
+        for b in batches:
+            (state, m), t = sync_time(lambda: sstep(state, b))
+            loss = m["loss"].full_tensor() if hasattr(m["loss"], "full_tensor") else m["loss"]
+            losses.append(float(loss))
+            step_s.append(t)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"fwd_bf16": flash_ops.launches_bf16, "fwd_f32": flash_ops.launches_f32,
+                    "bwd_bf16": flash_ops.launches_bwd_bf16, "bwd_tc": flash_ops.launches_bwd_tc,
+                    "bwd_f32": flash_ops.launches_bwd_f32}
+        fwd, bwd = train_attention_launches(cfg)
+        n_calls = MESH_STEPS * TRAIN_MICRO
+        per_step_7c = {k: v * MESH_STEPS // TRAIN_STEPS for k, v in smollm_7c["launches"].items()
+                       if k in launches}
+        check(launches == {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls,
+                           "bwd_tc": bwd * n_calls, "bwd_f32": 0} and launches == per_step_7c,
+              f"8b: attention launches {launches}, want {fwd * n_calls} forward and {bwd * n_calls} backward, "
+              f"all bf16 on the kernels, as 7c's {per_step_7c}")
+        got = gather(state.params)
+        gm, gv = gather(state.opt["m"]), gather(state.opt["v"])
+        leaves = {}
+        for n in want.params:
+            leaves[n] = max(drift(got[n], want.params[n]), drift(gm[n], want.opt["m"][n]),
+                            drift(gv[n], want.opt["v"][n]))
+        worst = max(leaves, key=leaves.get)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        bitwise = losses == want_losses and all(
+            torch.equal(got[n], want.params[n]) and torch.equal(gm[n], want.opt["m"][n])
+            and torch.equal(gv[n], want.opt["v"][n]) for n in want.params)
+        check(loss_rel <= 1e-2 and leaves[worst] <= 1e-2,
+              f"8b: sharded vs make_train_step: losses {losses} / {want_losses}, worst leaf {worst} {leaves[worst]:.3g}")
+        steady = float(np.mean(step_s[1:]))
+        log(f"8b: make_sharded_train_step on make_mesh((1, 1)) (NCCL world of one), smollm-135m as 7c, "
+            f"{MESH_STEPS} steps: losses {losses} vs make_train_step's {want_losses} (max rel {loss_rel:.3g}), "
+            f"worst leaf {worst} {leaves[worst]:.3g}, bitwise {bitwise}; s/step {[round(x, 4) for x in step_s]}, "
+            f"steady {steady:.4f} (7c: {smollm_7c['steady_s_per_step']:.4f}), peak {peak / 2**30:.2f} GiB (7c: "
+            f"{smollm_7c['peak_bytes'] / 2**30:.2f}); attention launches {launches}")
+        result = {"losses": losses, "want_losses": want_losses, "loss_rel": loss_rel, "worst_leaf": worst,
+                  "worst_leaf_drift": leaves[worst], "bitwise": bitwise, "step_s": step_s,
+                  "steady_s_per_step": steady, "peak_bytes": peak, "launches": launches,
+                  "placements": {n: [str(p) for p in pl] for n, pl in list(shardings.params.items())[:4]},
+                  "7c_steady_s_per_step": smollm_7c["steady_s_per_step"], "7c_peak_bytes": smollm_7c["peak_bytes"]}
+        del smodel, sstep, state, state0, want, got, gm, gv
+        torch.cuda.empty_cache()
+        return result
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+class DryRunPool:
+    """8c: the dry run's train cells (``launch/dryrun.py``: every arch of
+    ``TRAIN_ARCHS`` on the 16 x 16 and 2 x 16 x 16 meshes), each cell a
+    process of its own (``python -m repro_torch.launch.dryrun``, no card:
+    ``CUDA_VISIBLE_DEVICES`` empty, one thread, ``nice`` 10), ``workers`` at
+    a time, started early so they run beside phases 3-7 on the host's
+    spare cores; each cell has a wall-clock limit, and every process is
+    killed by ``kill`` (also at exit)."""
+
+    def __init__(self, archs, meshes=("single", "multi"), workers=4):
+        import atexit
+        import os
+        import threading
+
+        self.jobs = [(a, m) for a in archs for m in meshes]
+        self.workers, self.procs, self.done = workers, {}, {}
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.t0 = time.perf_counter()
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        atexit.register(self.kill)
+        self._thread.start()
+
+    def _run(self):
+        import os
+
+        pending = list(self.jobs)
+        while (pending or self.procs) and not self._stop:
+            while pending and len(self.procs) < self.workers:
+                arch, m = pending.pop(0)
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--mesh", m,
+                       "--out", str(DRYRUN_OUT)]
+                proc = subprocess.Popen(cmd, env=self.env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True, preexec_fn=lambda: os.nice(10))
+                self.procs[(arch, m)] = (proc, time.perf_counter())
+            for key, (proc, t) in list(self.procs.items()):
+                if proc.poll() is None and time.perf_counter() - t < DRYRUN_LIMIT_S:
+                    continue
+                timed_out = proc.poll() is None
+                if timed_out:
+                    proc.kill()
+                out, err = proc.communicate()
+                self.done[key] = {"rc": None if timed_out else proc.returncode, "wall_s": time.perf_counter() - t,
+                                  "stdout": out, "stderr": err[-3000:], "timed_out": timed_out}
+                del self.procs[key]
+            time.sleep(0.5)
+
+    def results(self, timeout_s):
+        self._thread.join(timeout_s)
+        check(not self._thread.is_alive(), f"8c: the dry run did not finish within {timeout_s} s more "
+              f"({len(self.done)} of {len(self.jobs)} cells done)")
+        return self.done, time.perf_counter() - self.t0
+
+    def kill(self):
+        self._stop = True
+        for proc, _ in list(self.procs.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def mesh_dryrun(pool):
+    """8c: every cell of ``pool`` must reach OK: its wall time, FLOPs, bytes,
+    collective counts and bytes and peak memory per device, ``fits_hbm``
+    and the roofline terms, from the JSON each cell writes under
+    ``artifacts/dryrun_torch``."""
+    done, wall = pool.results(DRYRUN_LIMIT_S)
+    cells = {}
+    for (arch, m), r in sorted(done.items()):
+        mesh_name = "2x16x16" if m == "multi" else "16x16"
+        path = DRYRUN_OUT / f"{arch}__train_4k__{mesh_name}.json"
+        cell = json.loads(path.read_text()) if path.exists() else {"status": "no result"}
+        check(r["rc"] == 0 and cell.get("status") == "OK",
+              f"8c: {arch} on {mesh_name}: rc {r['rc']} (timed out {r['timed_out']}), status {cell.get('status')}; "
+              f"{cell.get('traceback', '')[-1500:]} {r['stderr'][-1500:]}")
+        cell["process_s"] = r["wall_s"]
+        cells[f"{arch} {mesh_name}"] = cell
+        log(f"8c: {arch:22s} {mesh_name:8s} OK in {r['wall_s']:.1f} s (cell {cell['wall_s']} s): flops/dev "
+            f"{cell['flops_per_device']:.4e}, bytes/dev {cell['bytes_per_device']:.4e}, collectives "
+            + ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B" for k, v in sorted(cell["collectives"].items()))
+            + f" (wire {cell['collective_bytes']:.4e} B), peak {cell['hbm_per_device_gb']:.3f} GiB, fits_hbm "
+            f"{cell['fits_hbm']}; compute {cell['compute_s']:.4f} s, memory {cell['memory_s']:.4f} s, collective "
+            f"{cell['collective_s']:.4f} s, dominant {cell['dominant']}, useful {cell['useful_flops_ratio']:.3f}, "
+            f"roofline fraction {cell['roofline_fraction']:.4f}")
+    log(f"8c: {len(cells)} dry-run cells OK, {wall:.1f} s from the pool's start")
+    return {"cells": cells, "pool_s": wall}
+
+
+def lm_mesh_phase(dev, smollm_7c, pool, timings):
+    """Phase 8: the LM mesh glue. 8a the attention kernels at a query
+    offset, 8b ``make_sharded_train_step`` on the card, 8c the dry run."""
+    part_s = {}
+
+    def part(name, fn):
+        out, part_s[name] = sync_time(fn)
+        return out
+
+    offsets = part("8a", lambda: mesh_offset_checks(dev, timings))
+    train = part("8b", lambda: mesh_train(dev, smollm_7c))
+    dry = part("8c", lambda: mesh_dryrun(pool))
+    log("phase 8 parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    return {"offsets": offsets, "sharded_train": train, "dryrun": dry, "part_s": part_s}
+
+
 def lm_train_phase(dev, kernel_row, timings):
     """Phase 7: the attention backward kernel's checks, reduced
     kernel-vs-plain training (7b, 7f), smollm-135m at full width (its launch
@@ -3163,7 +3464,7 @@ def lm_train_phase(dev, kernel_row, timings):
             "part_s": part_s}
 
 
-def main(train_only: bool = False) -> int:
+def main(train_only: bool = False, mesh_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -3207,6 +3508,8 @@ def main(train_only: bool = False) -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
     hgmma = tensor_core_sass()
     rows, timings = [], {}
+    from repro_torch.launch.dryrun import TRAIN_ARCHS
+    pool = None if train_only else DryRunPool(TRAIN_ARCHS)      # 8c, beside phases 3-7
 
     def kernel_row(name, src, replaces, launches, err, t, plain_ms, nbytes, nops, library_ms,
                    ops_per_s=F32_OPS_PER_S):
@@ -3222,6 +3525,15 @@ def main(train_only: bool = False) -> int:
         log(f"{name}: {row['ms']:.4f} ms (kernel alone {fmt_ms(row['kernel_ms'])}; plain {plain_ms:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}, of the "
             f"kernel alone {bound_share(row['bound_ms'], row['kernel_ms'])}, library {library_ms}) max|d| {err:.3g}")
+
+    if mesh_only:
+        smollm = lm_train_full(dev, resume=False, profile=False)
+        mesh_res = lm_mesh_phase(dev, smollm, pool, timings)
+        (ROOT / "artifacts").mkdir(exist_ok=True)
+        (ROOT / "artifacts" / "chip_smoke_mesh.json").write_text(json.dumps(
+            {"lm_mesh": mesh_res, "smollm_7c": smollm, "card": smi}, indent=1, default=str))
+        log(smi)
+        return 0
 
     if train_only:
         train = lm_train_phase(dev, kernel_row, timings)
@@ -3543,7 +3855,12 @@ def main(train_only: bool = False) -> int:
         if row["name"] == "ssd_scan":
             row["launches_train"] = train["mamba2"]["launches"]["ssd_fwd_bf16"]
 
-    # 8. results ------------------------------------------------------------------
+    # 8. the LM mesh glue -----------------------------------------------------------
+    lm_mesh, t_mesh = sync_time(lambda: lm_mesh_phase(dev, train["smollm"], pool, timings))
+    lm_mesh["phase_s"] = t_mesh
+    log(f"LM mesh glue phase (8): {t_mesh:.1f} s")
+
+    # 9. results ------------------------------------------------------------------
     result = {"kernels": rows, "stages_s": stages, "main_path_s": t_main, "levels_run": levels,
               "peak_bytes": peak, "accuracy": acc, "card": smi, "build_s": _build.build_seconds,
               "lm": lm, "lm_small_checks": lm_small, "attention_wide_d": lm_shapes["wide_d"],
@@ -3551,7 +3868,8 @@ def main(train_only: bool = False) -> int:
               "hgmma": hgmma, "hist_shapes": hist_shapes, "split_scan_shapes": scan_shapes,
               "traverse_shapes": traverse_shapes, "reuse": reuse, "reuse_reduced": reuse_reduced,
               "streamed": streamed, "checkpoints": checkpoints, "regression": regression, "mesh": mesh,
-              "multiproc": multiproc, "serving": serving, "lm_train": train, "timings": timings}
+              "multiproc": multiproc, "serving": serving, "lm_train": train, "lm_mesh": lm_mesh,
+              "timings": timings}
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
@@ -3580,5 +3898,8 @@ if __name__ == "__main__":
                     help="with --traverse-ab: the src directory to import repro_torch from")
     ap.add_argument("--train-only", action="store_true",
                     help="only the card, the build and phase 7 (LM training); no result line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only the card, the build, 7c without its resume and phase 8 (the LM mesh glue); "
+                         "no result line")
     args = ap.parse_args()
-    sys.exit(traverse_batch_ab(args.src) if args.traverse_ab else main(args.train_only))
+    sys.exit(traverse_batch_ab(args.src) if args.traverse_ab else main(args.train_only, args.mesh_only))

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
 // attention_pallas_call (body _attn_kernel). For query i of a [Lq] tile
-// and keys j of [Lk], ends aligned (query i sits at position i + Lk - Lq):
+// and keys j of [Lk], query i sits at position i + off (off = Lk - Lq, ends
+// aligned, unless the caller names another: a shard of a longer sequence):
 // s = (q_i . k_j) * scale, masked (causal: j <= pos_i; window W > 0:
 // j > pos_i - W; a prefix P > 0 keeps keys j < P visible to every query
 // whatever the other two say: hymba's meta tokens) to -1e30; running max
@@ -18,7 +19,7 @@
 // causal diagonal, before the window); the prefix's tiles [0, ceil(P /
 // 64)) are always visited, then the span from max(their end, the
 // window's first tile) to the diagonal. Every query keeps a visible key
-// (Lq <= Lk for a masked call, checked by the wrapper), so skipping and
+// (0 <= off <= Lk - Lq for a masked call, checked by the wrapper), so skipping and
 // weighing masked entries exactly 0 change nothing.
 //
 // What bounds it on an H100: at prefill shapes (L = 2048, D = 64) the
@@ -89,7 +90,7 @@ template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
              float* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int H, int KV, int D,
-             int causal, int window, int prefix, float scale) {
+             int causal, int window, int prefix, int off, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // [kBQ][D]
   float* ks = qs + kBQ * D;                  // [kBK][D + 1] (padded: column reads)
@@ -110,7 +111,6 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
   const float* kb = k + (long long)b * Lk * kv_step + (long long)kvh * D;
   const float* vb = v + (long long)b * Lk * kv_step + (long long)kvh * D;
   float* ob = out + (long long)b * Lq * q_step + (long long)h * D;
-  const int off = Lk - Lq;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
@@ -250,7 +250,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 
 template <int DMAX>
 int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Lq, int Lk,
-               int H, int KV, int D, int causal, int window, int prefix, float scale,
+               int H, int KV, int D, int causal, int window, int prefix, int off, float scale,
                cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<DMAX>,
@@ -259,7 +259,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, float* ls
   dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
   flash_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Lq, Lk, H, KV, D, causal,
-      window, prefix, scale);
+      window, prefix, off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -285,7 +285,7 @@ __global__ void __launch_bounds__(kTcThreads, DP <= 64 ? 3 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                 float* __restrict__ lse, int Lq, int Lk, int H, int KV, int D, int causal, int window,
-                int prefix, float scale_log2) {
+                int prefix, int off, float scale_log2) {
   using Sh = TcShape<DP>;
   constexpr int SW = Sh::SW, CW = Sh::CW, DC = Sh::DC, TILE = Sh::TILE, NV = Sh::NV;
   extern __shared__ uint8_t smem_raw[];
@@ -300,7 +300,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // the longest causal rows first
-  const int off = Lk - Lq;
 
   // Key tiles: the prefix's n_pre tiles, then [k_beg, k_end) from where they end.
   const int q_last = min(q0 + kBQ, Lq) - 1;
@@ -476,7 +475,7 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B, int 
 
 template <int DP>
 int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Lq, int Lk,
-              int H, int KV, int D, int causal, int window, int prefix, float scale,
+              int H, int KV, int D, int causal, int window, int prefix, int off, float scale,
               cudaStream_t stream) {
   using Sh = TcShape<DP>;
   EncodeTiled encode = encode_tiled();
@@ -491,7 +490,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Lq + kBQ - 1) / kBQ);
   flash_tc_kernel<DP><<<grid, kTcThreads, Sh::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, lse, Lq, Lk, H, KV, D, causal, window, prefix,
+      tq, tk, tv, (__nv_bfloat16*)out, lse, Lq, Lk, H, KV, D, causal, window, prefix, off,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -499,20 +498,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, float* lse
 }  // namespace
 
 // q/out [B, Lq, H, D], k/v [B, Lk, KV, D]; the first `prefix` keys are
-// visible to every query. bf16 != 0: all four are bf16 (tensor cores; D a
+// visible to every query; query i sits at key position i + off. bf16 != 0: all four are bf16 (tensor cores; D a
 // multiple of 8, 16-byte aligned), else f32 (CUDA cores). D <= 256. lse
 // [B, H, Lq] f32, or null: each row's log-sum-exp of its scaled logits
 // (m + log l, natural units), which the backward kernel reads; null skips
 // the write.
 extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, void* out,
                                   void* lse, int B, int Lq, int Lk, int H, int KV, int D, int causal,
-                                  int window, int prefix, float scale, int bf16, void* stream) {
+                                  int window, int prefix, int off, float scale, int bf16, void* stream) {
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || prefix < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     if (Lk < 1 || D % 8 != 0) return (int)cudaErrorInvalidValue;
 #define FLASH_TC(DP) \
-  launch_tc<DP>(q, k, v, out, (float*)lse, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
+  launch_tc<DP>(q, k, v, out, (float*)lse, B, Lq, Lk, H, KV, D, causal, window, prefix, off, scale, s)
     if (D <= 32) return FLASH_TC(32);
     if (D <= 64) return FLASH_TC(64);
     if (D <= 128) return FLASH_TC(128);
@@ -521,7 +520,7 @@ extern "C" int lm_flash_attention(const void* q, const void* k, const void* v, v
 #undef FLASH_TC
   }
 #define FLASH_F32(DMAX) \
-  launch_f32<DMAX>(q, k, v, out, (float*)lse, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, s)
+  launch_f32<DMAX>(q, k, v, out, (float*)lse, B, Lq, Lk, H, KV, D, causal, window, prefix, off, scale, s)
   if (D <= 64) return FLASH_F32(64);
   if (D <= 128) return FLASH_F32(128);
   return FLASH_F32(256);

@@ -1,5 +1,5 @@
 // The backward of blocked attention (FlashAttention-2's formulas), GQA,
-// causal / sliding-window / prefix masks or none, ends aligned.
+// causal / sliding-window / prefix masks or none, at the forward's query offset.
 //
 // Replaces no TPU kernel: the reference differentiates its einsum attention
 // with XLA (repro/models/layers.py:attention_train) and has no backward
@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Lq,
-                int Lk, int H, int KV, int D, int causal, int window, int prefix, float scale) {
+                int Lk, int H, int KV, int D, int causal, int window, int prefix, int off, float scale) {
   constexpr int TY = BK / 4;           // groups of 4 keys
   constexpr int TX = kThreads / TY;    // 16 (BK 64) or 32 (BK 32)
   constexpr int SC = kBQ / TX;         // queries a thread scores
@@ -171,7 +171,6 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
   const int G = H / KV;
   const long long q_step = (long long)H * D, kv_step = (long long)KV * D;
-  const int off = Lk - Lq;
   const long long kv_base = (long long)b * Lk * kv_step + (long long)kvh * D;
   load_tile(ks, k + kv_base, kv_step, k0, BK, Lk, D, ld);
   load_tile(vs, v + kv_base, kv_step, k0, BK, Lk, D, ld);
@@ -294,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, int Lq, int Lk, int H, int KV,
-              int D, int causal, int window, int prefix, float scale) {
+              int D, int causal, int window, int prefix, int off, float scale) {
   constexpr int TX = kThreads / (kBQ / 4);   // 16
   constexpr int SC = BK / TX;                // keys a thread scores
   constexpr int AC = DMAX / TX;              // dQ columns a thread owns
@@ -312,7 +311,6 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int q0 = blockIdx.x * kBQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
   const long long q_step = (long long)H * D, kv_step = (long long)KV * D;
-  const int off = Lk - Lq;
   const long long q_base = (long long)b * Lq * q_step + (long long)h * D;
   const long long kv_base = (long long)b * Lk * kv_step + (long long)kvh * D;
   load_tile(qs, q + q_base, q_step, q0, kBQ, Lq, D, ld);
@@ -414,7 +412,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 template <typename T, int DMAX>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out, const void* lse,
                const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int Lq, int Lk,
-               int H, int KV, int D, int causal, int window, int prefix, float scale,
+               int H, int KV, int D, int causal, int window, int prefix, int off, float scale,
                cudaStream_t stream) {
   constexpr int BK = DMAX > 128 ? 32 : 64;
   const int ld = D | 1;
@@ -432,7 +430,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   if (err != cudaSuccess) return (int)err;
   bwd_dkdv_kernel<T, DMAX, BK><<<dim3((Lk + BK - 1) / BK, B * KV), kThreads, smem_kv, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dk, (T*)dv, Lq, Lk, H, KV, D, causal, window, prefix, scale);
+      (const float*)delta, (T*)dk, (T*)dv, Lq, Lk, H, KV, D, causal, window, prefix, off, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -444,17 +442,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out, con
   if (err != cudaSuccess) return (int)err;
   bwd_dq_kernel<T, DMAX, BK><<<dim3((Lq + kBQ - 1) / kBQ, B * H), kThreads, smem_q, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dq, Lq, Lk, H, KV, D, causal, window, prefix, scale);
+      (const float*)delta, (T*)dq, Lq, Lk, H, KV, D, causal, window, prefix, off, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_bwd_f32(const void* q, const void* k, const void* v, const void* out, const void* lse,
                    const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int Lq,
-                   int Lk, int H, int KV, int D, int causal, int window, int prefix, float scale,
+                   int Lk, int H, int KV, int D, int causal, int window, int prefix, int off, float scale,
                    cudaStream_t s) {
 #define FLASH_BWD(DMAX)                                                                             \
   launch_bwd<float, DMAX>(q, k, v, out, lse, dout, delta, dq, dk, dv, B, Lq, Lk, H, KV, D, causal, \
-                          window, prefix, scale, s)
+                          window, prefix, off, scale, s)
   if (D <= 64) return FLASH_BWD(64);
   if (D <= 128) return FLASH_BWD(128);
   return FLASH_BWD(256);
@@ -523,7 +521,7 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem, const CUtensorMap* tq,
                                            const CUtensorMap* tv, const CUtensorMap* tdo,
                                            const float* __restrict__ rows, __nv_bfloat16* __restrict__ dk,
                                            __nv_bfloat16* __restrict__ dv, int Lq, int Lk, int H, int KV,
-                                           int D, int causal, int window, int prefix, float scale,
+                                           int D, int causal, int window, int prefix, int off, float scale,
                                            float scale_log2, int b, int kvh, int k0) {
   using Sh = BwdShape<DP>;
   constexpr int SW = Sh::SW, CW = Sh::CW, DC = Sh::DC, TILE = Sh::TILE, NV = CW;
@@ -535,7 +533,7 @@ __device__ __forceinline__ void dkdv_block(uint8_t* smem, const CUtensorMap* tq,
   uint64_t* bars = reinterpret_cast<uint64_t*>(rts + 4 * kBQ);  // K/V, stage 0, 1
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int G = H / KV, off = Lk - Lq, nqt = (Lq + kBQ - 1) / kBQ;
+  const int G = H / KV, nqt = (Lq + kBQ - 1) / kBQ;
 
   // Queries that see some key of this tile: all when it holds a prefix key,
   // else from the causal diagonal to the window's far edge; G heads each.
@@ -702,7 +700,7 @@ __device__ __forceinline__ void dq_block(uint8_t* smem, const CUtensorMap* tq, c
                                          const CUtensorMap* tv, const CUtensorMap* tdo,
                                          const float* __restrict__ rows, __nv_bfloat16* __restrict__ dq,
                                          int Lq, int Lk, int H, int KV, int D, int causal, int window,
-                                         int prefix, float scale, float scale_log2, int bh, int q0,
+                                         int prefix, int off, float scale, float scale_log2, int bh, int q0,
                                          int nqt) {
   using Sh = BwdShape<DP>;
   constexpr int SW = Sh::SW, CW = Sh::CW, DC = Sh::DC, TILE = Sh::TILE, NV = CW;
@@ -714,7 +712,6 @@ __device__ __forceinline__ void dq_block(uint8_t* smem, const CUtensorMap* tq, c
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const int off = Lk - Lq;
 
   // The forward's key tiles: the prefix's n_pre tiles, then [k_beg, k_end).
   const int q_last = min(q0 + kBQ, Lq) - 1;
@@ -858,7 +855,7 @@ bwd_dkdv_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ rows, __nv_bfloat16* __restrict__ dq,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int Lq,
-                      int Lk, int H, int KV, int D, int causal, int window, int prefix, float scale,
+                      int Lk, int H, int KV, int D, int causal, int window, int prefix, int off, float scale,
                       float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles must start on a 1024-byte boundary.
@@ -868,11 +865,11 @@ bwd_dkdv_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int i = blockIdx.x;
   if (i < n_kv) {
     const int bkv = i % (B * KV);
-    dkdv_block<DP>(smem, &tq, &tk, &tv, &tdo, rows, dk, dv, Lq, Lk, H, KV, D, causal, window, prefix,
+    dkdv_block<DP>(smem, &tq, &tk, &tv, &tdo, rows, dk, dv, Lq, Lk, H, KV, D, causal, window, prefix, off,
                    scale, scale_log2, bkv / KV, bkv % KV, (i / (B * KV)) * kBK);
   } else {
     const int j = i - n_kv;
-    dq_block<DP>(smem, &tq, &tk, &tv, &tdo, rows, dq, Lq, Lk, H, KV, D, causal, window, prefix, scale,
+    dq_block<DP>(smem, &tq, &tk, &tv, &tdo, rows, dq, Lq, Lk, H, KV, D, causal, window, prefix, off, scale,
                  scale_log2, j % (B * H), (nqt - 1 - j / (B * H)) * kBQ, nqt);
   }
 }
@@ -880,7 +877,7 @@ bwd_dkdv_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 template <int DP>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out, const void* lse,
                   const void* dout, void* rows, void* dq, void* dk, void* dv, int B, int Lq, int Lk,
-                  int H, int KV, int D, int causal, int window, int prefix, float scale,
+                  int H, int KV, int D, int causal, int window, int prefix, int off, float scale,
                   cudaStream_t stream) {
   using Sh = BwdShape<DP>;
   const int nqt = (Lq + kBQ - 1) / kBQ, nkt = (Lk + kBK - 1) / kBK;
@@ -908,7 +905,7 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out, 
   const long long n_blocks = (long long)B * KV * nkt + (long long)B * H * nqt;
   bwd_dkdv_dq_tc_kernel<DP><<<(unsigned)n_blocks, kTcThreads, Sh::SMEM, stream>>>(
       tq, tk, tv, tdo, (const float*)rows, (__nv_bfloat16*)dq, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, scale_log2);
+      (__nv_bfloat16*)dv, B, Lq, Lk, H, KV, D, causal, window, prefix, off, scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -919,12 +916,12 @@ int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out, 
 // D <= 128 runs the tensor-core kernels (D a multiple of 8, 16-byte aligned
 // bases; delta: B * H * ceil(Lq / 64) * 128 f32 of scratch for the row
 // terms); f32, and bf16 at D > 128, the CUDA-core kernels (delta [B, H, Lq]
-// f32 scratch). D <= 256; Lq, Lk >= 1; the mask as the forward's (a masked
-// call needs Lq <= Lk).
+// f32 scratch). D <= 256; Lq, Lk >= 1; the mask and the query offset `off`
+// as the forward's (a masked call needs 0 <= off <= Lk - Lq).
 extern "C" int lm_flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                       const void* lse, const void* dout, void* delta, void* dq,
                                       void* dk, void* dv, int B, int Lq, int Lk, int H, int KV,
-                                      int D, int causal, int window, int prefix, float scale,
+                                      int D, int causal, int window, int prefix, int off, float scale,
                                       int bf16, void* stream) {
   if (D < 1 || D > 256 || KV < 1 || H % KV != 0 || prefix < 0 || Lq < 1 || Lk < 1)
     return (int)cudaErrorInvalidValue;
@@ -933,7 +930,7 @@ extern "C" int lm_flash_attention_bwd(const void* q, const void* k, const void* 
     if (D % 8 != 0) return (int)cudaErrorInvalidValue;
 #define FLASH_BWD_TC(DP)                                                                        \
   launch_bwd_tc<DP>(q, k, v, out, lse, dout, delta, dq, dk, dv, B, Lq, Lk, H, KV, D, causal, \
-                    window, prefix, scale, s)
+                    window, prefix, off, scale, s)
     if (D <= 32) return FLASH_BWD_TC(32);
     if (D <= 64) return FLASH_BWD_TC(64);
     return FLASH_BWD_TC(128);
@@ -941,7 +938,7 @@ extern "C" int lm_flash_attention_bwd(const void* q, const void* k, const void* 
   }
   if (bf16)   // D > 128: the CUDA-core kernels (note above)
     return launch_bwd<__nv_bfloat16, 256>(q, k, v, out, lse, dout, delta, dq, dk, dv, B, Lq, Lk, H,
-                                          KV, D, causal, window, prefix, scale, s);
+                                          KV, D, causal, window, prefix, off, scale, s);
   return launch_bwd_f32(q, k, v, out, lse, dout, delta, dq, dk, dv, B, Lq, Lk, H, KV, D, causal,
-                        window, prefix, scale, s);
+                        window, prefix, off, scale, s);
 }

@@ -54,11 +54,11 @@ SIGNATURES = {
     # Fs, TN, smem_bytes, wide, stream
     "prf_traverse": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _P],
-    # q, k, v, out, lse, B, Lq, Lk, H, KV, D, causal, window, prefix, scale, bf16, stream
-    "lm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, out, lse, dout, delta, dq, dk, dv, B, Lq, Lk, H, KV, D, causal, window, prefix,
+    # q, k, v, out, lse, B, Lq, Lk, H, KV, D, causal, window, prefix, offset, scale, bf16, stream
+    "lm_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, lse, dout, delta, dq, dk, dv, B, Lq, Lk, H, KV, D, causal, window, prefix, offset,
     # scale, bf16, stream
-    "lm_flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _I, _P],
+    "lm_flash_attention_bwd": [_P] * 10 + [_I] * 10 + [_F, _I, _P],
     # x, loga, b, c, y, h, B, L, H, P, N, chunk, bf16, stream
     "lm_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, loga, b, c, dy, dx, dloga, db, dc, states, db_part, dc_part, B, L, H, P, N, bf16, stream

@@ -10,8 +10,8 @@ head dim up to ``MAX_HEAD_DIM``; a bf16 head dim that is no multiple of
 8 (TMA's 16-byte row rule) is padded here with zero columns, which add
 nothing to Q Kᵀ, and the output's padded columns are dropped. Each
 launch counts in ``launches`` and in its route's own count. On CPU
-tensors it runs ``ref.gqa_attend``, ends aligned through
-``MaskSpec.offset``. What bounds the kernels and how their design
+tensors it runs ``ref.gqa_attend`` at the same query offset
+(``MaskSpec.offset``). What bounds the kernels and how their design
 answers that is in the source's note.
 
 Under autograd (grad enabled and an input that requires grad)
@@ -52,7 +52,9 @@ MAX_TC_BWD_HEAD_DIM = 128   # the widest head dim of the tensor-core backward
 MAX_HEAD_DIM = 256
 
 
-def _check(q, k, v, causal, window, prefix):
+def _check(q, k, v, causal, window, prefix, offset=None) -> int:
+    """Validates the call; returns the query offset (``offset``, or ``Lk -
+    Lq``: ends aligned)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,Lq,H,D], k = v [B,Lk,KV,D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -64,6 +66,11 @@ def _check(q, k, v, causal, window, prefix):
         raise ValueError(f"window and prefix must be >= 0, got {window}, {prefix}")
     if (causal or window > 0) and Lq > Lk:
         raise ValueError(f"a masked attention needs Lq <= Lk (ends aligned), got {Lq} > {Lk}")
+    off = Lk - Lq if offset is None else int(offset)
+    if (causal or window > 0) and not 0 <= off <= Lk - Lq:
+        raise ValueError(f"a masked attention needs 0 <= offset <= Lk - Lq, got offset {off} for "
+                         f"Lq {Lq}, Lk {Lk}")
+    return off
 
 
 def _check_cuda(tensors, D):
@@ -74,11 +81,11 @@ def _check_cuda(tensors, D):
         raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
 
 
-def _spec(q, k, causal, window, prefix) -> MaskSpec:
-    return MaskSpec(causal=causal, window=window, offset=k.shape[1] - q.shape[1], prefix=prefix)
+def _spec(causal, window, prefix, offset) -> MaskSpec:
+    return MaskSpec(causal=causal, window=window, offset=offset, prefix=prefix)
 
 
-def _forward(q, k, v, causal, window, prefix, want_lse):
+def _forward(q, k, v, causal, window, prefix, offset, want_lse):
     """The forward kernel on CUDA tensors; returns (out, lse [B, H, Lq] f32 or None)."""
     global launches, launches_bf16, launches_f32
     from .._build import launch
@@ -100,7 +107,7 @@ def _forward(q, k, v, causal, window, prefix, want_lse):
     if out.numel():
         launch("lm_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                None if lse is None else lse.data_ptr(), B, Lq, Lk, H, KV, Dk, int(causal), int(window),
-               int(prefix), ctypes.c_float(D ** -0.5), int(bf16))
+               int(prefix), int(offset), ctypes.c_float(D ** -0.5), int(bf16))
         launches += 1
         if bf16:
             launches_bf16 += 1
@@ -117,26 +124,28 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,     # 0 = unbounded; else only the last `window` keys
     prefix: int = 0,     # the first `prefix` keys are visible to every query
+    offset=None,         # query i at key position i + offset; None: Lk - Lq (ends aligned)
 ) -> torch.Tensor:
-    """Blocked attention with ends aligned (query i at position i + Lk - Lq);
-    returns [B, Lq, H, D] in q's dtype. Query head h reads KV head
+    """Blocked attention, query i at key position i + ``offset`` (default
+    Lk - Lq, ends aligned; a query shard of a longer sequence gives its
+    start); returns [B, Lq, H, D] in q's dtype. Query head h reads KV head
     h // (H / KV). The mask is (causal and window) or key < prefix.
     Differentiable: under autograd it runs ``FlashAttentionFn``."""
-    _check(q, k, v, causal, window, prefix)
+    off = _check(q, k, v, causal, window, prefix, offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal, window, prefix)
+        return FlashAttentionFn.apply(q, k, v, causal, window, prefix, off)
     if not q.is_cuda:
-        return gqa_attend(q, k, v, mask_spec=_spec(q, k, causal, window, prefix))
-    return _forward(q, k, v, causal, window, prefix, want_lse=False)[0]
+        return gqa_attend(q, k, v, mask_spec=_spec(causal, window, prefix, off))
+    return _forward(q, k, v, causal, window, prefix, off, want_lse=False)[0]
 
 
-def flash_attention_lse(q, k, v, *, causal=True, window=0, prefix=0):
+def flash_attention_lse(q, k, v, *, causal=True, window=0, prefix=0, offset=None):
     """The forward with each row's log-sum-exp: (out [B, Lq, H, D], lse
     [B, H, Lq] f32), the kernel's on CUDA tensors, ``gqa_attend_lse`` on the CPU."""
-    _check(q, k, v, causal, window, prefix)
+    off = _check(q, k, v, causal, window, prefix, offset)
     if not q.is_cuda:
-        return gqa_attend_lse(q, k, v, mask_spec=_spec(q, k, causal, window, prefix))
-    return _forward(q, k, v, causal, window, prefix, want_lse=True)
+        return gqa_attend_lse(q, k, v, mask_spec=_spec(causal, window, prefix, off))
+    return _forward(q, k, v, causal, window, prefix, off, want_lse=True)
 
 
 def bwd_route(dtype: torch.dtype, D: int) -> tuple[bool, int]:
@@ -150,17 +159,18 @@ def bwd_route(dtype: torch.dtype, D: int) -> tuple[bool, int]:
     return False, D
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefix=0):
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefix=0, offset=None):
     """(dq, dk, dv) in the inputs' dtype from the forward's ``out`` and
-    ``lse``: the backward kernels on CUDA tensors (route by ``bwd_route``;
-    f32 accumulators; deterministic), ``attention_bwd_ref`` on the CPU."""
+    ``lse`` (the same mask and query offset): the backward kernels on CUDA
+    tensors (route by ``bwd_route``; f32 accumulators; deterministic),
+    ``attention_bwd_ref`` on the CPU."""
     global launches_bwd, launches_bwd_bf16, launches_bwd_tc, launches_bwd_bf16_fma, launches_bwd_f32
-    _check(q, k, v, causal, window, prefix)
+    off = _check(q, k, v, causal, window, prefix, offset)
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"out and dout must be q's shape {tuple(q.shape)} and lse [B, H, Lq]; got "
                          f"{tuple(out.shape)}, {tuple(dout.shape)}, {tuple(lse.shape)}")
     if not q.is_cuda:
-        return attention_bwd_ref(q, k, v, out, lse, dout, _spec(q, k, causal, window, prefix))
+        return attention_bwd_ref(q, k, v, out, lse, dout, _spec(causal, window, prefix, off))
     from .._build import launch
 
     B, Lq, H, D = q.shape
@@ -186,7 +196,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefi
     delta = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     launch("lm_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           B, Lq, Lk, H, KV, Dk, int(causal), int(window), int(prefix), ctypes.c_float(D ** -0.5), int(bf16))
+           B, Lq, Lk, H, KV, Dk, int(causal), int(window), int(prefix), off, ctypes.c_float(D ** -0.5),
+           int(bf16))
     launches_bwd += 1
     if bf16:
         launches_bwd_bf16 += 1
@@ -204,19 +215,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefi
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a hand-written backward: the forward kernel writes the
     LSE beside its output, and the backward kernel takes q, k, v, out and
-    lse. ``apply(q, k, v, causal, window, prefix)``."""
+    lse. ``apply(q, k, v, causal, window, prefix, offset)`` (``offset``
+    None: Lk - Lq)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, prefix):
-        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, prefix=prefix)
+    def forward(ctx, q, k, v, causal, window, prefix, offset=None):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window, prefix=prefix, offset=offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, prefix)
+        ctx.mask = (causal, window, prefix, offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, prefix = ctx.mask
+        causal, window, prefix, offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window,
-                                         prefix=prefix)
-        return dq, dk, dv, None, None, None
+                                         prefix=prefix, offset=offset)
+        return dq, dk, dv, None, None, None, None

@@ -21,9 +21,14 @@ card, which NCCL refuses ("Duplicate GPU detected").
 ``run_world`` starts a world of ``nproc`` ranks as processes on this
 host (``python -m repro_torch.launch.mesh``), each calling one function,
 with a wall-clock limit so that a deadlock fails instead of hanging;
-``default_backend`` is the one choice between NCCL and gloo. The
-production meshes (``make_production_mesh``, 16 x 16 and 2 x 16 x 16)
-are not ported: ROADMAP.md Queue 1 item 20.
+``default_backend`` is the one choice between NCCL and gloo.
+
+``make_production_mesh`` lays out the production meshes, 16 x 16
+(``data``, ``model``) or 2 x 16 x 16 (``pod``, ``data``, ``model``), over a
+world of 256 or 512. ``init_fake_world`` starts such a world in this one
+process on torch's fake process group (no peers: its collectives do
+nothing), on which the dry run (``launch/dryrun.py``) runs a step on fake
+tensors and counts what one device would do.
 """
 from __future__ import annotations
 
@@ -177,6 +182,43 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = ("data", "model"), *,
                 if dist.get_rank() in cosets[key]:
                     groups[tuple(axes[d] for d in sub)] = g
     return Mesh(dm, dev, groups)
+
+
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The 16 x 16 (``data``, ``model``) mesh, or with ``multi_pod`` the 2 x 16
+    x 16 (``pod``, ``data``, ``model``) one, over the initialised world
+    (the reference's ``make_production_mesh``); raises ``ValueError`` unless
+    the world has 256 or 512 ranks to match. ``device``: as ``make_mesh``'s
+    (``"cpu"`` for the dry run's fake world)."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(f"the {'x'.join(map(str, shape))} production mesh needs a world of {n} ranks, "
+                         f"got {world or 'none'}")
+    return make_mesh(shape, axes, device=device)
+
+
+def init_fake_world(world_size: int) -> None:
+    """Initialise this process as rank 0 of a world of ``world_size`` on
+    torch's fake process group (``torch.testing._internal.distributed.fake_pg``):
+    every collective returns at once and moves nothing, so one process can
+    lay out a mesh of any size and run a step on fake tensors. Replaces a
+    fake world already initialised; call ``dist.destroy_process_group()`` to
+    end it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a real process group is initialised in this process")
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
 def dp_axes(mesh: Mesh) -> Tuple[str, ...]:

@@ -20,7 +20,7 @@ reference does (aux: the MoE load-balance loss, 0.0 for other kinds).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -54,6 +54,7 @@ class Ctx:
     use_kernels: bool = True                    # train / prefill: the CUDA kernels (plain on the CPU)
     meta: Optional[torch.Tensor] = None         # hymba meta tokens [M, D]
     cross_src: Optional[torch.Tensor] = None    # train / prefill: vision embeddings / encoder output [B, T, D]
+    mesh: Any = None                            # train on a mesh: a launch.mesh.Mesh (DTensor activations)
 
 
 def _kind_attn_args(kind: str, cfg: ArchConfig):
@@ -119,7 +120,7 @@ def _self_attn(p, h, ctx: Ctx, kind: str, cache=None):
         return attention_decode(p, h, ctx.pos + M, cache, cfg, window=window, theta=theta, prefix=M)
     if ctx.mode == "train":
         return attention_train(p, h, ctx.positions, cfg, window=window, theta=theta,
-                               use_kernels=ctx.use_kernels, meta=ctx.meta if M else None), None
+                               use_kernels=ctx.use_kernels, meta=ctx.meta if M else None, mesh=ctx.mesh), None
     return attention_prefill(p, h, ctx.positions, cfg, window=window, theta=theta, s_max=ctx.s_max,
                              use_kernels=ctx.use_kernels, meta=ctx.meta if M else None)
 
@@ -128,7 +129,7 @@ def _ssm(p, h, ctx: Ctx, cache=None):
     if ctx.mode == "decode":
         return mb.mamba_decode(p, h, cache, ctx.cfg)
     if ctx.mode == "train":
-        return mb.mamba_train(p, h, ctx.cfg, use_kernels=ctx.use_kernels), None
+        return mb.mamba_train(p, h, ctx.cfg, use_kernels=ctx.use_kernels, mesh=ctx.mesh), None
     return mb.mamba_prefill(p, h, ctx.cfg, use_kernels=ctx.use_kernels)
 
 
@@ -136,7 +137,7 @@ def _cross_attn(p, h, ctx: Ctx, cache=None):
     """Cross-attention over ``ctx.cross_src`` (train, prefill) or its cache (decode)."""
     if ctx.mode == "decode":
         return cross_attention_decode(p, h, cache)
-    out, kv = cross_attention_prefill(p, h, ctx.cross_src, ctx.cfg, use_kernels=ctx.use_kernels)
+    out, kv = cross_attention_prefill(p, h, ctx.cross_src, ctx.cfg, use_kernels=ctx.use_kernels, mesh=ctx.mesh)
     return out, None if ctx.mode == "train" else kv
 
 
@@ -177,7 +178,8 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache=None):
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
         return x, kv, 0.0
     if kind == "enc":
-        x = x + encoder_attention(p["attn"], rmsnorm(p["ln1"], x), cfg, use_kernels=ctx.use_kernels)
+        x = x + encoder_attention(p["attn"], rmsnorm(p["ln1"], x), cfg, use_kernels=ctx.use_kernels,
+                                  mesh=ctx.mesh)
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.act)
         return x, None, 0.0
     if kind == "dec":

@@ -21,12 +21,21 @@ autograd) takes the same entry point: with grad enabled,
 ``flash_attention`` runs ``FlashAttentionFn``, the forward kernel with
 its log-sum-exp and the hand-written backward kernel, where the
 reference differentiates its einsums; ``use_kernels=False`` runs
-``gqa_attend`` under autograd. The mesh-only helpers (``seq_shard_qkv``,
-``_pin_cache_layout``) do nothing on one device and are left out
-(ROADMAP.md item 13).
+``gqa_attend`` under autograd.
+
+On a mesh (``mesh``, a ``launch.mesh.Mesh``, with DTensor activations) the
+training attentions take their layout from ``seq_shard_qkv``: where the head
+count does not divide the ``model`` axis, queries are sharded on the
+sequence over it and k, v replicated (the reference's context-parallel
+layout); otherwise heads stay sharded as the ``wq`` / ``wk`` specs put them.
+Either way the attention runs on this rank's local shards under
+``local_map`` (``_attend_on_mesh``): the kernel, or ``gqa_attend``, at the
+query offset of this rank's shard. ``_pin_cache_layout`` (decode) is the
+serving slice's (ROADMAP.md item 13).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -119,7 +128,27 @@ def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh") * (x @ p["w3"].to(x.dtype))
     else:
         h = F.gelu(h, approximate="tanh")           # jax.nn.gelu is the tanh form
-    return h @ p["w2"].to(x.dtype)
+    return batch_layout(h @ p["w2"].to(x.dtype))
+
+
+def batch_layout(y: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation [B, S, ...] (a sublayer's output) brought to the
+    residual stream's layout: the batch split as it is, every other mesh dim
+    replicated (a tensor-parallel product's partial sums all-reduced, its
+    split columns gathered), and its gradient brought to that layout too
+    (the residual stream's gradient arrives as partial sums over ``model``;
+    fed on as such, DTensor runs the backward's product on a weight
+    gathered over ``model``: the whole product on every rank). A plain
+    tensor is returned unchanged."""
+    if not _is_dtensor(y):
+        return y
+    _, _, Replicate, Shard, _ = _dtensor_api()
+    pl = [q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in y.placements]
+    if pl != list(y.placements):
+        y = y.redistribute(y.device_mesh, pl)
+    if y.requires_grad:
+        y.register_hook(lambda g: g if list(g.placements) == pl else g.redistribute(g.device_mesh, pl))
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +174,66 @@ def init_attention(gen, cfg: ArchConfig, device) -> dict:
     return p
 
 
+def _seq_split(x) -> bool:
+    """A DTensor whose sequence (dim 1) is split over some mesh dim."""
+    return _is_dtensor(x) and any(type(q).__name__ == "Shard" and q.dim == 1 for q in x.placements)
+
+
+def local_rows(fn, x, *ws):
+    """``fn(x, *ws)`` for a DTensor x [B, S, ...] and weights ``ws``, on each
+    rank's rows under ``local_map``: the weights gathered whole, the output
+    placed as x, each weight's gradient a partial sum over every mesh dim
+    that splits x (a dim that replicates x computes the whole op on each of
+    its ranks). For what DTensor's own rules cannot follow: a matmul over a
+    sequence split (its flatten of (B, S)), heads that a column split would
+    cut, the SSD layer's causal conv."""
+    _, Partial, Replicate, Shard, local_map = _dtensor_api()
+    mesh, pl = x.device_mesh, list(x.placements)
+    rep = [Replicate()] * mesh.ndim
+    grad = [Partial() if isinstance(o, Shard) else Replicate() for o in pl]
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,) + (rep,) * len(ws),
+                     in_grad_placements=(pl,) + (grad,) * len(ws), device_mesh=mesh)(
+        x, *(w.redistribute(mesh, rep) for w in ws))
+
+
+def _uneven_heads(x, w, nh: int) -> bool:
+    """A mesh dim that replicates DTensors x and w and whose size does not
+    divide ``nh`` heads."""
+    if not (_is_dtensor(x) and _is_dtensor(w)):
+        return False
+    return any(type(px).__name__ == "Replicate" and type(pw).__name__ == "Replicate" and nh % x.device_mesh.size(i)
+               for i, (px, pw) in enumerate(zip(x.placements, w.placements)))
+
+
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul; contiguous [B, S, heads, hd]."""
+    """einsum("bsd,dhk->bshk") as one matmul; contiguous [B, S, heads, hd].
+
+    DTensor x [B, S, D] against a weight replicated over a mesh dim whose
+    size does not divide the head count: DTensor would split the product's
+    columns there, which no view into heads can follow. So the product runs
+    on each rank's rows (``local_rows``), x first split on the sequence
+    over that dim where S divides it (whisper's 1500 frames do not: their
+    heads are then computed whole on every rank of that dim, as GSPMD
+    replicates them)."""
     D, nh, hd = w.shape
-    return (x @ w.reshape(D, nh * hd).to(x.dtype)).view(*x.shape[:-1], nh, hd)
+
+    def proj(a, b):
+        return (a @ b.reshape(D, nh * hd).to(a.dtype)).view(*a.shape[:-1], nh, hd)
+
+    if _is_dtensor(x) and _is_dtensor(w) and x.dim() == 3:
+        _, _, Replicate, Shard, _ = _dtensor_api()
+        mesh, pl, local = x.device_mesh, list(x.placements), False
+        for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+            n = mesh.size(i)
+            if isinstance(px, Replicate) and isinstance(pw, Replicate) and nh % n:
+                local = True
+                if x.shape[1] % n == 0 and not any(isinstance(o, Shard) and o.dim == 1 for o in pl):
+                    pl[i] = Shard(1)
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+        if local or _seq_split(x):
+            return local_rows(proj, x, w)
+    return proj(x, w)
 
 
 def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
@@ -192,8 +277,20 @@ def decode_mask(pos: int, s_max: int, window: int = 0, device=None, prefix: int 
 
 
 def attn_out(p, o: torch.Tensor) -> torch.Tensor:
+    """o [B, S, H, hd] -> [B, S, D]. A DTensor o split on the sequence, or
+    whose heads do not divide a mesh dim that replicates it and ``wo``,
+    projects each rank's rows (``local_rows``: DTensor's gradient of the
+    flattened heads would split their columns unevenly); a DTensor output
+    is brought to the residual stream's layout (``batch_layout``), which the
+    layer's MLP, sharded over ``model``, reads."""
     H, hd, D = p["wo"].shape
-    return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, D).to(o.dtype)
+
+    def out(a, w):
+        return a.reshape(*a.shape[:-2], H * hd) @ w.reshape(H * hd, D).to(a.dtype)
+
+    if _seq_split(o) or _uneven_heads(o, p["wo"], H):
+        return batch_layout(local_rows(out, o, p["wo"]))
+    return batch_layout(out(o, p["wo"]))
 
 
 LOGITS_BYTES = 1 << 30   # f32 logits one query block of the plain attention may hold
@@ -225,8 +322,104 @@ def roll_to_window(k: torch.Tensor, window: int) -> torch.Tensor:
     return torch.roll(last, shifts=(S - window) % window, dims=1)
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _dtensor_api():
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    return DTensor, Partial, Replicate, Shard, local_map
+
+
+def _batch_placements(mesh, batch: int, tp: str):
+    """Per mesh dim: the batch dim (0) over every axis but ``tp`` where it
+    divides their product (the reference's ``dp or None``), else replicated."""
+    _, _, Replicate, Shard, _ = _dtensor_api()
+    dp = [a for a in mesh.axis_names if a != tp]
+    n = 1
+    for a in dp:
+        n *= mesh.shape[a]
+    return [Shard(0) if a in dp and batch % n == 0 else Replicate() for a in mesh.axis_names]
+
+
+def seq_shard_qkv(q, k, v, mesh, n_heads: int, tp: str = "model", enabled: bool = True):
+    """Context-parallel attention layout for head counts that do not divide
+    TP (smollm 9 H, qwen and whisper 20 H, hymba 25 H on tp = 16): q [B, S,
+    H, hd] sharded on the sequence over ``tp`` and k, v replicated over it,
+    the batch over the other axes where it divides (the reference's
+    ``seq_shard_qkv``). Returns (q, k, v, sharded): unchanged and False
+    without a mesh or DTensor inputs, when disabled, when the heads divide
+    TP (the ``wq`` / ``wk`` specs shard heads) or when S does not divide."""
+    DTensor, _, Replicate, Shard, _ = _dtensor_api()
+    if mesh is None or not enabled or tp not in mesh.axis_names or not isinstance(q, DTensor):
+        return q, k, v, False
+    tp_size = mesh.shape[tp]
+    if n_heads % tp_size == 0 or q.shape[1] % tp_size != 0:
+        return q, k, v, False
+    bq = _batch_placements(mesh, q.shape[0], tp)
+    q = q.redistribute(mesh.device_mesh, [Shard(1) if a == tp else b for a, b in zip(mesh.axis_names, bq)])
+    kv = [Replicate() if a == tp else b for a, b in zip(mesh.axis_names, bq)]
+    return q, k.redistribute(mesh.device_mesh, kv), v.redistribute(mesh.device_mesh, kv), True
+
+
+def _local_attend(q, k, v, *, causal: bool, window: int, prefix: int, offset: int, use_kernels: bool,
+                  r: int, seq_sharded: bool, n_heads: int, n_kv: int):
+    """One rank's attention on its local shards (inside ``local_map``). A
+    sequence shard's queries start at ``offset + r S_local``; a shard of
+    the query heads against replicated k, v reads only its groups' KV heads."""
+    B, Sl, Hl, _ = q.shape
+    if seq_sharded:
+        offset = offset + r * Sl
+    elif Hl < n_heads and k.shape[2] == n_kv:
+        G = n_heads // n_kv
+        h0 = r * Hl
+        k0, k1 = h0 // G, (h0 + Hl - 1) // G + 1
+        if k1 - k0 > 1 and (Hl != (k1 - k0) * G or h0 % G):    # whole groups, or one KV head
+            raise ValueError(f"{Hl} query heads a shard do not pair with KV heads {k0}..{k1 - 1}")
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+    if use_kernels:
+        return flash_attention(q, k, v, causal=causal, window=window, prefix=prefix, offset=offset)
+    spec = MaskSpec(causal=causal, window=window, offset=offset, prefix=prefix) if causal or window else None
+    return gqa_attend(q, k, v, mask_spec=spec, q_chunk=_auto_q_chunk(Sl, k.shape[1], B * Hl))
+
+
+def _attend_on_mesh(q, k, v, mesh, *, causal: bool, window: int = 0, prefix: int = 0,
+                    offset: int = 0, use_kernels: bool, seq_shard: bool, tp: str = "model"):
+    """Attention of DTensor q, k, v on ``mesh`` through ``local_map``, with
+    explicit placements: ``seq_shard_qkv``'s layout when ``seq_shard`` (and
+    it applies), else heads sharded over ``tp`` where the counts divide it
+    and replicated where not. k, v's gradients are partial sums over ``tp``
+    when each rank's queries see all of them."""
+    _, Partial, Replicate, Shard, local_map = _dtensor_api()
+    H, KV = q.shape[2], k.shape[2]
+    q, k, v, seq_sharded = seq_shard_qkv(q, k, v, mesh, H, tp, seq_shard)
+    names, dm = mesh.axis_names, mesh.device_mesh
+    if not seq_sharded:
+        bq = _batch_placements(mesh, q.shape[0], tp)
+        tp_size = mesh.shape.get(tp, 1)
+        heads = H % tp_size == 0
+        qp = [(Shard(2) if heads else Replicate()) if a == tp else b for a, b in zip(names, bq)]
+        kvp = [(Shard(2) if heads and KV % tp_size == 0 else Replicate()) if a == tp else b
+               for a, b in zip(names, bq)]
+        q = q.redistribute(dm, qp)
+        k, v = k.redistribute(dm, kvp), v.redistribute(dm, kvp)
+    qp, kvp = list(q.placements), list(k.placements)
+    q_split = any(isinstance(pq, Shard) and not isinstance(pk, Shard)
+                  for a, pq, pk in zip(names, qp, kvp) if a == tp)
+    kv_grad = [Partial() if a == tp and q_split else pk for a, pk in zip(names, kvp)]
+    r = mesh.coords.get(tp, 0)
+    fn = functools.partial(_local_attend, causal=causal, window=window, prefix=prefix, offset=offset,
+                           use_kernels=use_kernels, r=r, seq_sharded=seq_sharded, n_heads=H, n_kv=KV)
+    return local_map(fn, out_placements=(qp,), in_placements=(qp, kvp, kvp),
+                     in_grad_placements=(qp, kv_grad, kv_grad), device_mesh=dm)(q, k, v)
+
+
 def _attend_causal(p, x, positions, cfg: ArchConfig, window: int, theta: float, use_kernels: bool,
-                   meta: Optional[torch.Tensor]):
+                   meta: Optional[torch.Tensor], mesh=None):
     """Causal (windowed) self-attention of ``x`` [B, S, D]: (o [B, S, H,
     hd], k, v). ``meta`` [M, D] (hymba, the reference's ``_self_attn`` M
     branch): M learned tokens in front of the keys at positions 0..M-1,
@@ -240,7 +433,10 @@ def _attend_causal(p, x, positions, cfg: ArchConfig, window: int, theta: float, 
     q, k, v = _qkv(p, x, cfg)
     q = rope_apply(q[:, M:], positions[M:], theta)
     k = rope_apply(k, positions, theta)
-    if use_kernels:
+    if mesh is not None and _is_dtensor(q):
+        o = _attend_on_mesh(q, k, v, mesh, causal=True, window=window, prefix=M, offset=M,
+                            use_kernels=use_kernels, seq_shard=cfg.seq_shard_attn)
+    elif use_kernels:
         o = flash_attention(q, k, v, causal=True, window=window, prefix=M)
     else:
         o = gqa_attend(q, k, v, mask_spec=MaskSpec(causal=True, window=window, offset=M, prefix=M),
@@ -276,39 +472,49 @@ def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
 
 def attention_train(p, x, positions, cfg: ArchConfig, *, window: int = 0,
                     theta: Optional[float] = None, use_kernels: bool = True,
-                    meta: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    meta: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Full-sequence causal (windowed) self-attention without a cache: the
     training forward (the reference's ``attention_train`` without
     ``cross_src``, and its ``_self_attn`` M branch with hymba's ``meta``;
     cross-attention trains through ``cross_attention_prefill``).
-    Differentiable on both paths; ``meta`` gets its gradient through k and v."""
+    Differentiable on both paths; ``meta`` gets its gradient through k and v.
+    On a ``mesh`` it runs ``seq_shard_qkv``'s layout (``_attend_on_mesh``)."""
     theta = cfg.rope_theta if theta is None else theta
-    return attn_out(p, _attend_causal(p, x, positions, cfg, window, theta, use_kernels, meta)[0])
+    return attn_out(p, _attend_causal(p, x, positions, cfg, window, theta, use_kernels, meta, mesh)[0])
 
 
-def _attend_unmasked(q, k, v, use_kernels: bool) -> torch.Tensor:
+def _attend_unmasked(q, k, v, use_kernels: bool, mesh=None, seq_shard: bool = False) -> torch.Tensor:
     """Every query sees every key, any Lq and Lk: the kernel with
-    ``causal=False``, or the plain version chunked by ``_auto_q_chunk``."""
+    ``causal=False``, or the plain version chunked by ``_auto_q_chunk``.
+    On a ``mesh`` (DTensor inputs) through ``_attend_on_mesh``, with
+    ``seq_shard_qkv``'s layout when ``seq_shard``."""
+    if mesh is not None and _is_dtensor(q):
+        return _attend_on_mesh(q, k, v, mesh, causal=False, use_kernels=use_kernels,
+                               seq_shard=seq_shard)
     if use_kernels:
         return flash_attention(q, k, v, causal=False)
     B, Sq, H, _ = q.shape
     return gqa_attend(q, k, v, q_chunk=_auto_q_chunk(Sq, k.shape[1], B * H))
 
 
-def encoder_attention(p, x, cfg: ArchConfig, *, use_kernels: bool = True) -> torch.Tensor:
+def encoder_attention(p, x, cfg: ArchConfig, *, use_kernels: bool = True, mesh=None) -> torch.Tensor:
     """Bidirectional self-attention of an encoder layer (the reference's
-    ``enc`` block): no mask, no RoPE, no cache."""
+    ``enc`` block): no mask, no RoPE, no cache; on a mesh no sequence
+    sharding, as in the reference."""
     q, k, v = _qkv(p, x, cfg)
-    return attn_out(p, _attend_unmasked(q, k, v, use_kernels))
+    return attn_out(p, _attend_unmasked(q, k, v, use_kernels, mesh))
 
 
-def cross_attention_prefill(p, x, src, cfg: ArchConfig, *, use_kernels: bool = True):
+def cross_attention_prefill(p, x, src, cfg: ArchConfig, *, use_kernels: bool = True, mesh=None):
     """Queries from x [B, S, D], keys and values from the source [B, T, D]
     (vision embeddings or the encoder's output), no mask; returns (out,
-    the cache {"k", "v"} [B, T, KV, hd], which decode reads unchanged)."""
+    the cache {"k", "v"} [B, T, KV, hd], which decode reads unchanged).
+    On a mesh the queries take ``seq_shard_qkv``'s layout, as in the
+    reference's cross branch of ``attention_train``."""
     q = _q_only(p, x)
     k, v = _kv_for_cross(p, src, cfg)
-    return attn_out(p, _attend_unmasked(q, k, v, use_kernels)), {"k": k, "v": v}
+    o = _attend_unmasked(q, k, v, use_kernels, mesh, seq_shard=cfg.seq_shard_attn)
+    return attn_out(p, o), {"k": k, "v": v}
 
 
 def cross_attention_decode(p, x, cache: dict):
@@ -390,11 +596,44 @@ def init_embedding(gen, vocab: int, d: int, device) -> dict:
 
 
 def embed(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"][tokens].to(dtype)
+    """``table[tokens]`` as ``F.embedding``, which a vocab-sharded DTensor
+    table runs without gathering the vocab: a DTensor table is first
+    gathered over every other sharding (FSDP's width), so each rank looks
+    its own tokens up in its slice of the vocab."""
+    return F.embedding(tokens, _vocab_sharded(p["table"])).to(dtype)
+
+
+def _vocab_sharded(table: torch.Tensor) -> torch.Tensor:
+    """A DTensor table [V, D] with every sharding but the vocab's gathered
+    (FSDP's all-gather of the width); a plain tensor unchanged."""
+    if not _is_dtensor(table):
+        return table
+    _, _, Replicate, Shard, _ = _dtensor_api()
+    pl = [q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in table.placements]
+    return table.redistribute(table.device_mesh, pl)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].to(x.dtype).T
+    """x @ tableᵀ. With DTensors, vocab-parallel under ``local_map``: the
+    table gathered over its width (``_vocab_sharded``), x over everything
+    but its batch, and each rank's logits [B, S, its slice of V] placed
+    split on the vocab (x's gradient a partial sum over the vocab's mesh
+    dims). DTensor's own choice for this product can gather the whole
+    logits, and its backward can split the sequence, which the product's
+    flatten cannot follow."""
+    if not _is_dtensor(x):
+        return x @ p["table"].to(x.dtype).T
+    _, Partial, Replicate, Shard, local_map = _dtensor_api()
+    table = _vocab_sharded(p["table"])
+    mesh = table.device_mesh
+    xp = [q if isinstance(q, Shard) and q.dim == 0 else Replicate() for q in x.placements]
+    tp = list(table.placements)
+    out = [Shard(x.dim() - 1) if isinstance(t, Shard) else q for q, t in zip(xp, tp)]
+    x_grad = [Partial() if isinstance(t, Shard) else q for q, t in zip(xp, tp)]
+    t_grad = [t if isinstance(t, Shard) else (Partial() if isinstance(q, Shard) else Replicate())
+              for q, t in zip(xp, tp)]
+    return local_map(lambda a, w: a @ w.to(a.dtype).T, out_placements=(out,), in_placements=(xp, tp),
+                     in_grad_placements=(x_grad, t_grad), device_mesh=mesh)(x.redistribute(mesh, xp), table)
 
 
 def sinusoidal_positions(s: int, d: int, device=None) -> torch.Tensor:

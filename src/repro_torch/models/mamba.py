@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.ssd_scan.ops import SSDScanFn, ssd_scan
 from ..kernels.ssd_scan.ref import ssd_chunked as _ssd_chunked
-from .layers import _dense_init, init_rmsnorm, rmsnorm
+from .layers import _dense_init, _is_dtensor, batch_layout, init_rmsnorm, local_rows, rmsnorm
 
 
 def _dims(cfg: ArchConfig, d_in: int):
@@ -48,7 +48,7 @@ def init_mamba(gen, cfg: ArchConfig, device, d_in: Optional[int] = None) -> dict
 
 def _split_proj(p, x, cfg, d_in):
     d_inner, H, P, N = _dims(cfg, d_in)
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    zxbcdt = batch_layout(x @ p["in_proj"].to(x.dtype))   # on a mesh: whole rows, which the slices below cut
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * N]
     dt = zxbcdt[..., 2 * d_inner + 2 * N:]
@@ -70,7 +70,11 @@ def _scan_inputs(p, x, cfg: ArchConfig, d_in: int):
     d_inner, H, P, N = _dims(cfg, d_in)
     B, S, _ = x.shape
     z, xbc_raw, dt = _split_proj(p, x, cfg, d_in)
-    xbc = _causal_conv(p, xbc_raw)
+    if _is_dtensor(xbc_raw):       # on a mesh: each rank's rows, the conv's weights whole
+        xbc = local_rows(lambda a, w, b: _causal_conv({"conv_w": w, "conv_b": b}, a), xbc_raw,
+                         p["conv_w"], p["conv_b"])
+    else:
+        xbc = _causal_conv(p, xbc_raw)
     xs = xbc[..., :d_inner].reshape(B, S, H, P)
     b = xbc[..., d_inner:d_inner + N]
     c = xbc[..., d_inner + N:]
@@ -82,20 +86,52 @@ def _scan_inputs(p, x, cfg: ArchConfig, d_in: int):
 def _scan_out(p, y, xs, z):
     """The skip, gate, norm and out projection after the scan."""
     B, S, H, P = xs.shape
-    y = y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)
-    y = rmsnorm(p["norm"], y.reshape(B, S, H * P) * F.silu(z))
-    return y @ p["out_proj"].to(y.dtype)
+    y = (y + xs * p["d_skip"][None, None, :, None].to(xs.dtype)).reshape(B, S, H * P)
+    names = y.device_mesh.mesh_dim_names if _is_dtensor(y) else ()
+    if "model" in names and H % y.device_mesh.size(names.index("model")):
+        # heads that split unevenly over "model": no view back into them can
+        # follow such a split in the backward, so the rows stay whole here
+        y = batch_layout(y)
+    y = rmsnorm(p["norm"], y * F.silu(z))
+    return batch_layout(y @ p["out_proj"].to(y.dtype))
 
 
-def mamba_train(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_kernels: bool = True):
-    """Full-sequence pass without a cache, differentiable on both paths
-    (the reference's ``mamba_train``)."""
-    z, _, xs, b, c, loga, xdt = _scan_inputs(p, x, cfg, d_in or cfg.d_model)
-    S = x.shape[1]
+def _train_scan(xdt, loga, b, c, chunk: int, use_kernels: bool):
     if use_kernels:
-        y = SSDScanFn.apply(xdt, loga, b, c, min(chunk, S))
+        return SSDScanFn.apply(xdt, loga, b, c, chunk)
+    return _ssd_chunked(xdt, loga, b, c, None, chunk)[0]
+
+
+def _scan_on_mesh(xdt, loga, b, c, chunk: int, use_kernels: bool, mesh):
+    """The scan of DTensor inputs on each rank's shards under ``local_map``:
+    the batch split over the axes but ``model`` (where it divides), and the
+    heads of x dt [B, S, H, P] and log a [B, S, H] split over ``model``
+    where H divides it (else replicated); b, c [B, S, N], shared by the
+    heads, replicated over ``model``, their gradients partial sums there."""
+    from .layers import _batch_placements, _dtensor_api
+
+    _, Partial, Replicate, Shard, local_map = _dtensor_api()
+    bp = _batch_placements(mesh, xdt.shape[0], "model")
+    heads = "model" in mesh.axis_names and xdt.shape[2] % mesh.shape["model"] == 0
+    hp = [Shard(2) if a == "model" and heads else q for a, q in zip(mesh.axis_names, bp)]
+    gp = [Partial() if a == "model" and heads else q for a, q in zip(mesh.axis_names, bp)]
+    dm = mesh.device_mesh
+    args = [xdt.redistribute(dm, hp), loga.redistribute(dm, hp), b.redistribute(dm, bp), c.redistribute(dm, bp)]
+    fn = lambda *a: _train_scan(*a, chunk, use_kernels)          # noqa: E731
+    return local_map(fn, out_placements=(hp,), in_placements=(hp, hp, bp, bp),
+                     in_grad_placements=(hp, hp, gp, gp), device_mesh=dm)(*args)
+
+
+def mamba_train(p, x, cfg: ArchConfig, *, d_in=None, chunk: int = 128, use_kernels: bool = True, mesh=None):
+    """Full-sequence pass without a cache, differentiable on both paths
+    (the reference's ``mamba_train``). On a ``mesh`` (DTensor activations)
+    the scan runs on each rank's batch rows and heads (``_scan_on_mesh``)."""
+    z, _, xs, b, c, loga, xdt = _scan_inputs(p, x, cfg, d_in or cfg.d_model)
+    chunk = min(chunk, x.shape[1])
+    if mesh is not None and _is_dtensor(xdt):
+        y = _scan_on_mesh(xdt, loga, b, c, chunk, use_kernels, mesh)
     else:
-        y, _ = _ssd_chunked(xdt, loga, b, c, None, min(chunk, S))
+        y = _train_scan(xdt, loga, b, c, chunk, use_kernels)
     return _scan_out(p, y, xs, z)
 
 

@@ -17,6 +17,12 @@ The modality frontends are stubs, as in the reference: a ``vlm`` config
 takes patch embeddings ``extras["vision_embeds"]`` [B, vision_tokens, D]
 and an ``encdec`` config frame embeddings ``extras["frames"]`` [B, T, D].
 
+On a mesh (``mesh``, a ``launch.mesh.Mesh``; parameters made DTensors by
+``training.make_sharded_train_step``) the training forward pins the
+residual stream to the batch layout before each layer (``_constrain``, the
+reference's), and the vocab-sharded logits' log-sum-exp and target logits
+run vocab-parallel on each rank's slice (``_logsumexp``, ``_target_logits``).
+
 ``loss_fn(batch)`` is the reference's next-token loss (cross-entropy,
 z-loss, 0.01 x the MoE aux loss) under autograd; the parameters take
 gradients once ``training.init_state`` sets ``requires_grad``, while
@@ -54,9 +60,10 @@ class Model(nn.Module):
     ``torch.Generator`` seeded with ``seed`` on ``device``.
     """
 
-    def __init__(self, cfg: ArchConfig, device=None, *, use_kernels: bool = True, seed: int = 0):
+    def __init__(self, cfg: ArchConfig, device=None, *, mesh=None, use_kernels: bool = True, seed: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.use_kernels = use_kernels
         kinds = _layer_kinds(cfg)
         for kind in kinds:
@@ -86,8 +93,24 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm["scale"].device
 
+    def _constrain(self, x: torch.Tensor) -> torch.Tensor:
+        """Pin activations to [batch over the axes but ``model``, the rest
+        replicated] (the reference's ``_constrain``): without it an
+        activation keeps the layout of the op that made it (the embedding's
+        vocab- or width-sharded table), and the layers after it would run on
+        a batch replicated over the data axes. Only on a mesh, on DTensor
+        activations whose batch divides those axes' product."""
+        from .layers import _batch_placements, _is_dtensor
+
+        if self.mesh is None or not _is_dtensor(x) or x.dim() < 2:
+            return x
+        pl = _batch_placements(self.mesh, x.shape[0], "model")
+        if not any(type(p).__name__ == "Shard" for p in pl):
+            return x
+        return x.redistribute(self.mesh.device_mesh, pl)
+
     def _embed_in(self, tokens: torch.Tensor, pos=None) -> torch.Tensor:
-        x = embed(self.embed, tokens, self.compute_dtype)
+        x = self._constrain(embed(self.embed, tokens, self.compute_dtype))
         if self.cfg.rope_theta <= 0:     # whisper: sinusoidal absolute positions
             D = self.cfg.d_model
             if pos is None:
@@ -103,8 +126,9 @@ class Model(nn.Module):
         under autograd, without recomputation as in the reference."""
         x = frames.to(self.compute_dtype)
         x = x + sinusoidal_positions(x.shape[1], self.cfg.d_model, x.device).to(x.dtype)
-        ctx = Ctx(cfg=self.cfg, mode=mode, use_kernels=self.use_kernels)
+        ctx = Ctx(cfg=self.cfg, mode=mode, use_kernels=self.use_kernels, mesh=self.mesh)
         for p in self.enc_layers:
+            x = self._constrain(x)
             x, _, _ = block_apply("enc", p, x, ctx)
         return rmsnorm(self.enc_norm, x)
 
@@ -152,19 +176,20 @@ class Model(nn.Module):
         S = tokens.shape[1]
         ctx = Ctx(cfg=self.cfg, mode="train", positions=torch.arange(S, device=self.device),
                   use_kernels=self.use_kernels, meta=getattr(self, "meta", None),
-                  cross_src=self._cross_src(batch, "train"))
+                  cross_src=self._cross_src(batch, "train"), mesh=self.mesh)
         x = self._embed_in(tokens)
         aux = torch.zeros((), device=self.device)
         for kind, p in zip(self.kinds, self.layers):
-            x, a = self._remat(kind, p, ctx)(x)
+            x, a = self._remat(kind, p, ctx)(self._constrain(x))
             aux = aux + a
         logits = self._logits(x).float()
 
         mask = (targets >= 0).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt_logit = torch.gather(logits, -1, targets.clamp_min(0)[..., None])[..., 0]
+        lse = _logsumexp(logits)                                      # [B, S, 1]
+        ce = (lse - _target_logits(logits, targets.clamp_min(0)[..., None]))[..., 0]
+        lse = lse[..., 0]
         ntok = mask.sum().clamp_min(1.0)
-        loss = ((lse - tgt_logit) * mask).sum() / ntok
+        loss = (ce * mask).sum() / ntok
         zloss = 1e-4 * ((lse * mask) ** 2).sum() / ntok
         total = loss + zloss + 0.01 * aux
         return total, {"ce": loss, "zloss": zloss, "aux": aux}
@@ -240,6 +265,74 @@ class Model(nn.Module):
         return [layer_cache(k) for k in self.kinds]
 
 
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1, keepdim=True)`` as max, exp, sum and log
+    (bitwise ``logsumexp`` on the CPU); the max is a constant of the
+    gradient (its terms cancel). On DTensor logits split on the vocab the
+    max and the sum run on each rank's slice under ``local_map`` and are
+    reduced as [B, S, 1] partials: DTensor's own ``logsumexp`` gathers the
+    logits, and its rules for the explicit form move their gradient
+    between dims by all-to-all."""
+    vdims = _vocab_dims(x)
+    if not vdims:
+        m = x.detach().amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        return torch.log(torch.sum(torch.exp(x - m), dim=-1, keepdim=True)) + m
+    from .layers import _dtensor_api
+
+    _, Partial, Replicate, _, local_map = _dtensor_api()
+    mesh, lp = x.device_mesh, list(x.placements)
+    rp = [Replicate() if i in vdims else q for i, q in enumerate(lp)]
+    part = lambda op: [Partial(op) if i in vdims else q for i, q in enumerate(lp)]  # noqa: E731
+    m = local_map(lambda a: a.amax(dim=-1, keepdim=True), out_placements=(part("max"),),
+                  in_placements=(lp,), in_grad_placements=(lp,), device_mesh=mesh)(x.detach())
+    m = m.redistribute(mesh, rp)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    s = local_map(lambda a, mm: torch.sum(torch.exp(a - mm), dim=-1, keepdim=True),
+                  out_placements=(part("sum"),), in_placements=(lp, rp), in_grad_placements=(lp, rp),
+                  device_mesh=mesh)(x, m)
+    return torch.log(s.redistribute(mesh, rp)) + m
+
+
+def _vocab_dims(x) -> list:
+    """The mesh dims a DTensor's last dim (the vocab) is split over; [] for a
+    plain tensor."""
+    from .layers import _is_dtensor
+
+    if not _is_dtensor(x):
+        return []
+    return [i for i, q in enumerate(x.placements) if type(q).__name__ == "Shard" and q.dim == x.dim() - 1]
+
+
+def _target_logits(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(logits, -1, idx)`` [B, S, 1]. On DTensor logits split on
+    the vocab, vocab-parallel under ``local_map``: each rank reads the
+    targets in its slice (others 0) and the result is a partial sum over the
+    vocab's mesh dims. (DTensor's own gather backward builds zeros of the
+    whole logits on every rank.)"""
+    vdims = _vocab_dims(logits)
+    if not vdims:
+        return torch.gather(logits, -1, idx)
+    from .layers import _dtensor_api
+
+    _, Partial, Replicate, _, local_map = _dtensor_api()
+    mesh, lp = logits.device_mesh, list(logits.placements)
+    ip = [Replicate() if i in vdims else q for i, q in enumerate(lp)]
+    out = [Partial() if i in vdims else q for i, q in enumerate(lp)]
+
+    def local(lg, ix):
+        n = lg.shape[-1]
+        r = 0
+        for i in vdims:                           # this rank's vocab slice, in mesh order
+            r = r * mesh.size(i) + mesh.get_local_rank(i)
+        ix = ix - r * n
+        inside = (ix >= 0) & (ix < n)
+        return torch.gather(lg, -1, ix.clamp(0, n - 1)) * inside
+
+    return local_map(local, out_placements=(out,), in_placements=(lp, ip), in_grad_placements=(lp, ip),
+                     device_mesh=mesh)(logits, idx.redistribute(mesh, ip))
+
+
 def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -247,6 +340,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
 _dots_saveable = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
-def build_model(cfg: ArchConfig, device=None, use_kernels: bool = True, seed: int = 0) -> Model:
-    """A ``Model`` on ``device`` (``None``: the card; raises without one)."""
-    return Model(cfg, device, use_kernels=use_kernels, seed=seed)
+def build_model(cfg: ArchConfig, device=None, *, mesh=None, use_kernels: bool = True, seed: int = 0) -> Model:
+    """A ``Model`` on ``device`` (``None``: the card; raises without one).
+    ``mesh`` (a ``launch.mesh.Mesh``): its training forward pins activations
+    and lays out attention for that mesh once its parameters are DTensors
+    (``training.make_sharded_train_step``); without DTensors it runs as on
+    one device."""
+    return Model(cfg, device, mesh=mesh, use_kernels=use_kernels, seed=seed)

@@ -9,7 +9,7 @@
 
 The reference's ``make_serve_fns`` (LM mesh and jit glue, over
 ``training/sharding.py``'s shardings) is not ported: ROADMAP.md Queue 1
-item 13, the LM mesh glue, which also takes ``make_sharded_train_step``.
+item 13, the LM mesh glue's serving slice (its training half is ported).
 """
 from .prf_service import (  # noqa: F401
     CircuitBreaker, CircuitOpenError, DeadlineExceeded, ModelRegistry, PRFFuture, PRFService,

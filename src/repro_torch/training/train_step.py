@@ -14,9 +14,13 @@ and returns a new ``TrainState`` of new tensors, leaving the old one as
 it was. So a state restored from a checkpoint (``checkpoint`` flattens a
 ``TrainState`` by its ``FIELDS``) steps on like the one it was saved from.
 
-The reference's ``make_sharded_train_step`` and ``training/sharding.py``
-(parameter and cache shardings over a mesh) wait for the LM mesh glue,
-ROADMAP.md Queue 1 item 13.
+``make_sharded_train_step`` runs the same step on a mesh: the model's
+parameters and the state's leaves become DTensors placed by
+``sharding.param_shardings`` / ``opt_state_specs``, the batch's microbatch
+dim is sharded over the data axes, and gradients, the global-norm clip and
+AdamW run on DTensors under DTensor's own rules (with ``implicit_replication``
+for the step's plain constants). The attention and the SSD scan run on local
+shards under ``local_map`` (``models/layers.py``, ``models/mamba.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ from typing import Any, Dict
 import torch
 
 from ..models.model import Model
-from .optimizer import AdamWConfig, adamw_init, adamw_update
+from .optimizer import AdamWConfig, _is_factorable, adamw_init, adamw_update
+from .sharding import P, distribute, opt_state_specs, param_specs, placements
 
 
 @dataclasses.dataclass
@@ -70,17 +75,77 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         if not all(p.requires_grad for p in live.values()):
             raise ValueError("the model's parameters need requires_grad: build the state with init_state")
         n_micro = next(iter(batch.values())).shape[0]
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in live.items()}
-        loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in live.items()}
+        loss_sum = None
         for i in range(n_micro):
             loss, _ = model.loss_fn(_microbatch(batch, i))
             grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
             for n, g in zip(live, grads):
                 if g is not None:                    # unused: a zero gradient, as jax.grad gives
                     acc[n] += g.float()
-            loss_sum += loss.detach().float()
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
         grads = {n: g / n_micro for n, g in acc.items()}
         new_params, new_opt, om = adamw_update(state.params, grads, state.opt, opt_cfg, stacked=is_stacked)
         return TrainState(new_params, new_opt, state.step + 1), {"loss": loss_sum / n_micro, **om}
 
     return train_step
+
+
+def _shard_params(model: Model, shardings: Dict[str, tuple], mesh) -> None:
+    """Replace each parameter of ``model`` by a DTensor of it placed by
+    ``shardings[name]`` (a parameter that already is one is redistributed)."""
+    for mod_name, mod in model.named_modules():
+        for name, p in list(mod._parameters.items()):
+            t = distribute(p.detach(), shardings[f"{mod_name}.{name}" if mod_name else name], mesh)
+            mod._parameters[name] = torch.nn.Parameter(t, requires_grad=p.requires_grad)
+
+
+def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh, *, dp_axes=("data",),
+                            donate: bool = True, **spec_kw):
+    """``make_train_step`` on ``mesh`` (a ``launch.mesh.Mesh``); returns
+    ``(train_step, state_shardings, batch_sharding)`` as the reference does.
+
+    ``model``'s parameters become DTensors placed by ``param_specs``
+    (``spec_kw``: ``fsdp``, ``uneven_heads``, ...) and the model takes the
+    mesh. ``state_shardings`` is a ``TrainState`` of DTensor placements
+    (the moments by ``opt_state_specs``, for ``opt_cfg``'s factoring);
+    ``batch_sharding(leaf)`` the placements of a [n_micro, micro, ...] leaf,
+    its microbatch dim over ``dp_axes``. ``train_step(state, batch)`` places
+    a state or batch leaf that is a plain tensor (the whole tensor, the same
+    on every rank) or a DTensor placed otherwise, steps, and returns the new
+    state with every leaf at its placements (the reference's
+    ``out_shardings``). ``donate``: the input state's dicts are emptied after
+    the step, so their tensors can be freed (the reference donates them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    params = dict(model.named_parameters())
+    pspecs = param_specs(params, mesh, **spec_kw)
+    factored = {"v": {n: ({} if opt_cfg.factored and _is_factorable(p) else None) for n, p in params.items()}}
+    to_pl = lambda tree: ({k: to_pl(v) for k, v in tree.items()} if isinstance(tree, dict)  # noqa: E731
+                          else placements(tree, mesh))
+    state_shardings = TrainState(params=to_pl(pspecs), opt=to_pl(opt_state_specs(factored, pspecs)),
+                                 step=placements(P(), mesh))
+    model.mesh = mesh
+    _shard_params(model, state_shardings.params, mesh)
+    step = make_train_step(model, opt_cfg)
+    dp = tuple(dp_axes)
+
+    def batch_sharding(leaf) -> tuple:
+        return tuple(Shard(1) if a in dp else Replicate() for a in mesh.axis_names)
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        placed = TrainState(params=distribute(state.params, state_shardings.params, mesh),
+                            opt=distribute(state.opt, state_shardings.opt, mesh), step=state.step)
+        batch = {k: distribute(torch.as_tensor(v), batch_sharding(v), mesh) for k, v in batch.items()}
+        with implicit_replication():
+            new, metrics = step(placed, batch)
+        new = TrainState(params=distribute(new.params, state_shardings.params, mesh),
+                         opt=distribute(new.opt, state_shardings.opt, mesh), step=new.step)
+        if donate:
+            for tree in (state.params, state.opt["m"], state.opt["v"]):
+                tree.clear()
+        return new, metrics
+
+    return train_step, state_shardings, batch_sharding

@@ -487,6 +487,55 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk,
         _scaled_close(g, w, dtype)
 
 
+@pytest.mark.parametrize("offset", [0, 896, 1920])
+@pytest.mark.parametrize("window,prefix", [(0, 0), (1024, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_a_query_offset(cuda_device, offset, window, prefix, dtype):
+    """One query shard of smollm's training microbatch on a 16-wide model
+    axis (q [4, 128, 9, 64], k / v the whole sequence, a meta prefix in
+    front): the forward (with lse) and backward kernels at ``offset``
+    (+ prefix) against the plain versions with that ``MaskSpec`` offset,
+    two calls bitwise equal."""
+    B, Lq, H, KV, D = 4, 128, 9, 3, 64
+    Lk, off = 2048 + prefix, offset + prefix
+    q, do = (torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, prefix=prefix, offset=off)
+    spec = MaskSpec(causal=True, window=window, offset=off, prefix=prefix)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, **kw)
+    want_out, want_lse = gqa_attend_lse(q, k, v, mask_spec=spec)
+    _scaled_close(out, want_out, dtype)
+    _scaled_close(lse, want_lse, torch.float32)
+    got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert torch.equal(flash_ops.flash_attention_lse(q, k, v, **kw)[0], out)
+    for g, w, g2 in zip(got, attention_bwd_ref(q, k, v, out, lse, do, spec), again):
+        assert torch.equal(g, g2)
+        _scaled_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("causal,window,prefix", [(True, 0, 0), (True, 100, 64), (False, 0, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_default_offset_is_ends_aligned_bitwise(cuda_device, causal, window, prefix, dtype):
+    """``offset`` left out and given as Lk - Lq launch the same kernels on the
+    same numbers: forward, lse and backward bitwise equal."""
+    B, Lq, Lk, H, KV, D = 2, 150, 290, 6, 2, 64
+    q, do = (torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
+             for _ in range(2))
+    k, v = (torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, **kw)
+    out2, lse2 = flash_ops.flash_attention_lse(q, k, v, offset=Lk - Lq, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(flash_ops.flash_attention(q, k, v, **kw), flash_ops.flash_attention(q, k, v, offset=Lk - Lq, **kw))
+    for a, b in zip(flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                    flash_ops.flash_attention_bwd(q, k, v, out, lse, do, offset=Lk - Lq, **kw)):
+        assert torch.equal(a, b)
+
+
 def test_flash_attention_autograd_on_the_card(cuda_device):
     """``flash_attention`` under autograd runs both kernels; in f32 its
     gradients match autograd through the plain ``gqa_attend``."""
