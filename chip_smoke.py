@@ -211,18 +211,37 @@ The first:
    [4, 2048, 3, 64]; then hymba's mask, window 1024 and a 64-key prefix,
    over [4, 2112, 3, 64]), bf16 and f32, against ``gqa_attend_lse`` and
    ``attention_bwd_ref`` with that ``MaskSpec`` offset per element at
-   ``LM_TOL``, two calls bitwise equal, one shard timed beside its bound;
+   ``LM_TOL``, two calls bitwise equal, one shard timed beside its bound
+   and beside SDPA's forward and backward under the offset's explicit mask;
    (b) ``make_sharded_train_step`` in an NCCL world of one
    (``make_mesh((1, 1))``) on 7c's smollm-135m, 3 steps from
    ``make_train_step``'s initial state: losses and every gathered leaf
    within 1e-2 of ``make_train_step``'s (bitwise reported), the attention
    kernels launched as often a step as in 7c, s/step and peak beside 7c's;
-   (c) the dry run (``launch/dryrun.py``) of the eight ``TRAIN_ARCHS``'
-   ``train_4k`` cells on both production meshes, 16 cells, each a process
-   of its own (no card) started after the build and run beside phases 3-7
-   (``DryRunPool``), every cell ``OK``, its per-device FLOPs, bytes,
+   (c) the dry run (``launch/dryrun.py``) of every LM cell (the ten
+   configs' ``train_4k``, ``prefill_32k``, ``decode_32k`` and ``long_500k``
+   cells) but ``DRYRUN_LEFT_OUT``'s seven on the 16 x 16 mesh and
+   ``DRYRUN_MULTI``'s eight ``train_4k`` cells on 2 x 16 x 16, each a
+   process of its own (no card)
+   started after the build and run beside phases 3-7 (``DryRunPool``, half
+   the host's cores), every cell ``OK`` (``long_500k`` of a config that is
+   not sub-quadratic ``SKIP(full-attn)``), its per-device FLOPs, bytes,
    collectives, peak memory, ``fits_hbm`` and roofline terms logged, the
-   JSON under ``artifacts/dryrun_torch``;
+   JSON under ``artifacts/dryrun_torch``; (d) ``serving.make_serve_fns`` in
+   an NCCL world of one (``make_mesh((1, 1))``, ``MESH_SERVE``), bf16,
+   batch 8, prompt 2048: smollm-135m at full width and depth, 32 tokens,
+   ``flash_decode`` off and on; deepseek-moe-16b at phase 6's cut
+   (``ep_mode="shard_map"``, 8 tokens); hymba-1.5b (8 tokens): greedy tokens
+   identical to ``greedy_generate`` on the same weights in this run (and to
+   phase 6's), every step's logits bitwise the one-device run's (over one
+   length shard the LSE combine is the plain softmax bit for bit),
+   attention and SSD launches a prefill as phase 6 counts them, 2
+   ``all_to_all`` calls a MoE layer a step, prefill s, decode ms/token and
+   peak memory beside the one-device run's; (e) the dry run's PRF cell on
+   both meshes on the card in a process of its own (rank 0's shard of seeded
+   bins, 2^18 / 2^17 rows x 256 features, 64 trees to depth 12, through
+   ``ReplicaMesh``): ``OK``, 12 levels, its collectives, bytes, peak and
+   kernel launches logged;
 9. the launch counts and one JSON line per the smoke contract, then
    the device line last. Each row's ``ms`` is CUDA events around the
    wrapper's whole call; ``kernel_ms`` is the kernel's own device time
@@ -603,6 +622,12 @@ def routing_recorded():
         moe._route = route
 
 
+def _leaves(tree, path=""):
+    """(dotted name, tensor) of a nested dict's leaves."""
+    for n, t in tree.items():
+        yield from _leaves(t, f"{path}{n}.") if isinstance(t, dict) else [(path + n, t)]
+
+
 def lm_full(dev, arch, depth=None, T=LM_GEN, cut="", L=LM_PROMPT):
     """One published-width LM through ``greedy_generate``: counts, times, checks."""
     from repro_torch.configs import get_config
@@ -695,12 +720,8 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut="", L=LM_PROMPT):
         check(bool(rows.any()), f"{arch}: no batch row whose routing agrees on the kernel and plain paths")
     drift32 = {"logits": drift(lk32[rows], lp32[rows])}
 
-    def leaves(c, path=""):
-        for n, t in c.items():
-            yield from leaves(t, f"{path}{n}.") if isinstance(t, dict) else [(path + n, t)]
-
     for ck, cp in zip(ck32, cp32):
-        for (n, a), (_, b) in zip(leaves(ck), leaves(cp)):     # every leaf is [B, ...]
+        for (n, a), (_, b) in zip(_leaves(ck), _leaves(cp)):   # every leaf is [B, ...]
             drift32[n] = max(drift32.get(n, 0.0), drift(a[rows], b[rows]))
     err32 = max(drift32.values())
     check(err32 <= 1e-2, f"{arch}: full-width f32 kernel vs plain prefill drift {drift32}")
@@ -718,7 +739,7 @@ def lm_full(dev, arch, depth=None, T=LM_GEN, cut="", L=LM_PROMPT):
            "kernel_vs_plain_f32": drift32, "routing_agree_share_f32": agree_share,
            "rows_held_f32": int(rows.sum()),
            "kernel_vs_plain_logits_bf16": err, "bf16_vs_f32_plain_logits": noise,
-           "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy}
+           "kernel_vs_plain_top1_agree_bf16": agree, "device_busy_share": busy, "tokens": toks.tolist()}
     log(f"{arch} ({cfg.n_layers} layers{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
         f"{', cut: ' + cut if cut else ''}; {res['params']} params, "
         f"{res['param_bytes'] / 2**30:.2f} GiB; batch {B}, prompt {L}, {T} tokens, bf16): init {t_init:.3f} s, "
@@ -3172,6 +3193,27 @@ MESH_TIMED = ("causal", 896)                     # the shard timed beside its bo
 MESH_STEPS = 3                                   # 8b: sharded steps against make_train_step's
 DRYRUN_LIMIT_S = 900                             # 8c: wall-clock limit of one dry-run cell
 DRYRUN_OUT = ROOT / "artifacts" / "dryrun_torch"
+# 8c: every LM cell on 16 x 16 and the eight dense, SSM and multimodal configs' train_4k on 2 x 16 x 16,
+# but DRYRUN_LEFT_OUT: the slowest serving cells to count (on the host, 38-161 s each), so that the pool
+# ends about when phase 8 does; those, the MoE configs' train_4k on 2 x 16 x 16 and the other serving
+# cells on 2 x 16 x 16 run through the CLI in a call of their own
+DRYRUN_LEFT_OUT = tuple((a, "prefill_32k") for a in (
+    "llama-3.2-vision-90b", "deepseek-v3-671b", "gemma3-27b", "gemma3-12b", "hymba-1.5b", "mamba2-780m",
+    "qwen1.5-4b"))
+DRYRUN_MULTI = ("smollm-135m", "mamba2-780m", "hymba-1.5b", "qwen1.5-4b", "gemma3-12b", "gemma3-27b",
+                "whisper-large-v3", "llama-3.2-vision-90b")
+
+
+def dryrun_jobs():
+    """8c's (arch, shape, mesh) cells, the slower shapes first (prefill, then
+    train), so that the pool's last cells are short."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import TRAIN_ARCHS
+
+    jobs = [(a, sh, "single") for a in TRAIN_ARCHS for sh in SHAPES if (a, sh) not in DRYRUN_LEFT_OUT]
+    jobs += [(a, "train_4k", "multi") for a in DRYRUN_MULTI]
+    order = ("prefill_32k", "train_4k", "decode_32k", "long_500k")
+    return sorted(jobs, key=lambda j: order.index(j[1]))
 
 
 def mesh_offset_checks(dev, timings):
@@ -3181,6 +3223,8 @@ def mesh_offset_checks(dev, timings):
     tensor cores) and f32, two calls bitwise equal; then the forward and the
     backward at ``MESH_TIMED`` timed beside their bounds (their visible pairs
     at that offset)."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref, gqa_attend_lse
 
@@ -3217,17 +3261,29 @@ def mesh_offset_checks(dev, timings):
                 if (label, off0) == MESH_TIMED and dtype == torch.bfloat16:
                     fwd = lambda: flash_ops.flash_attention_lse(q, k, v, **kw)          # noqa: E731
                     bwd = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)  # noqa: E731
+                    # SDPA on the same function: the shard's queries under an explicit mask at the offset
+                    mask = spec.block(0, Lq, Lk, dev)[None]
+                    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
+                    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+                    o_lib = sdpa()
+                    lib_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do.transpose(1, 2),  # noqa: E731
+                                                          retain_graph=True)
+                    lib_err = {"fwd": max_abs(o_lib.detach().transpose(1, 2), out),
+                               "bwd": max(max_abs(a.transpose(1, 2), b) for a, b in zip(lib_bwd(), got))}
                     pairs = visible_pairs(Lq, Lk, W, P, offset=off)
                     io = 2 * (B * Lq * H * D + B * Lk * KV * D)             # bf16 q, o; k, v
-                    rows = {"fwd": (cuda_ms(fwd), io + 4 * B * H * Lq, 4 * D * B * H * pairs),
-                            "bwd": (cuda_ms(bwd), 2 * io + 4 * B * H * Lq, 10 * D * B * H * pairs)}
-                    for part, (ms, nbytes, nops) in rows.items():
+                    rows = {"fwd": (cuda_ms(fwd), cuda_ms(sdpa), io + 4 * B * H * Lq, 4 * D * B * H * pairs),
+                            "bwd": (cuda_ms(bwd), cuda_ms(lib_bwd), 2 * io + 4 * B * H * Lq, 10 * D * B * H * pairs)}
+                    for part, (ms, lib_ms, nbytes, nops) in rows.items():
                         bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
                         out_rows[part] = {"ms": ms, "bound_ms": bound, "bytes": nbytes, "ops": nops,
-                                          "pairs": pairs, "offset": off}
+                                          "pairs": pairs, "offset": off, "library_ms": lib_ms,
+                                          "library_vs_kernel_max_abs": lib_err[part]}
                         log(f"attention {part} at query offset {off} ([{B}, {Lq} of {Lk}, {H} H / {KV} KV, {D}], "
                             f"bf16, causal): {ms:.4f} ms, bound {bound:.4f} ms (share {bound / ms:.3f}; {pairs} "
-                            f"visible pairs)")
+                            f"visible pairs); SDPA with the offset's mask {lib_ms:.4f} ms (max |d| vs the kernel "
+                            f"{lib_err[part]:.3g})")
+                    del qt, kt, vt, o_lib
                 del out, lse, got, want, again, out2, lse2, want_out, want_lse
             del q, do, k, v
             torch.cuda.empty_cache()
@@ -3332,20 +3388,21 @@ def mesh_train(dev, smollm_7c):
 
 
 class DryRunPool:
-    """8c: the dry run's train cells (``launch/dryrun.py``: every arch of
-    ``TRAIN_ARCHS`` on the 16 x 16 and 2 x 16 x 16 meshes), each cell a
-    process of its own (``python -m repro_torch.launch.dryrun``, no card:
+    """8c: the dry run's LM cells (``launch/dryrun.py``: ``jobs``, each an
+    (arch, shape, mesh), the mesh "single" for 16 x 16 or "multi" for
+    2 x 16 x 16), each cell a process of its own (``python -m repro_torch.launch.dryrun``, no card:
     ``CUDA_VISIBLE_DEVICES`` empty, one thread, ``nice`` 10), ``workers`` at
-    a time, started early so they run beside phases 3-7 on the host's
-    spare cores; each cell has a wall-clock limit, and every process is
-    killed by ``kill`` (also at exit)."""
+    a time (half the host's cores by default), started early so they run
+    beside phases 3-7 on the host's spare cores; each cell has a wall-clock
+    limit, and every process is killed by ``kill`` (also at exit)."""
 
-    def __init__(self, archs, meshes=("single", "multi"), workers=4):
+    def __init__(self, jobs, workers=None):
         import atexit
         import os
         import threading
 
-        self.jobs = [(a, m) for a in archs for m in meshes]
+        workers = workers or max(1, (os.cpu_count() or 2) // 2)
+        self.jobs = list(jobs)
         self.workers, self.procs, self.done = workers, {}, {}
         self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
         self.t0 = time.perf_counter()
@@ -3360,12 +3417,12 @@ class DryRunPool:
         pending = list(self.jobs)
         while (pending or self.procs) and not self._stop:
             while pending and len(self.procs) < self.workers:
-                arch, m = pending.pop(0)
-                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--mesh", m,
-                       "--out", str(DRYRUN_OUT)]
+                arch, shape, m = pending.pop(0)
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                       "--mesh", m, "--out", str(DRYRUN_OUT)]
                 proc = subprocess.Popen(cmd, env=self.env, cwd=str(ROOT), stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True, preexec_fn=lambda: os.nice(10))
-                self.procs[(arch, m)] = (proc, time.perf_counter())
+                self.procs[(arch, shape, m)] = (proc, time.perf_counter())
             for key, (proc, t) in list(self.procs.items()):
                 if proc.poll() is None and time.perf_counter() - t < DRYRUN_LIMIT_S:
                     continue
@@ -3393,35 +3450,247 @@ class DryRunPool:
 
 
 def mesh_dryrun(pool):
-    """8c: every cell of ``pool`` must reach OK: its wall time, FLOPs, bytes,
+    """8c: every cell of ``pool`` must reach OK (``long_500k`` of a config that
+    is not sub-quadratic: ``SKIP(full-attn)``): its wall time, FLOPs, bytes,
     collective counts and bytes and peak memory per device, ``fits_hbm``
     and the roofline terms, from the JSON each cell writes under
     ``artifacts/dryrun_torch``."""
+    from repro_torch.configs import get_config
+
     done, wall = pool.results(DRYRUN_LIMIT_S)
-    cells = {}
-    for (arch, m), r in sorted(done.items()):
+    cells, skipped = {}, []
+    for (arch, shape, m), r in sorted(done.items()):
         mesh_name = "2x16x16" if m == "multi" else "16x16"
-        path = DRYRUN_OUT / f"{arch}__train_4k__{mesh_name}.json"
+        path = DRYRUN_OUT / f"{arch}__{shape}__{mesh_name}.json"
         cell = json.loads(path.read_text()) if path.exists() else {"status": "no result"}
-        check(r["rc"] == 0 and cell.get("status") == "OK",
-              f"8c: {arch} on {mesh_name}: rc {r['rc']} (timed out {r['timed_out']}), status {cell.get('status')}; "
-              f"{cell.get('traceback', '')[-1500:]} {r['stderr'][-1500:]}")
+        want = "SKIP(full-attn)" if shape == "long_500k" and not get_config(arch).sub_quadratic else "OK"
+        check(r["rc"] == 0 and cell.get("status") == want,
+              f"8c: {arch} {shape} on {mesh_name}: rc {r['rc']} (timed out {r['timed_out']}), status "
+              f"{cell.get('status')}, want {want}; {cell.get('traceback', '')[-1500:]} {r['stderr'][-1500:]}")
+        if want != "OK":
+            skipped.append(f"{arch} {shape} {mesh_name}")
+            continue
         cell["process_s"] = r["wall_s"]
-        cells[f"{arch} {mesh_name}"] = cell
-        log(f"8c: {arch:22s} {mesh_name:8s} OK in {r['wall_s']:.1f} s (cell {cell['wall_s']} s): flops/dev "
+        cells[f"{arch} {shape} {mesh_name}"] = cell
+        log(f"8c: {arch:22s} {shape:11s} {mesh_name:8s} OK in {r['wall_s']:.1f} s (cell {cell['wall_s']} s): flops/dev "
             f"{cell['flops_per_device']:.4e}, bytes/dev {cell['bytes_per_device']:.4e}, collectives "
             + ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B" for k, v in sorted(cell["collectives"].items()))
             + f" (wire {cell['collective_bytes']:.4e} B), peak {cell['hbm_per_device_gb']:.3f} GiB, fits_hbm "
             f"{cell['fits_hbm']}; compute {cell['compute_s']:.4f} s, memory {cell['memory_s']:.4f} s, collective "
             f"{cell['collective_s']:.4f} s, dominant {cell['dominant']}, useful {cell['useful_flops_ratio']:.3f}, "
             f"roofline fraction {cell['roofline_fraction']:.4f}")
-    log(f"8c: {len(cells)} dry-run cells OK, {wall:.1f} s from the pool's start")
-    return {"cells": cells, "pool_s": wall}
+    log(f"8c: {len(cells)} dry-run cells OK and {len(skipped)} SKIP(full-attn), {wall:.1f} s from the pool's "
+        f"start ({pool.workers} workers)")
+    return {"cells": cells, "skipped": skipped, "pool_s": wall, "workers": pool.workers}
 
 
-def lm_mesh_phase(dev, smollm_7c, pool, timings):
+# 8d: serving on an NCCL world of one through make_serve_fns: (arch, layers run or
+# None for all, tokens, the flash_decode settings run), at phase 6's cuts.
+MESH_SERVE = (("smollm-135m", None, LM_GEN, (False, True)),
+              ("deepseek-moe-16b", 4, 8, (False,)),
+              ("hymba-1.5b", None, 8, (False,)))
+PRF_CELL_LIMIT_S = 600                           # 8e: wall-clock limit of the PRF cells' process
+
+
+def _serve_loop(prefill, decode, prompts, extras, T, full=lambda t: t):
+    """Prefill, then T - 1 greedy decode steps: (tokens [B, T], logits per
+    step, prefill s, decode s)."""
+    (logits, caches), t_pre = sync_time(lambda: prefill(prompts, extras))
+    out = [full(logits)]
+    toks = [out[0].argmax(-1)]
+
+    def run():
+        nonlocal caches
+        for i in range(T - 1):
+            lg, caches = decode(caches, toks[-1], prompts.shape[1] + i)
+            out.append(full(lg))
+            toks.append(out[-1].argmax(-1))
+
+    _, t_dec = sync_time(run)
+    return torch.stack(toks, 1).to(torch.int32), out, t_pre, t_dec
+
+
+def lse_combine_checks(dev):
+    """8d: flash decoding's LSE combine over several length shards, which a
+    world of one never holds: smollm-135m's decode query [8, 1, 9, 64] over
+    k / v [8, 2080, 3, 64] at position 2079 (and 1000: the later shards all
+    masked), cut by hand into 16 even shards (the production ``model``
+    axis) and 3 uneven ones, each shard's softmax and lse
+    (``layers.lse_part``), the max and ``lse_weigh`` summed over shards,
+    ``lse_finish``; against ``grouped_attend_one`` at LM_TOL, bf16 and f32.
+    Returns the worst share of the allowance per case."""
+    from repro_torch.models.layers import (
+        MASKED, _grouped_scores, _grouped_weigh, decode_mask, grouped_attend_one, lse_finish, lse_part, lse_weigh,
+    )
+
+    B, L, H, KV, hd = LM_BATCH, LM_PROMPT + LM_GEN, 9, 3, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _randn(gen, (B, 1, H, hd), dev, dtype)
+        k, v = (_randn(gen, (B, L, KV, hd), dev, dtype) for _ in range(2))
+        for cut, bounds in (("16 even", [i * L // 16 for i in range(17)]), ("3 uneven", [0, 700, 1500, L])):
+            for pos in (L - 1, 1000):
+                parts = []
+                for a, b in zip(bounds[:-1], bounds[1:]):
+                    lg = _grouped_scores(q, k[:, a:b], v[:, a:b])
+                    lg = torch.where(torch.arange(a, b, device=dev) <= pos, lg, MASKED)
+                    parts.append(lse_part(lg, _grouped_weigh(torch.softmax(lg, dim=-1), k[:, a:b], v[:, a:b])))
+                m = torch.stack([lse for _, lse in parts]).amax(0)
+                got = lse_finish(sum(lse_weigh(o, m) for o, _ in parts), dtype)
+                want = grouped_attend_one(q, k, v, mask=decode_mask(pos, L, 0, dev))
+                what = f"8d: the LSE combine over {cut} length shards, {str(dtype)[6:]}, position {pos}"
+                out[f"{cut}, {str(dtype)[6:]}, pos {pos}"] = lm_close(got.float(), want.float(), dtype, what)[1]
+    log("8d: the LSE combine over 16 / 3 length shards against grouped_attend_one, worst share of LM_TOL "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def mesh_serving(dev, lm_phase6=None):
+    """8d: ``serving.make_serve_fns`` on an NCCL world of one
+    (``make_mesh((1, 1))``), bf16, batch 8, prompt 2048, for ``MESH_SERVE``:
+    the same weights and prompts as phase 6 through ``greedy_generate`` on one
+    device first (its tokens, logits and times), then the model's parameters
+    placed on the mesh and the meshed prefill and decode (caches placed by
+    ``cache_specs``, their length over ``model``; under ``flash_decode`` the
+    LSE combine, which over one length shard is the plain softmax bit for
+    bit). Checks: greedy tokens identical to the one-device run (and to phase
+    6's when it ran); every step's logits bitwise the one-device run's (so
+    within LM_TOL); attention and SSD kernel launches a prefill as phase 6
+    counts them; 2 ``all_to_all`` calls a MoE layer a step (deepseek-moe-16b
+    runs ``ep_mode="shard_map"``); prefill s, decode ms/token and peak memory
+    beside the one-device run's. First ``lse_combine_checks``: the combine
+    over 16 and 3 length shards, cut by hand."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import _layer_kinds
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.mesh import init_rank, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving import greedy_generate, make_serve_fns
+
+    phase6 = {r["arch"]: r for r in lm_phase6 or ()}
+    store = ROOT / "build" / "serve_world_of_one"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    init_rank(0, 1, f"file://{store / 'store'}", "nccl")
+    results = {"lse_combine": lse_combine_checks(dev)}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        for arch, depth, T, variants in MESH_SERVE:
+            cfg = get_config(arch)
+            if depth:
+                cfg = dataclasses.replace(cfg, n_layers=depth)
+            kinds = _layer_kinds(cfg)
+            want = {"flash_attention": attention_launches(kinds, cfg.use_mla),
+                    "ssd_scan": sum(k in ("ssm", "hybrid") for k in kinds)}
+            n_moe = sum(k == "moe" for k in kinds) if cfg.ep_mode == "shard_map" else 0
+            B, L = LM_BATCH, LM_PROMPT
+            s_max = L + T
+            model = build_model(cfg, dev, seed=0)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(1)                   # phase 6's prompts
+            prompts = torch.randint(0, cfg.vocab_size, (B, L), generator=gen, device=dev)
+            extras = lm_extras(cfg, B, dev, gen)
+            one = (lambda t, e: model.prefill(t, e, s_max=s_max)), model.decode_step
+            greedy_generate(model, prompts[:, :128], extras, steps=2, s_max=130)      # warm-up
+            ref_toks = greedy_generate(model, prompts, extras, steps=T, s_max=s_max)
+            torch.cuda.reset_peak_memory_stats()
+            toks1, logits1, pre1, dec1 = _serve_loop(*one, prompts, extras, T)
+            peak1 = torch.cuda.max_memory_allocated()
+            check(torch.equal(toks1, ref_toks), f"8d {arch}: the one-device loop's tokens differ from greedy_generate's")
+            if arch in phase6 and "tokens" in phase6[arch]:
+                check(ref_toks.tolist() == phase6[arch]["tokens"], f"8d {arch}: tokens differ from phase 6's")
+            prefill, decode, shardings = make_serve_fns(model, mesh, s_max=s_max)
+            prefill(prompts[:, :128], extras)                                        # warm-up
+            res = {"layers": cfg.n_layers, "tokens": T, "one_device": {
+                "prefill_s": pre1, "decode_ms_per_token": dec1 / (T - 1) * 1e3, "peak_bytes": peak1}}
+            full = lambda t: t.full_tensor()                                          # noqa: E731
+            for flash in variants:
+                model.cfg = dataclasses.replace(cfg, flash_decode=flash)
+                for ops in (flash_ops, ssd_ops):
+                    ops.launches = ops.launches_bf16 = ops.launches_f32 = 0
+                a2a0 = mesh.all_to_all_calls
+                (_, caches), _ = sync_time(lambda: prefill(prompts, extras))
+                per_prefill = {"flash_attention": flash_ops.launches_bf16, "ssd_scan": ssd_ops.launches_bf16}
+                a2a_prefill = mesh.all_to_all_calls - a2a0
+                pl = {n: [str(q) for q in t.placements] for n, t in _leaves(caches[0])}
+                del caches
+                torch.cuda.reset_peak_memory_stats()
+                a2a0 = mesh.all_to_all_calls
+                toks, logits, pre, dec = _serve_loop(prefill, decode, prompts, extras, T, full=full)
+                peak = torch.cuda.max_memory_allocated()
+                a2a_steps = mesh.all_to_all_calls - a2a0 - a2a_prefill
+                shares = [lm_close(g, w, torch.bfloat16, f"8d {arch} flash_decode={flash}: step {i} logits")[1]
+                          for i, (g, w) in enumerate(zip(logits, logits1))]
+                bitwise = all(torch.equal(g, w) for g, w in zip(logits, logits1))
+                check(torch.equal(toks, ref_toks), f"8d {arch} flash_decode={flash}: meshed tokens differ from "
+                      f"greedy_generate's (first rows {toks[:2].tolist()} vs {ref_toks[:2].tolist()})")
+                check(bitwise, f"8d {arch} flash_decode={flash}: the meshed logits are not bitwise the one-device "
+                      f"run's (largest share of LM_TOL {max(shares):.3g})")
+                check(per_prefill == want, f"8d {arch}: kernel launches a meshed prefill {per_prefill}, want {want}")
+                check(a2a_prefill == 2 * n_moe and a2a_steps == 2 * n_moe * (T - 1),
+                      f"8d {arch}: all_to_all calls {a2a_prefill} in prefill, {a2a_steps} in {T - 1} steps; want "
+                      f"{2 * n_moe} and {2 * n_moe * (T - 1)}")
+                key = f"flash_decode={flash}"
+                res[key] = {"prefill_s": pre, "decode_ms_per_token": dec / (T - 1) * 1e3, "peak_bytes": peak,
+                            "launches_per_prefill": per_prefill, "all_to_all_prefill": a2a_prefill,
+                            "all_to_all_per_step": a2a_steps / (T - 1), "logits_worst_share": max(shares),
+                            "logits_bitwise": bitwise,
+                            "cache_placements_layer0": pl}
+                log(f"8d: {arch} ({cfg.n_layers} layers, batch {B}, prompt {L}, {T} tokens, bf16) on make_mesh((1, 1)), "
+                    f"flash_decode {flash}: tokens identical to greedy_generate, logits bitwise {bitwise}; prefill "
+                    f"{pre:.3f} s (one device {pre1:.3f}), decode "
+                    f"{res[key]['decode_ms_per_token']:.2f} ms/token (one device {res['one_device']['decode_ms_per_token']:.2f}), "
+                    f"peak {peak / 2**30:.2f} GiB (one device {peak1 / 2**30:.2f}); launches a prefill {per_prefill}; "
+                    f"all_to_all {a2a_prefill} in prefill, {a2a_steps / (T - 1):.1f} a step; layer 0's caches {pl}")
+            results[arch] = res
+            del model, prefill, decode, shardings
+            torch.cuda.empty_cache()
+        return results
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def prf_cells():
+    """8e: the dry run's PRF cell on both production meshes on the card, in a
+    process of its own (``python -m repro_torch.launch.dryrun --arch prf``:
+    a fake world of 256 / 512, rank 0's real shard, 2^18 / 2^17 rows x 256
+    features, through ``ReplicaMesh``): each ``OK``, ``max_depth`` levels,
+    its collectives, bytes, peak memory, kernel launches and growth time."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "prf", "--mesh", "both", "--device", "cuda",
+           "--out", str(DRYRUN_OUT)]
+    r, t = sync_time(lambda: subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True, text=True,
+                                            timeout=PRF_CELL_LIMIT_S))
+    cells = {}
+    for mesh_name in ("16x16", "2x16x16"):
+        path = DRYRUN_OUT / f"prf__train_4k__{mesh_name}.json"
+        cell = json.loads(path.read_text()) if path.exists() else {"status": "no result"}
+        check(r.returncode == 0 and cell.get("status") == "OK" and cell.get("levels") == cell["config"]["max_depth"],
+              f"8e: the PRF cell on {mesh_name}: rc {r.returncode}, status {cell.get('status')}, levels "
+              f"{cell.get('levels')}; {cell.get('traceback', '')[-1500:]} {r.stderr[-1500:]}")
+        cells[mesh_name] = cell
+        log(f"8e: the PRF cell on {mesh_name} OK on the card: {cell['levels']} levels, growth {cell['grow_s']:.2f} s "
+            f"(cell {cell['wall_s']} s), kernel launches {cell['kernel_launches']}, collectives "
+            + ", ".join(f"{k} {v['count']} x {v['operand_bytes']:.4e} B" for k, v in sorted(cell["collectives"].items()))
+            + f" (wire {cell['collective_bytes']:.4e} B), torch-op bytes {cell['bytes_per_device']:.4e}, peak "
+            f"{cell['hbm_per_device_gb']:.3f} GiB; memory {cell['memory_s']:.4f} s, collective "
+            f"{cell['collective_s']:.4f} s, dominant {cell['dominant']}")
+    return {"cells": cells, "process_s": t}
+
+
+def lm_mesh_phase(dev, smollm_7c, pool, timings, lm_phase6=None):
     """Phase 8: the LM mesh glue. 8a the attention kernels at a query
-    offset, 8b ``make_sharded_train_step`` on the card, 8c the dry run."""
+    offset, 8b ``make_sharded_train_step`` on the card, 8c the dry run's LM
+    cells, 8d ``make_serve_fns`` on the card, 8e the PRF cells on the card."""
     part_s = {}
 
     def part(name, fn):
@@ -3430,9 +3699,12 @@ def lm_mesh_phase(dev, smollm_7c, pool, timings):
 
     offsets = part("8a", lambda: mesh_offset_checks(dev, timings))
     train = part("8b", lambda: mesh_train(dev, smollm_7c))
+    serving = part("8d", lambda: mesh_serving(dev, lm_phase6))
+    prf = part("8e", prf_cells)
     dry = part("8c", lambda: mesh_dryrun(pool))
     log("phase 8 parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
-    return {"offsets": offsets, "sharded_train": train, "dryrun": dry, "part_s": part_s}
+    return {"offsets": offsets, "sharded_train": train, "serving": serving, "prf_cells": prf, "dryrun": dry,
+            "part_s": part_s}
 
 
 def lm_train_phase(dev, kernel_row, timings):
@@ -3508,8 +3780,7 @@ def main(train_only: bool = False, mesh_only: bool = False) -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s) -> {_build.BUILD_DIR}")
     hgmma = tensor_core_sass()
     rows, timings = [], {}
-    from repro_torch.launch.dryrun import TRAIN_ARCHS
-    pool = None if train_only else DryRunPool(TRAIN_ARCHS)      # 8c, beside phases 3-7
+    pool = None if train_only else DryRunPool(dryrun_jobs())     # 8c, beside phases 3-7
 
     def kernel_row(name, src, replaces, launches, err, t, plain_ms, nbytes, nops, library_ms,
                    ops_per_s=F32_OPS_PER_S):
@@ -3856,7 +4127,7 @@ def main(train_only: bool = False, mesh_only: bool = False) -> int:
             row["launches_train"] = train["mamba2"]["launches"]["ssd_fwd_bf16"]
 
     # 8. the LM mesh glue -----------------------------------------------------------
-    lm_mesh, t_mesh = sync_time(lambda: lm_mesh_phase(dev, train["smollm"], pool, timings))
+    lm_mesh, t_mesh = sync_time(lambda: lm_mesh_phase(dev, train["smollm"], pool, timings, lm))
     lm_mesh["phase_s"] = t_mesh
     log(f"LM mesh glue phase (8): {t_mesh:.1f} s")
 

@@ -11,7 +11,8 @@ runs on ``cuda:{local_rank % device_count}`` unless ``device="cpu"`` asks
 for the CPU.
 
 The mesh carries the plane's collectives (``all_reduce``,
-``reduce_scatter``, ``all_gather``, ``barrier``), and their transport is
+``reduce_scatter``, ``all_gather``, ``barrier``; ``all_to_all`` for the
+expert-parallel MoE, differentiable), and their transport is
 chosen here, once, from the process group's backend: NCCL takes device
 tensors; gloo takes CUDA tensors only for ``all_reduce`` and
 ``broadcast``, so on gloo a CUDA tensor is copied to the host, reduced
@@ -67,6 +68,7 @@ class Mesh:
         # the one place the transport is chosen: gloo reduces CUDA tensors on the host
         self.host_staged = self.backend == "gloo" and device.type == "cuda"
         self.staged_bytes = 0           # the largest tensor staged through the host so far
+        self.all_to_all_calls = 0       # exchanges made by ``all_to_all`` (the expert-parallel MoE)
 
     @property
     def rank(self) -> int:
@@ -124,6 +126,22 @@ class Mesh:
         out = torch.empty(self.size(axes) * h.numel(), dtype=t.dtype, device=h.device)
         dist.all_gather_into_tensor(out, h, group=self.group(axes))
         return out.view((self.size(axes),) + tuple(t.shape)).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` [size(axis), ...]: slice ``j`` goes to the rank at index ``j``
+        on ``axis``, and slice ``j`` of the result is what that rank sent
+        here (``all_to_all`` with ``split_axis = concat_axis = 0``, untiled).
+        Differentiable (the backward is the reverse exchange); counted in
+        ``all_to_all_calls``."""
+        from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+        n = self.size(axis)
+        if t.shape[0] != n:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} is not the {n} ranks of {axis!r}")
+        self.all_to_all_calls += 1
+        h = self._stage(t)
+        out = all_to_all_single_autograd(h, None, None, self.group(axis))
+        return out.to(t.device)
 
     def barrier(self) -> None:
         dist.barrier()

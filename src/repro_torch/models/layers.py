@@ -30,8 +30,21 @@ sequence over it and k, v replicated (the reference's context-parallel
 layout); otherwise heads stay sharded as the ``wq`` / ``wk`` specs put them.
 Either way the attention runs on this rank's local shards under
 ``local_map`` (``_attend_on_mesh``): the kernel, or ``gqa_attend``, at the
-query offset of this rank's shard. ``_pin_cache_layout`` (decode) is the
-serving slice's (ROADMAP.md item 13).
+query offset of this rank's shard.
+
+Serving on a mesh (``serving.make_serve_fns``): prefill runs the same
+``_attend_on_mesh`` and builds its cache on each rank's rows
+(``_rows_local``). Decode reads caches placed by ``training.cache_specs``
+(batch over the data axes, the length over ``model``): ``cache_write``
+writes the new token only into the length shard that holds its slot (every
+shard rewrites itself under "where"), and ``_decode_on_mesh`` attends. With
+``cfg.flash_decode`` the caches are pinned to that layout
+(``_pin_cache_layout``, the reference's rule) and each length shard runs the
+softmax over its keys and keeps its log-sum-exp; two all-reduces over the
+length's mesh dims (the largest log-sum-exp, then the weighted outputs and
+their weights) combine them, the LSE combine GSPMD derives for the
+reference. Without it the cache's length is gathered (its heads split where
+they divide) and the plain softmax runs on each rank's batch rows.
 """
 from __future__ import annotations
 
@@ -446,28 +459,183 @@ def _attend_causal(p, x, positions, cfg: ArchConfig, window: int, theta: float, 
 
 def attention_prefill(p, x, positions, cfg: ArchConfig, *, window: int = 0,
                       theta: Optional[float] = None, s_max: Optional[int] = None,
-                      use_kernels: bool = True, meta: Optional[torch.Tensor] = None):
+                      use_kernels: bool = True, meta: Optional[torch.Tensor] = None, mesh=None):
     """Full-sequence causal attention; also returns the KV cache.
 
     Full-attention layers pad the cache to ``s_max``; windowed layers
     return a rolling buffer of length ``window`` (position p at slot p % W).
     Hymba's ``meta`` tokens (``_attend_causal``) are kept in front of the
     cache: ``k[:, :M]`` then the rolling window, or the cache padded to
-    ``s_max + M``.
+    ``s_max + M``. On a ``mesh`` (DTensor activations) the attention runs
+    through ``_attend_on_mesh`` and the cache is built on each rank's rows.
     """
     theta = cfg.rope_theta if theta is None else theta
     S = x.shape[1]
     M = 0 if meta is None else meta.shape[0]
-    o, k, v = _attend_causal(p, x, positions, cfg, window, theta, use_kernels, meta)
+    o, k, v = _attend_causal(p, x, positions, cfg, window, theta, use_kernels, meta, mesh)
     if window > 0:
-        k = torch.cat([k[:, :M], roll_to_window(k[:, M:], window)], dim=1)
-        v = torch.cat([v[:, :M], roll_to_window(v[:, M:], window)], dim=1)
+        def to_cache(a):
+            return torch.cat([a[:, :M], roll_to_window(a[:, M:], window)], dim=1)
     else:
         pad = (s_max or S) - S
-        if pad:
-            k = F.pad(k, (0, 0, 0, 0, 0, pad))
-            v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    return attn_out(p, o), {"k": k, "v": v}
+
+        def to_cache(a):
+            return F.pad(a, (0, 0, 0, 0, 0, pad)) if pad else a
+    return attn_out(p, o), {"k": _rows_local(to_cache, k), "v": _rows_local(to_cache, v)}
+
+
+def _rows_local(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn(t)`` for an ``fn`` that changes only dim 1 (a cache's length):
+    on a DTensor, dim 1 gathered where it is split and ``fn`` run on each
+    rank's shard under ``local_map``, the other placements kept."""
+    if not _is_dtensor(t):
+        return fn(t)
+    _, _, Replicate, Shard, local_map = _dtensor_api()
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == 1 else q for q in t.placements]
+    t = t.redistribute(t.device_mesh, pl)
+    return local_map(fn, out_placements=(pl,), in_placements=(pl,), device_mesh=t.device_mesh)(t)
+
+
+def _global_offset(t) -> tuple:
+    """Where a DTensor's local shard starts in its global tensor, per dim:
+    each ``Shard(d)`` splits what the mesh dims before it left of dim d into
+    chunks of ``ceil(size / n)``, in mesh-dim order (DTensor's layout)."""
+    _, _, _, Shard, _ = _dtensor_api()
+    coord = t.device_mesh.get_coordinate()
+    size, off = list(t.shape), [0] * t.dim()
+    for i, q in enumerate(t.placements):
+        if isinstance(q, Shard):
+            d, n = q.dim % t.dim(), t.device_mesh.size(i)
+            chunk = -(-size[d] // n)
+            off[d] += coord[i] * chunk
+            size[d] = max(0, min(chunk, size[d] - coord[i] * chunk))
+    return tuple(off)
+
+
+def _pin_cache_layout(arr: torch.Tensor, mesh, length_axis: int = 1) -> torch.Tensor:
+    """flash-decode: a DTensor cache placed as [batch over the data axes
+    where it divides, the length over ``model``] (the reference's rule), so
+    the softmax runs on each length shard instead of a gathered cache. A
+    no-op off a mesh, without a ``model`` axis, or where the length does not
+    divide it."""
+    if mesh is None or "model" not in mesh.axis_names or not _is_dtensor(arr):
+        return arr
+    if arr.shape[length_axis] % mesh.shape["model"]:
+        return arr
+    _, _, Replicate, Shard, _ = _dtensor_api()
+    dp = [a for a in mesh.axis_names if a != "model"]
+    dp_total = 1
+    for a in dp:
+        dp_total *= mesh.shape[a]
+    b = arr.shape[0] % dp_total == 0 and arr.shape[0] >= dp_total
+    pl = [Shard(length_axis) if a == "model" else (Shard(0) if b else Replicate()) for a in mesh.axis_names]
+    return arr if list(arr.placements) == pl else arr.redistribute(mesh.device_mesh, pl)
+
+
+def _decode_on_mesh(qs, kvs, visible, flash: bool, scores=None, weigh=None, rows=None, weights=(),
+                    kv_heads: Optional[int] = None):
+    """One query's attention over DTensor caches ``kvs`` ([B, L, ...] each,
+    placed alike) whose length may be split over some mesh dims; the
+    queries ``qs`` ([B, 1, ...] each) are brought to the caches' batch
+    layout and ``weights`` replicated. ``visible(kpos)`` -> bool
+    [len(kpos)] (None: every key). ``scores(*qs, *kvs, *weights)`` -> f32
+    logits [..., L], ``weigh(p, *kvs, *weights)`` -> p @ V [B, 1, H, d] and
+    ``rows(t)`` a per-query reduction of the logits' layout [..., 1] as
+    [B, 1, H, 1] (default: ``grouped_attend_one``'s grouped GQA forms).
+
+    With ``flash`` and a split length, each rank runs the softmax over its
+    shard of keys: o_i = softmax(l_i) V_i and lse_i = logsumexp(l_i); the
+    max M of the lse_i is all-reduced over the length's mesh dims, then
+    [w_i o_i, w_i] with w_i = exp(lse_i - M) (one tensor), and out =
+    sum w_i o_i / sum w_i: flash decoding's LSE combine. Over one shard
+    w = 1 and out is the plain softmax's, bit for bit. Otherwise the length
+    is gathered and the softmax runs whole on each rank's batch rows; where
+    ``kv_heads`` (the caches' dim 2 and the queries', grouped) divide the
+    mesh dims that split the length, the heads are split over them instead
+    (the length's split traded for the heads': one all-to-all)."""
+    _, Partial, Replicate, Shard, local_map = _dtensor_api()
+    scores, weigh, rows = scores or _grouped_scores, weigh or _grouped_weigh, rows or _grouped_rows
+    dm = kvs[0].device_mesh
+    cp = list(kvs[0].placements)
+    bp = [c if isinstance(c, Shard) and c.dim == 0 else Replicate() for c in cp]
+    ldims = [i for i, c in enumerate(cp) if isinstance(c, Shard) and c.dim == 1]
+    qp = bp
+    if not flash or not ldims:
+        cp, n = list(bp), 1
+        for i in ldims if kv_heads else ():
+            if kv_heads % (n * dm.size(i)) == 0:
+                cp[i], n = Shard(2), n * dm.size(i)
+        qp, ldims = cp, []
+    kvs = [t.redistribute(dm, cp) for t in kvs]
+    qs = [t.redistribute(dm, qp) for t in qs]
+    rep = [Replicate()] * dm.ndim
+    weights = [w.redistribute(dm, rep) for w in weights]
+    nq = len(qs)
+    off, Ll = _global_offset(kvs[0])[1], kvs[0].to_local().shape[1]
+    mask = None if visible is None else visible(torch.arange(off, off + Ll, device=qs[0].device))
+
+    def attend(*a):
+        lg = scores(*a)
+        if mask is not None:
+            lg = torch.where(mask.reshape((1,) * (lg.dim() - 1) + (Ll,)), lg, MASKED)
+        return lg, weigh(torch.softmax(lg, dim=-1), *a[nq:])
+
+    in_pl = (*[qp] * nq, *[cp] * len(kvs), *[rep] * len(weights))
+    if not ldims:
+        return local_map(lambda *a: attend(*a)[1].to(a[0].dtype), out_placements=(qp,), in_placements=in_pl,
+                         device_mesh=dm)(*qs, *kvs, *weights)
+
+    # each shard's [o_i, lse_i] rides as a partial value (never reduced as it is)
+    part = [Partial() if i in ldims else b for i, b in enumerate(bp)]
+    o_lse, m = local_map(lambda *a: lse_part(*attend(*a), rows), out_placements=(
+        part, [Partial("max") if i in ldims else b for i, b in enumerate(bp)]),
+        in_placements=in_pl, device_mesh=dm)(*qs, *kvs, *weights)
+    m = m.redistribute(dm, bp)                           # all-reduce 1: the max of the lse
+    num = local_map(lse_weigh, out_placements=(part,), in_placements=(part, bp), device_mesh=dm)(o_lse, m)
+    num = num.redistribute(dm, bp)                       # all-reduce 2: sum w_i o_i and sum w_i
+    return lse_finish(num, qs[0].dtype)
+
+
+def lse_part(lg: torch.Tensor, o: torch.Tensor, rows=None):
+    """One length shard's part of flash decoding's LSE combine: from its
+    masked logits ``lg`` and its softmax output ``o`` (``_decode_on_mesh``'s
+    forms), ``([o_i, lse_i], lse_i)``, lse_i = logsumexp(lg) per query row."""
+    lse = (rows or _grouped_rows)(torch.logsumexp(lg, dim=-1, keepdim=True))
+    return torch.cat([o, lse], dim=-1), lse
+
+
+def lse_weigh(o_lse: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``[w_i o_i, w_i]``, w_i = exp(lse_i - M), of one shard's ``[o_i,
+    lse_i]`` and the shards' max lse ``m``; the sum over shards is the
+    combine's numerator and denominator."""
+    w = torch.exp(o_lse[..., -1:] - m)
+    return torch.cat([w * o_lse[..., :-1], w], dim=-1)
+
+
+def lse_finish(num: torch.Tensor, dtype) -> torch.Tensor:
+    """The combined output, sum w_i o_i / sum w_i, from the summed ``lse_weigh``."""
+    return (num[..., :-1] / num[..., -1:]).to(dtype)
+
+
+def _grouped_scores(q, k, v):
+    """f32 logits [B, KV, G, 1, L] of q [B, 1, H, hd] over k [B, L, KV, hd]."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    return torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * (hd ** -0.5)
+
+
+def _grouped_weigh(e, k, v):
+    """e [B, KV, G, 1, L] @ v [B, L, KV, d] -> [B, 1, H, d] f32."""
+    B, KV, G, Sq, _ = e.shape
+    out = torch.einsum("bkgqs,bskd->bqkgd", e, v.float())
+    return out.reshape(B, Sq, KV * G, v.shape[-1])
+
+
+def _grouped_rows(t):
+    """t [B, KV, G, 1, 1] (a reduction of the grouped logits over L) as [B, 1, H, 1]."""
+    B, KV, G, Sq, _ = t.shape
+    return t.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, 1)
 
 
 def attention_train(p, x, positions, cfg: ArchConfig, *, window: int = 0,
@@ -517,15 +685,20 @@ def cross_attention_prefill(p, x, src, cfg: ArchConfig, *, use_kernels: bool = T
     return attn_out(p, o), {"k": k, "v": v}
 
 
-def cross_attention_decode(p, x, cache: dict):
+def cross_attention_decode(p, x, cache: dict, *, mesh=None, flash: bool = False):
     """One-token cross-attention over the cached source k/v, no mask;
-    returns (out, the same cache)."""
-    o = gqa_attend(_q_only(p, x), cache["k"], cache["v"])
+    returns (out, the same cache). On a ``mesh`` (DTensor caches, the
+    length split as ``cache_specs`` puts it) through ``_decode_on_mesh``."""
+    q = _q_only(p, x)
+    if mesh is not None and _is_dtensor(cache["k"]):
+        o = _decode_on_mesh((q,), (cache["k"], cache["v"]), None, flash, kv_heads=cache["k"].shape[2])
+    else:
+        o = gqa_attend(q, cache["k"], cache["v"])
     return attn_out(p, o), cache
 
 
 def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: int = 0,
-                     theta: Optional[float] = None, prefix: int = 0):
+                     theta: Optional[float] = None, prefix: int = 0, mesh=None):
     """One-token step. x [B, 1, D]; ``pos`` a Python int.
 
     Full-attention cache: k/v [B, S_max, KV, hd], written at ``pos``.
@@ -534,7 +707,9 @@ def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: in
     and ``pos`` then counts them.
     The cache is updated in place (the reference returns a new array; an
     in-place write saves a copy of the whole cache per layer and token)
-    and returned.
+    and returned. On a ``mesh`` (DTensor caches) the attention runs through
+    ``_decode_on_mesh``, under ``cfg.flash_decode`` on caches pinned to
+    ``_pin_cache_layout``'s layout.
     """
     theta = cfg.rope_theta if theta is None else theta
     q, k_new, v_new = _qkv(p, x, cfg)
@@ -553,7 +728,13 @@ def attention_decode(p, x, pos: int, cache: dict, cfg: ArchConfig, *, window: in
         mask = decode_mask(pos, L, 0, x.device, prefix)
     k = cache_write(cache["k"], k_new, slot, cfg.decode_cache_update)
     v = cache_write(cache["v"], v_new, slot, cfg.decode_cache_update)
-    o = grouped_attend_one(q, k, v, mask=mask)
+    if mesh is not None and _is_dtensor(k):
+        if cfg.flash_decode:
+            k, v = _pin_cache_layout(k, mesh), _pin_cache_layout(v, mesh)
+        o = _decode_on_mesh((q,), (k, v), lambda kp: (kp < prefix) | (kp <= pos), cfg.flash_decode,
+                            kv_heads=k.shape[2])
+    else:
+        o = grouped_attend_one(q, k, v, mask=mask)
     return attn_out(p, o), {"k": k, "v": v}
 
 
@@ -576,8 +757,22 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int, mode: str) ->
 
     "dus" writes the slice; "where" rewrites the cache through a mask, the
     reference's sharding-friendly form. On one device both are one write.
+    A DTensor cache whose length is split: ``new`` is brought to the cache's
+    other placements and written into the local shard, under "dus" only by
+    the rank whose shard holds ``slot``, under "where" by every rank.
     """
     new = new.to(cache.dtype)
+    if _is_dtensor(cache):
+        _, _, Replicate, Shard, _ = _dtensor_api()
+        pl = [Replicate() if isinstance(q, Shard) and q.dim == 1 else q for q in cache.placements]
+        local, new = cache.to_local(), new.redistribute(cache.device_mesh, pl).to_local()
+        s, L = slot - _global_offset(cache)[1], local.shape[1]
+        if mode == "where":
+            sel = (torch.arange(L, device=local.device) == s).reshape((1, L) + (1,) * (local.dim() - 2))
+            local.copy_(torch.where(sel, new, local))
+        elif 0 <= s < L:
+            local[:, s:s + 1] = new
+        return cache
     if mode == "where":
         L = cache.shape[1]
         sel = (torch.arange(L, device=cache.device) == slot).reshape((1, L) + (1,) * (cache.dim() - 2))

@@ -18,10 +18,12 @@ takes patch embeddings ``extras["vision_embeds"]`` [B, vision_tokens, D]
 and an ``encdec`` config frame embeddings ``extras["frames"]`` [B, T, D].
 
 On a mesh (``mesh``, a ``launch.mesh.Mesh``; parameters made DTensors by
-``training.make_sharded_train_step``) the training forward pins the
-residual stream to the batch layout before each layer (``_constrain``, the
-reference's), and the vocab-sharded logits' log-sum-exp and target logits
-run vocab-parallel on each rank's slice (``_logsumexp``, ``_target_logits``).
+``training.make_sharded_train_step`` or ``serving.make_serve_fns``) the
+training forward, prefill and decode pin the residual stream to the batch
+layout before each layer (``_constrain``, the reference's) and hand the
+mesh to every layer (``Ctx.mesh``), and the vocab-sharded logits'
+log-sum-exp and target logits run vocab-parallel on each rank's slice
+(``_logsumexp``, ``_target_logits``).
 
 ``loss_fn(batch)`` is the reference's next-token loss (cross-entropy,
 z-loss, 0.01 x the MoE aux loss) under autograd; the parameters take
@@ -99,14 +101,16 @@ class Model(nn.Module):
         activation keeps the layout of the op that made it (the embedding's
         vocab- or width-sharded table), and the layers after it would run on
         a batch replicated over the data axes. Only on a mesh, on DTensor
-        activations whose batch divides those axes' product."""
+        activations whose batch divides those axes' product; where it does not
+        (decode at batch 1), a partial sum (the vocab-sharded embedding's) is
+        still reduced."""
         from .layers import _batch_placements, _is_dtensor
 
         if self.mesh is None or not _is_dtensor(x) or x.dim() < 2:
             return x
         pl = _batch_placements(self.mesh, x.shape[0], "model")
         if not any(type(p).__name__ == "Shard" for p in pl):
-            return x
+            pl = [q if q.is_shard() or q.is_replicate() else r for q, r in zip(x.placements, pl)]
         return x.redistribute(self.mesh.device_mesh, pl)
 
     def _embed_in(self, tokens: torch.Tensor, pos=None) -> torch.Tensor:
@@ -205,11 +209,11 @@ class Model(nn.Module):
             raise ValueError(f"s_max={s_max} < prompt length {S}")
         ctx = Ctx(cfg=self.cfg, mode="prefill", positions=torch.arange(S, device=self.device),
                   s_max=s_max, use_kernels=self.use_kernels, meta=getattr(self, "meta", None),
-                  cross_src=self._cross_src(extras))
+                  cross_src=self._cross_src(extras), mesh=self.mesh)
         x = self._embed_in(tokens)
         caches = []
         for kind, p in zip(self.kinds, self.layers):
-            x, c, _ = block_apply(kind, p, x, ctx)
+            x, c, _ = block_apply(kind, p, self._constrain(x), ctx)
             caches.append(c)
         return self._logits(x[:, -1:, :])[:, 0], caches
 
@@ -219,11 +223,11 @@ class Model(nn.Module):
         (logits [B, V], caches). Attention caches are updated in place;
         cross-attention caches are read only."""
         token = as_tensor(token, self.device, torch.long)
-        ctx = Ctx(cfg=self.cfg, mode="decode", pos=int(pos))
+        ctx = Ctx(cfg=self.cfg, mode="decode", pos=int(pos), mesh=self.mesh)
         x = self._embed_in(token[:, None], pos=int(pos))
         new_caches = []
         for kind, p, c in zip(self.kinds, self.layers, caches):
-            x, c, _ = block_apply(kind, p, x, ctx, c)
+            x, c, _ = block_apply(kind, p, self._constrain(x), ctx, c)
             new_caches.append(c)
         return self._logits(x)[:, 0], new_caches
 

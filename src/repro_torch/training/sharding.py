@@ -19,7 +19,9 @@ port spec is the reference's without that leading ``None``.
 
 A mesh here is anything with ``axis_names`` and a ``shape`` mapping axis ->
 size (``launch.mesh.Mesh``, or a stand-in for a mesh that is never built).
-``cache_specs`` (serving) is not ported yet (ROADMAP.md item 13).
+``cache_specs`` places a model's serving caches (``Model.cache_struct``'s
+list of per-layer dicts) by the reference's rules, leaf by leaf by name,
+without its group axis; ``cache_shardings`` gives their placements.
 """
 from __future__ import annotations
 
@@ -168,6 +170,81 @@ def opt_state_specs(opt: Mapping[str, object], params_specs: Mapping[str, P]) ->
     return {"m": dict(params_specs), "v": v, "step": P()}
 
 
+def cache_spec(name: str, shape: Sequence[int], mesh, *, batch_sharded: bool,
+               dp_axes=("data",), tp: str = "model") -> P:
+    """The ``P`` of one cache leaf by its name and shape (the reference's
+    ``cache_specs`` rule, its dims less the group axis).
+
+    ``k`` / ``v`` / ``ckv`` / ``krope`` [B, L, ...]: with ``batch_sharded``
+    and a batch that ``dp_axes`` divide, the batch over them and the length
+    over ``tp`` (flash decoding); otherwise the length over every mesh axis
+    where it divides, else over ``tp``. ``h`` [B, H, N, P]: the batch over
+    ``dp_axes`` as above, else the state dim over ``data``; the heads over
+    ``tp``. ``conv`` [B, W-1, C]: the batch as above, the channels over
+    ``tp``."""
+    sz = _axis_sizes(mesh)
+    dims = list(shape)
+    spec = [None] * len(dims)
+    dp_total = 1
+    for a in dp_axes:
+        dp_total *= sz[a]
+    tp_size = sz.get(tp, 1)
+    batch = batch_sharded and _fits(dp_total, dims[0])
+    if name in ("k", "v", "ckv", "krope"):
+        if batch:
+            spec[0] = tuple(dp_axes)
+            if _fits(tp_size, dims[1]):
+                spec[1] = tp
+        else:                                  # a batch too small: the length over the whole mesh
+            full = 1
+            for s in sz.values():
+                full *= s
+            if _fits(full, dims[1]):
+                spec[1] = tuple(mesh.axis_names)
+            elif _fits(tp_size, dims[1]):
+                spec[1] = tp
+    elif name == "h":
+        if batch:
+            spec[0] = tuple(dp_axes)
+        elif _fits(sz.get("data", 1), dims[2]):
+            spec[2] = "data"                   # the SSD state dim over data at batch 1
+        if _fits(tp_size, dims[1]):
+            spec[1] = tp
+    elif name == "conv":
+        if batch:
+            spec[0] = tuple(dp_axes)
+        if _fits(tp_size, dims[2]):
+            spec[2] = tp
+    return P(*spec)
+
+
+def cache_specs(caches, mesh, *, batch_sharded: bool, dp_axes=("data",), tp: str = "model"):
+    """``cache_spec`` of every leaf of ``caches`` (tensors or shapes, nested
+    dicts and lists as ``Model.cache_struct`` returns them), in the same
+    structure. A leaf is named by its last key, so hybrid's ``attn`` /
+    ``ssm`` and whisper's ``self`` / ``cross`` caches follow the same rules."""
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, name) for v in tree]
+        return cache_spec(name, _shape(tree), mesh, batch_sharded=batch_sharded, dp_axes=dp_axes, tp=tp)
+
+    return walk(caches)
+
+
+def cache_shardings(caches, mesh, **kw):
+    """DTensor placements of ``cache_specs(caches, mesh, **kw)``, in the same structure."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return placements(tree, mesh)
+
+    return walk(cache_specs(caches, mesh, **kw))
+
+
 def distribute(tree, shardings, mesh):
     """``tree``'s tensors (nested dicts) as DTensors placed by the matching
     entries of ``shardings`` (placements, or ``P`` specs): a plain tensor
@@ -177,6 +254,8 @@ def distribute(tree, shardings, mesh):
 
     if isinstance(tree, dict):
         return {k: distribute(v, shardings[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [distribute(v, s, mesh) for v, s in zip(tree, shardings)]
     if not isinstance(tree, torch.Tensor):
         return tree
     pl = list(placements(shardings, mesh) if isinstance(shardings, P) else shardings)
@@ -192,4 +271,6 @@ def gather(tree):
 
     if isinstance(tree, dict):
         return {k: gather(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather(v) for v in tree]
     return tree.full_tensor() if isinstance(tree, DTensor) else tree

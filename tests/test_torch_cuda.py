@@ -993,3 +993,89 @@ def test_prf_beats_rf_in_high_dim_regime_at_full_depth(cuda_device):
     acc_prf = train_prf(xtr, ytr, cfg, seed=0, device=cuda_device).accuracy(xte, yte)
     acc_rf = train_rf(xtr, ytr, cfg, seed=0, device=cuda_device).accuracy(xte, yte)
     assert acc_prf > acc_rf + 0.1, (acc_prf, acc_rf)
+
+
+@pytest.fixture
+def serve_world_of_one(cuda_device, tmp_path):
+    """A (1, 1) mesh over an NCCL world of one (the card's only form of a mesh
+    with DTensor collectives)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_rank, make_mesh
+
+    init_rank(0, 1, f"file://{tmp_path / 'store'}", "nccl")
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device=cuda_device)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prefix", [0, 8])
+def test_meshed_decode_lse_combine_matches_plain(serve_world_of_one, dtype, prefix):
+    """flash decoding's LSE combine (``layers._decode_on_mesh``: per length
+    shard max, sum and weighted V, two all-reduces) on caches placed as
+    ``cache_specs`` puts them, against ``grouped_attend_one``; and the
+    gathered form (no flash) against it."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.layers import _decode_on_mesh, decode_mask, grouped_attend_one
+    from repro_torch.training.sharding import cache_shardings
+
+    mesh = serve_world_of_one
+    dev = mesh.device
+    B, L, H, KV, hd = 4, 96, 8, 2, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, KV, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    pl = cache_shardings([{"k": k}], mesh, batch_sharded=True)[0]["k"]
+    kd, vd = (distribute_tensor(t, mesh.device_mesh, pl) for t in (k, v))
+    qd = distribute_tensor(q, mesh.device_mesh, pl)
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0 ** -7, 1e-2)
+    for pos in (prefix, L // 2, L - 1):
+        mask = decode_mask(pos, L, 0, dev, prefix)
+        want = grouped_attend_one(q, k, v, mask=mask).float()
+        for flash in (True, False):
+            got = _decode_on_mesh((qd,), (kd, vd), lambda kp: (kp < prefix) | (kp <= pos), flash,
+                                  kv_heads=KV).full_tensor().float()
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol * float(want.abs().max()),
+                                       msg=f"pos {pos}, flash {flash}")
+
+
+def _lse_combine_chunks(q, k, v, visible, bounds):
+    """``_decode_on_mesh``'s flash decoding with the length cut at ``bounds``
+    by hand: each chunk's masked softmax and log-sum-exp (``lse_part``), the
+    max over chunks (all-reduce 1), ``lse_weigh`` summed over chunks
+    (all-reduce 2) and ``lse_finish``: the multi-shard combine, on one card."""
+    from repro_torch.models.layers import (
+        MASKED, _grouped_scores, _grouped_weigh, lse_finish, lse_part, lse_weigh,
+    )
+
+    parts = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        kc, vc = k[:, a:b], v[:, a:b]
+        lg = _grouped_scores(q, kc, vc)
+        lg = torch.where(visible(torch.arange(a, b, device=q.device)), lg, MASKED)
+        parts.append(lse_part(lg, _grouped_weigh(torch.softmax(lg, dim=-1), kc, vc)))
+    m = torch.stack([lse for _, lse in parts]).amax(0)
+    return lse_finish(sum(lse_weigh(o_lse, m) for o_lse, _ in parts), q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bounds", [(0, 48, 96), (0, 24, 48, 72, 96), (0, 40, 61, 96)])
+def test_lse_combine_over_length_chunks_matches_plain(cuda_device, dtype, bounds):
+    """Flash decoding's LSE combine over 2-4 length chunks (even and uneven;
+    early positions leave whole chunks masked) against ``grouped_attend_one``
+    at LM_TOL, with a 8-key prefix that stays visible. (On a world of one the
+    meshed decode holds one shard, where the combine is the plain softmax.)"""
+    from repro_torch.models.layers import decode_mask, grouped_attend_one
+
+    dev = cuda_device
+    B, L, H, KV, hd, prefix = 4, 96, 8, 2, 64, 8
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((B, 1, H, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, L, KV, hd), generator=gen, device=dev).to(dtype) for _ in range(2))
+    for pos in (prefix, 30, L // 2, L - 1):
+        want = grouped_attend_one(q, k, v, mask=decode_mask(pos, L, 0, dev, prefix)).float()
+        got = _lse_combine_chunks(q, k, v, lambda kp: (kp < prefix) | (kp <= pos), bounds).float()
+        _scaled_close(got, want, dtype)

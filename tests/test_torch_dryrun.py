@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import get_config
-from repro_torch.launch.dryrun import analyze_train_cell, model_flops_global
+from repro_torch.launch.dryrun import analyze_cell, model_flops_global
 from repro_torch.launch.mesh import init_fake_world, make_mesh, make_production_mesh
 from repro_torch.roofline.analysis import count, roofline_terms, wire_bytes
 
@@ -132,7 +132,7 @@ def test_reduced_train_cell_flops_match_reference(fake_world, layout):
     fake_world(8)
     mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
     cfg = dataclasses.replace(get_config("smollm-135m"), **REDUCED[layout])
-    a = analyze_train_cell(cfg, SHAPE, mesh)
+    a = analyze_cell(cfg, SHAPE, mesh)
     assert a["micro"] == 2 and a["n_micro"] == 2
     assert a["flops"] == pytest.approx(want, rel=0.05), (a["flops"], want)
     assert a["flops"] >= model_flops_global(cfg, SHAPE) / 8      # 6 N D / devices: attention adds to it

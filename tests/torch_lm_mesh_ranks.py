@@ -24,7 +24,8 @@ def _np_tree(tree):
 def sharded_steps(shape, cfg, opt_kw, batches, state=None):
     """``make_sharded_train_step`` on a (data, model) mesh of ``shape``: the
     model from seed 0 (or ``state``: a single-device ``TrainState``), one
-    step per batch; returns the losses and the gathered state (numpy)."""
+    step per batch; returns the losses, the gradients' global norms and the
+    gathered state (numpy)."""
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     model = build_model(cfg, "cpu", mesh=mesh, seed=0)
     opt = AdamWConfig(**opt_kw)
@@ -33,12 +34,14 @@ def sharded_steps(shape, cfg, opt_kw, batches, state=None):
     else:
         model.requires_grad_(True)
     step, _, _ = make_sharded_train_step(model, opt, mesh)
-    losses = []
+    whole = lambda t: float(t.full_tensor() if hasattr(t, "full_tensor") else t)  # noqa: E731
+    losses, norms = [], []
     for b in batches:
         state, metrics = step(state, b)
-        losses.append(float(metrics["loss"].full_tensor() if hasattr(metrics["loss"], "full_tensor")
-                            else metrics["loss"]))
-    return {"loss": np.array(losses), "params": _np_tree(sharding.gather(state.params)),
+        losses.append(whole(metrics["loss"]))
+        norms.append(whole(metrics["grad_norm"]))
+    return {"loss": np.array(losses), "grad_norm": np.array(norms),
+            "params": _np_tree(sharding.gather(state.params)),
             "opt": _np_tree(sharding.gather({"m": state.opt["m"], "v": state.opt["v"]})),
             "step": state.step}
 
