@@ -162,12 +162,13 @@ The first:
 7. LM training (``lm_train_phase``): (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) on the forward kernel's out and lse
    against ``attention_bwd_ref`` per element at ``LM_TOL``, f32 and bf16
-   each on its route (bf16 at head dims up to 128 on the tensor-core
-   kernels, 168 to 256 on the CUDA-core ones), two calls bitwise equal,
-   the lse against ``gqa_attend_lse``: ``TRAIN_ATTENTION_SMALL`` (every
-   mask kind, GQA, head dims 20 to 256, lengths off the tiles) and
-   ``TRAIN_ATTENTION_FULL`` (smollm's self-attention, whisper's encoder
-   and cross-attention); (b) at
+   each on its route (bf16 on the tensor-core kernels at every head dim,
+   f32 on the CUDA-core ones), two calls bitwise equal, the lse against
+   ``gqa_attend_lse``: ``TRAIN_ATTENTION_SMALL`` (every mask kind, GQA,
+   head dims 20 to 256, lengths off the tiles) and ``TRAIN_ATTENTION_FULL``
+   (smollm's self-attention, whisper's encoder and cross-attention,
+   gemma3-12b's and 27b's heads at one microbatch, window 1024 and causal);
+   (b) at
    reduced widths in f32, ``loss_fn`` and every gradient leaf on the kernel
    path against the plain path for smollm-135m, gemma3-12b, qwen1.5-4b,
    deepseek-moe-16b, deepseek-v3-671b (MLA), whisper-large-v3 and
@@ -181,11 +182,12 @@ The first:
    microbatch's loss and gradients in f32 on the kernel path against the
    plain path within 1e-2 of the scale; (d) the
    backward kernels at ``BWD_SHAPES`` (the training shape, the kernels
-   line's ``flash_attention_bwd`` row, and llama-vision's self-attention
-   heads at hd 128) beside their plain version, their bound (10 D flops a
-   visible pair) and SDPA's backward, and gemma3-27b's heads at hd 168 (the
-   CUDA-core kernels, padded to 192), the forward with and without its
-   lse in turns at the training shape and at phase 6's prefill shape;
+   line's ``flash_attention_bwd`` row, llama-vision's self-attention heads
+   at hd 128, gemma3-27b's at hd 168 and gemma3-12b's at hd 240, causal and
+   with a window of 1024) beside their plain version, their bound (10 D
+   flops a visible pair) and SDPA's backward (under a window its explicit
+   mask), the forward with and without its lse in turns at the training
+   shape and at phase 6's prefill shape;
    (e) the SSD backward kernels (``csrc/ssd_scan_bwd.cu``) against
    ``ssd_chunked_bwd`` per element at ``LM_TOL``, f32 (the CUDA cores) and
    bf16 (the tensor cores) each counted on its route, two calls bitwise equal, at ``SSD_BWD_SMALL`` (L off the
@@ -204,6 +206,12 @@ The first:
    kernels, counted, f32 kernel vs plain within 1e-2; then the SSD
    backward at both training shapes beside its plain version and its bound
    (``ssd_bwd_work``; mamba2's is the kernels line's ``ssd_scan_bwd`` row);
+   (i) gemma3-12b at published widths and ``GEMMA_TRAIN_DEPTH["gemma3-12b"]``
+   layers (one period of its pattern: five local layers, window 1024, and
+   one global; hd 240), ``GEMMA_TRAIN_STEPS`` steps of 8 x 2048 in
+   ``GEMMA_TRAIN_MICRO`` microbatches, every attention backward on the
+   tensor cores, a profiled step; (j) gemma3-27b the same way at 2 layers
+   (local, hd 168), no profile;
 8. the LM mesh glue (``lm_mesh_phase``): (a) the attention forward (with
    its lse) and backward kernels at a query offset, one shard of
    smollm-135m's training microbatch on a 16-wide ``model`` axis
@@ -940,11 +948,15 @@ TRAIN_ATTENTION_FULL = {
     "smollm-135m self-attention": (8, 9, 3, 2048, 2048, 64, True, 0, 0),
     "whisper encoder (unmasked)": LM_PATH_ATTENTION["whisper encoder (unmasked)"],
     "whisper cross-attention (unmasked)": LM_PATH_ATTENTION["whisper cross-attention (unmasked)"],
+    "gemma3-12b local (window 1024)": (4, 16, 8, 2048, 2048, 240, True, 1024, 0),
+    "gemma3-12b global": (4, 16, 8, 2048, 2048, 240, True, 0, 0),
+    "gemma3-27b local (window 1024)": (4, 32, 16, 2048, 2048, 168, True, 1024, 0),
+    "gemma3-27b global": (4, 32, 16, 2048, 2048, 168, True, 0, 0),
 }
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 2048, 2, 10, 5
 
 
-BWD_COUNTERS = ("launches_bwd", "launches_bwd_bf16", "launches_bwd_tc", "launches_bwd_bf16_fma", "launches_bwd_f32")
+BWD_COUNTERS = ("launches_bwd", "launches_bwd_bf16", "launches_bwd_tc", "launches_bwd_f32")
 SSD_COUNTERS = ("launches", "launches_bf16", "launches_f32", "launches_bwd", "launches_bwd_bf16", "launches_bwd_tc",
                 "launches_bwd_f32")
 # Phase 7e: the SSD backward against its plain version at (B, L, H, P, N):
@@ -955,6 +967,17 @@ SSD_BWD_SMALL = [(2, 64, 3, 64, 16), (1, 200, 2, 64, 128), (2, 40, 4, 32, 32), (
 SSD_BWD_FULL = {"mamba2-780m training microbatch": (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 48, 64, 128),
                 "hymba-1.5b training microbatch": (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 50, 64, 16)}
 HYMBA_TRAIN_DEPTH, HYMBA_TRAIN_STEPS = 8, 4     # phase 7h: 8 of hymba-1.5b's 32 layers, 4 steps
+# phases 7i, 7j: gemma3-12b at one period of its pattern (6 of 48 layers),
+# gemma3-27b at 2 of 62 (both local), 4 steps each, the batch of 8 x 2048 in
+# 4 microbatches: in 2, one microbatch's f32 log-sum-exp over the 262,144-word
+# vocabulary ([4, 2048, 262144], 8 GiB a temporary) ran out of the card's
+# memory beside the 2.3 B parameters' model, state and accumulators. Peak lr
+# 1e-4 after 100 warmup steps (the 4 steps run at 1e-6 to 4e-6): AdamW's first
+# steps move each weight by about lr, a product's output by about lr x d_in, and
+# after 2 warmup steps gemma3-12b's d 3840 diverged at 1e-3 and 1e-4 on the
+# kernel path and the plain path alike (1e-4: losses 13.10, 19.98, 13.79, 18.24)
+GEMMA_TRAIN_DEPTH, GEMMA_TRAIN_STEPS, GEMMA_TRAIN_MICRO, GEMMA_TRAIN_LR, GEMMA_TRAIN_WARMUP = (
+    {"gemma3-12b": 6, "gemma3-27b": 2}, 4, 4, 1e-4, 100)
 
 
 def ssd_bwd_work(B, L, H, P, N, Q=64, elem=2):
@@ -1116,15 +1139,14 @@ def lm_ssd_backward_rows(dev, launches_bwd, kernel_row, timings):
 
 
 def bwd_route_counts(flash_ops):
-    """(bf16, of which tensor cores, of which CUDA cores, f32) backward calls so far."""
-    return (flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_tc, flash_ops.launches_bwd_bf16_fma,
-            flash_ops.launches_bwd_f32)
+    """(bf16, of which tensor cores, f32) backward calls so far."""
+    return flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_tc, flash_ops.launches_bwd_f32
 
 
 def lm_backward_checks(dev):
     """The backward kernels against ``attention_bwd_ref`` per element at
-    LM_TOL (f32 and bf16, each on its own route: bf16 at head dims up to
-    128 on the tensor cores, wider on the CUDA cores), on the forward kernel's
+    LM_TOL (f32 and bf16, each on its own route: bf16 on the tensor cores at
+    every head dim, f32 on the CUDA cores), on the forward kernel's
     out and lse (lse also against ``gqa_attend_lse`` at f32's tolerance),
     and two calls bitwise equal. Returns the largest allowance share per
     dtype and the full shapes' shares."""
@@ -1147,8 +1169,8 @@ def lm_backward_checks(dev):
             got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=C, window=W, prefix=P)
             bf16 = dtype == torch.bfloat16
             tc = flash_ops.bwd_route(dtype, D)[0]
-            check(tc == (bf16 and D <= 128), f"{what}: bf16 head dim {D} routed {'to' if tc else 'off'} the tensor cores")
-            check(bwd_route_counts(flash_ops) == (n0[0] + bf16, n0[1] + tc, n0[2] + (bf16 and not tc), n0[3] + (not bf16)),
+            check(tc == bf16, f"{what}: head dim {D} routed {'to' if tc else 'off'} the tensor cores")
+            check(bwd_route_counts(flash_ops) == (n0[0] + bf16, n0[1] + bf16, n0[2] + (not bf16)),
                   f"{what}: launched on the wrong route")
             want = attention_bwd_ref(q, k, v, out, lse, do, spec)
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -1275,10 +1297,12 @@ def lm_train_reduced(dev):
     return out
 
 
-def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume=True, profile=True):
+def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume=True, profile=True,
+                  n_micro=TRAIN_MICRO, lr=1e-3, warmup=2):
     """``arch`` at published widths (``depth`` of its layers, default all),
-    bf16 compute, f32 params: ``TokenPipeline`` batches of 8 x 2048 in 2
-    microbatches, ``steps`` steps with launch counts read around them
+    bf16 compute, f32 params, AdamW at peak ``lr`` after ``warmup`` steps:
+    ``TokenPipeline`` batches of 8 x 2048 in ``n_micro`` microbatches,
+    ``steps`` steps with launch counts read around them
     (attention and the SSD scan, forward and backward, per route); with
     ``resume``, the steps after TRAIN_RESUME_AT run again from a checkpoint,
     bitwise; with ``profile``, one more step under the profiler (its trace
@@ -1299,12 +1323,13 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
         cfg = dataclasses.replace(cfg, n_layers=depth)
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, dev, seed=0)
-    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
-    state0 = init_state(model, opt)
+    opt = AdamWConfig(lr=lr, warmup_steps=warmup, decay_steps=100)
+    state = init_state(model, opt)
+    state0 = state if resume else None      # the form a resume restores into; else not kept alive
     step = make_train_step(model, opt)
     pipe, t_data = sync_time(lambda: TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, n_docs=512, seed=0))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-               for b in pipe.batches(TRAIN_BATCH, steps, n_micro=TRAIN_MICRO)]
+               for b in pipe.batches(TRAIN_BATCH, steps, n_micro=n_micro)]
     ckpt_dir = ROOT / "build" / "lm_train_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     mgr = CheckpointManager(str(ckpt_dir), keep=1, save_interval=TRAIN_RESUME_AT)
@@ -1314,7 +1339,7 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
     for n in SSD_COUNTERS:
         setattr(ssd_ops, n, 0)
     torch.cuda.reset_peak_memory_stats()
-    state, losses, step_s, save_s = state0, [], [], None
+    losses, step_s, save_s = [], [], None
     for i, b in enumerate(batches):
         (state, m), t = sync_time(lambda: step(state, b))
         losses.append(float(m["loss"]))
@@ -1329,7 +1354,7 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
               "ssd_bwd_tc": ssd_ops.launches_bwd_tc, "ssd_bwd_f32": ssd_ops.launches_bwd_f32}
     fwd, bwd = train_attention_launches(cfg)
     sfwd, sbwd = train_ssd_launches(cfg)
-    n_calls = steps * TRAIN_MICRO
+    n_calls = steps * n_micro
     want = {"fwd_bf16": fwd * n_calls, "fwd_f32": 0, "bwd_bf16": bwd * n_calls, "bwd_tc": bwd * n_calls,
             "bwd_f32": 0, "ssd_fwd_bf16": sfwd * n_calls, "ssd_fwd_f32": 0, "ssd_bwd_bf16": sbwd * n_calls,
             "ssd_bwd_tc": sbwd * n_calls, "ssd_bwd_f32": 0}
@@ -1341,7 +1366,7 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = step_s[1:]
     log(f"{arch} training ({cfg.n_layers} layers, d {cfg.d_model}, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
-        f"{TRAIN_MICRO} microbatches, remat {cfg.remat}): losses {[round(x, 4) for x in losses]}, s/step "
+        f"{n_micro} microbatches, remat {cfg.remat}, peak lr {lr:g} after {warmup} warmup steps): losses {[round(x, 4) for x in losses]}, s/step "
         f"{[round(x, 4) for x in step_s]} (first step with its warm-up), steady {np.mean(steady):.4f} s/step, "
         f"{tokens / np.mean(steady):.1f} tokens/s, peak {peak / 2**30:.2f} GiB, launches {routes}"
         + (f", checkpoint save {save_s:.3f} s" if resume else ""))
@@ -1370,10 +1395,13 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     t_f32 = time.perf_counter()
 
-    # kernel path vs plain path, one microbatch in f32 (TF32 off)
+    # kernel path vs plain path, one microbatch in f32 (TF32 off), on the last
+    # step's parameters (the state freed first: at gemma3's widths it is 37 GB)
     with torch.no_grad():
         for n, p in model.named_parameters():
             p.copy_(state.params[n])
+    del state, state0
+    torch.cuda.empty_cache()
     mb = {k: v[0] for k, v in batches[0].items()}
     params = [p for _, p in model.named_parameters()]
     model.compute_dtype = torch.float32
@@ -1392,16 +1420,16 @@ def lm_train_full(dev, arch="smollm-135m", depth=None, steps=TRAIN_STEPS, resume
     loss_drift = abs(lk - lp) / abs(lp)
     check(loss_drift <= 1e-2 and leaves[worst] <= 1e-2,
           f"{arch} f32 kernel vs plain: loss {lk} / {lp}, worst leaf {worst} {leaves[worst]:.3g}")
-    log(f"{arch} full width ({cfg.n_layers} layers), f32, one microbatch of {TRAIN_BATCH // TRAIN_MICRO} x {TRAIN_SEQ}: "
+    log(f"{arch} full width ({cfg.n_layers} layers), f32, one microbatch of {TRAIN_BATCH // n_micro} x {TRAIN_SEQ}: "
         f"kernel vs plain loss {lk:.6f} / {lp:.6f} (rel {loss_drift:.3g}), worst gradient leaf {worst} "
         f"{leaves[worst]:.3g} ({time.perf_counter() - t_f32:.1f} s)")
     result = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers, "batch": TRAIN_BATCH,
-              "seq": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "remat": cfg.remat, "losses": losses, "step_s": step_s,
+              "seq": TRAIN_SEQ, "n_micro": n_micro, "lr": lr, "warmup": warmup, "remat": cfg.remat, "losses": losses, "step_s": step_s,
               "steady_s_per_step": float(np.mean(steady)), "tokens_per_s": tokens / float(np.mean(steady)),
               "peak_bytes": peak, "launches": routes, "checkpoint_save_s": save_s, "data_s": t_data,
               "step_breakdown": breakdown, "resumed_bitwise": resume, "resumed_at": TRAIN_RESUME_AT if resume else None,
               "f32_kernel_vs_plain": {"loss_rel": loss_drift, "worst_leaf": worst, "worst_leaf_drift": leaves[worst]}}
-    del model, state, state0, res, gk, gp, params
+    del model, res, gk, gp, params
     torch.cuda.empty_cache()
     return result
 
@@ -1437,17 +1465,22 @@ def train_step_breakdown(fn):
 
 
 # The backward timed beside SDPA's (phase 7d): smollm-135m's training microbatch,
-# llama-3.2-vision-90b's self-attention heads at hd 128 and gemma3-27b's at hd 168
-# (padded to 192: the CUDA-core kernels) (B, H, KV, L, D), causal.
-BWD_SHAPES = {"smollm training shape": (TRAIN_BATCH // TRAIN_MICRO, 9, 3, TRAIN_SEQ, 64),
-              "llama-vision self-attention, hd 128": (TRAIN_BATCH // TRAIN_MICRO, 64, 8, TRAIN_SEQ, 128),
-              "gemma3-27b heads, hd 168": (TRAIN_BATCH // TRAIN_MICRO, 32, 16, TRAIN_SEQ, 168)}
+# llama-3.2-vision-90b's self-attention heads at hd 128, gemma3-27b's at hd 168
+# and gemma3-12b's at hd 240 (padded to 192 and 256: the two-warpgroup blocks),
+# global and local (B, H, KV, L, D, window), causal.
+BWD_SHAPES = {"smollm training shape": (TRAIN_BATCH // TRAIN_MICRO, 9, 3, TRAIN_SEQ, 64, 0),
+              "llama-vision self-attention, hd 128": (TRAIN_BATCH // TRAIN_MICRO, 64, 8, TRAIN_SEQ, 128, 0),
+              "gemma3-27b heads, hd 168": (TRAIN_BATCH // TRAIN_MICRO, 32, 16, TRAIN_SEQ, 168, 0),
+              "gemma3-27b local heads, hd 168, window 1024": (TRAIN_BATCH // TRAIN_MICRO, 32, 16, TRAIN_SEQ, 168, 1024),
+              "gemma3-12b heads, hd 240": (TRAIN_BATCH // TRAIN_MICRO, 16, 8, TRAIN_SEQ, 240, 0),
+              "gemma3-12b local heads, hd 240, window 1024": (TRAIN_BATCH // TRAIN_MICRO, 16, 8, TRAIN_SEQ, 240, 1024)}
 
 
 def backward_timing(dev, gen, label, shape, timings):
-    """The backward kernels at ``shape`` (bf16, causal) on the forward kernel's
-    out and lse: checked against ``attention_bwd_ref`` at LM_TOL, timed
-    in turns with SDPA's backward (kernel, SDPA, SDPA, kernel; SDPA's
+    """The backward kernels at ``shape`` (bf16, causal, the window if any) on
+    the forward kernel's out and lse: checked against ``attention_bwd_ref``
+    at LM_TOL, timed in turns with SDPA's backward (kernel, SDPA, SDPA,
+    kernel; under a window SDPA takes its explicit mask; SDPA's
     ``library_ms`` the mean of its two), then by ``timed`` (the call and the
     kernels alone), beside the plain version and the bound (10 D flops a
     visible pair)."""
@@ -1456,33 +1489,36 @@ def backward_timing(dev, gen, label, shape, timings):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import MaskSpec, attention_bwd_ref
 
-    B, H, KV, L, D = shape
+    B, H, KV, L, D, W = shape
     q, do = (_randn(gen, (B, L, H, D), dev, torch.bfloat16) for _ in range(2))
     k, v = (_randn(gen, (B, L, KV, D), dev, torch.bfloat16) for _ in range(2))
-    out, lse = flash_ops.flash_attention_lse(q, k, v)
-    call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do)
-    plain = lambda: attention_bwd_ref(q, k, v, out, lse, do, MaskSpec())
+    out, lse = flash_ops.flash_attention_lse(q, k, v, window=W)
+    call = lambda: flash_ops.flash_attention_bwd(q, k, v, out, lse, do, window=W)
+    spec = MaskSpec(window=W)
+    plain = lambda: attention_bwd_ref(q, k, v, out, lse, do, spec)
     got, want = call(), plain()
     err = max(max_abs(g, w) for g, w in zip(got, want))
     share = max(lm_close(g, w, torch.bfloat16, f"attention backward at the {label}: {n}")[1]
                 for n, g, w in zip(("dq", "dk", "dv"), got, want))
     del want
-    # launches of "bwd_d" kernels a call: delta and the fused dK / dV + dQ kernel on the tensor cores,
-    # delta, dK / dV and dQ on the CUDA cores
-    per_call = 2 if flash_ops.bwd_route(torch.bfloat16, D)[0] else 3
     qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    if W:
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=spec.block(0, L, L, dev)[None], enable_gqa=True)
+    else:
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     lib = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True)
     lib_err = max(float((a.transpose(1, 2).double() - b.double()).abs().max()) for a, b in zip(lib(), got))
     turns = [cuda_ms(f) for f in (call, lib, lib, call)]     # in turns: kernel, SDPA, SDPA, kernel
     lib_ms = (turns[1] + turns[2]) / 2
-    t = timed(f"attention backward ({label})", call, "bwd_d", timings, per_call=per_call)
+    # "bwd_d" matches both launches of a call: delta and the fused dK / dV + dQ kernel
+    t = timed(f"attention backward ({label})", call, "bwd_d", timings, per_call=2)
     p_ms = cuda_ms(plain, reps=2, warmup=1)
-    pairs = visible_pairs(L, L, 0, 0)
+    pairs = visible_pairs(L, L, W, 0)
     nbytes = 2 * (4 * B * L * H * D + 4 * B * L * KV * D) + 4 * B * H * L   # q, o, do, dq; k, v, dk, dv; lse
     nops = 10 * D * B * H * pairs
     bound = max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S) * 1e3
-    log(f"attention backward [{B}, {H} H / {KV} KV, {L}, {L}, {D}] bf16 causal ({label}): call {t['ms']:.4f} ms "
+    log(f"attention backward [{B}, {H} H / {KV} KV, {L}, {L}, {D}] bf16 causal, window {W} ({label}): call "
+        f"{t['ms']:.4f} ms "
         f"(kernels alone {fmt_ms(t['kernel_ms'])}), bound {bound:.4f} ms (share {bound / t['ms']:.3f}, of the "
         f"kernels alone {bound_share(bound, t['kernel_ms'])}), SDPA backward {lib_ms:.4f} ms (max |d| vs the kernel "
         f"{lib_err:.3g}; in turns kernel / SDPA / SDPA / kernel {' / '.join(f'{x:.4f}' for x in turns)} ms), "
@@ -1504,7 +1540,7 @@ def lm_backward_rows(dev, launches_bwd, kernel_row, timings):
 
     sm = get_config("smollm-135m")
     H, KV, D = sm.n_heads, sm.n_kv_heads, sm.hd
-    check(BWD_SHAPES["smollm training shape"][1:] == (H, KV, TRAIN_SEQ, D), "smollm's heads and head dim")
+    check(BWD_SHAPES["smollm training shape"][1:] == (H, KV, TRAIN_SEQ, D, 0), "smollm's heads and head dim")
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     fwd_lse = {}
@@ -3146,7 +3182,7 @@ def traverse_batch_ab(src: str) -> int:
 def tensor_core_sass():
     """The bf16 tensor-core kernels' SASS holds HGMMA (wgmma) instructions:
     every instantiation of flash_tc_kernel (5), ssd_tc_kernel (8), the
-    attention backward's bwd_dkdv_dq_tc_kernel (3) and the SSD backward's
+    attention backward's bwd_dkdv_dq_tc_kernel (5) and the SSD backward's
     ssd_bwd_state_tc_kernel and ssd_bwd_chunk_tc_kernel (8 each, one
     listing); the listings go to ``artifacts/{name}.sass``. Returns HGMMA
     lines per instantiation, per listing."""
@@ -3161,7 +3197,7 @@ def tensor_core_sass():
     for kernel, names, n_inst, show in (
             ("flash_tc_kernel", ("flash_tc_kernel",), 5, "ILi64E"),
             ("ssd_tc_kernel", ("ssd_tc_kernel",), 8, "ILi64ELi128E"),
-            ("bwd_dkdv_dq_tc_kernel", ("bwd_dkdv_dq_tc_kernel",), 3, "ILi64E"),
+            ("bwd_dkdv_dq_tc_kernel", ("bwd_dkdv_dq_tc_kernel",), 5, "ILi64E"),
             ("ssd_bwd_tc_kernel", ("ssd_bwd_state_tc_kernel", "ssd_bwd_chunk_tc_kernel"), 16, None)):
         funcs = {blk.split("\n", 1)[0].strip(): blk for blk in sass.split("Function : ")[1:]
                  if any(n in blk.split("\n", 1)[0] for n in names)}
@@ -3713,7 +3749,8 @@ def lm_train_phase(dev, kernel_row, timings):
     counts read around its TRAIN_STEPS steps), the attention backward's row
     of the kernels line; the SSD backward kernel's checks (7e), mamba2-780m
     at full width and depth (7g) and hymba-1.5b at published widths,
-    HYMBA_TRAIN_DEPTH layers (7h), and the SSD backward's row."""
+    HYMBA_TRAIN_DEPTH layers (7h), and the SSD backward's row; gemma3-12b
+    (7i) and gemma3-27b (7j) at published widths, GEMMA_TRAIN_DEPTH layers."""
     part_s = {}
 
     def part(name, fn):
@@ -3730,10 +3767,15 @@ def lm_train_phase(dev, kernel_row, timings):
                                              resume=False, profile=False))
     ssd_rows = part("7e rows", lambda: lm_ssd_backward_rows(dev, mamba["launches"]["ssd_bwd_bf16"], kernel_row,
                                                             timings))
+    gemma = {arch: part(name, lambda: lm_train_full(dev, arch, depth=GEMMA_TRAIN_DEPTH[arch], steps=GEMMA_TRAIN_STEPS,
+                                                    resume=False, profile=arch == "gemma3-12b",
+                                                    n_micro=GEMMA_TRAIN_MICRO, lr=GEMMA_TRAIN_LR,
+                                                    warmup=GEMMA_TRAIN_WARMUP))
+             for name, arch in (("7i", "gemma3-12b"), ("7j", "gemma3-27b"))}
     log("phase 7 parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
     return {"backward_checks": checks, "reduced": reduced, "smollm": full, "backward": rows,
             "ssd_backward_checks": ssd_checks, "mamba2": mamba, "hymba": hymba, "ssd_backward": ssd_rows,
-            "part_s": part_s}
+            "gemma3_12b": gemma["gemma3-12b"], "gemma3_27b": gemma["gemma3-27b"], "part_s": part_s}
 
 
 def main(train_only: bool = False, mesh_only: bool = False) -> int:

@@ -19,14 +19,11 @@ Under autograd (grad enabled and an input that requires grad)
 the same kernel, which also writes each row's log-sum-exp, and its
 backward calls the backward kernels (no TPU counterpart: the reference
 differentiates its einsums with XLA), counted in ``launches_bwd`` and
-its route's count. The route follows dtype and head dim
-(``bwd_route``): bf16 at a padded head dim of 32, 64 or 128 runs the
-tensor-core kernels (wgmma + TMA, dK / dV and dQ blocks in one launch;
-``launches_bwd_tc``), the head dim padded to a multiple of 8 with zero
-columns in q, k, v, out and dout and the gradients' padded columns
-dropped; bf16 at 192 or 256 runs the CUDA-core kernels
-(``launches_bwd_bf16_fma``; their tensor-core form is still to do); f32
-runs the CUDA-core kernels (``launches_bwd_f32``).
+its route's count. The route follows the dtype (``bwd_route``): bf16 runs
+the tensor-core kernels (wgmma + TMA, dK / dV and dQ blocks in one launch;
+``launches_bwd_tc``) at every head dim up to 256, padded to a multiple of
+8 with zero columns in q, k, v, out and dout and the gradients' padded
+columns dropped; f32 runs the CUDA-core kernels (``launches_bwd_f32``).
 On CPU tensors the two halves are ``ref.gqa_attend_lse`` and
 ``ref.attention_bwd_ref``. On the card nothing falls back to the plain
 versions or to another route: a failed build or launch raises.
@@ -45,10 +42,8 @@ launches_bf16 = 0   # of which the bf16 tensor-core kernel
 launches_f32 = 0    # of which the f32 CUDA-core kernel
 launches_bwd = 0        # backward calls (tensor cores: two launches, delta and dK / dV + dQ; else three)
 launches_bwd_bf16 = 0   # of which on bf16 tensors
-launches_bwd_tc = 0     # of those, on the tensor-core kernels (padded head dim <= 128)
-launches_bwd_bf16_fma = 0   # and on the CUDA-core kernels (padded head dim 192 / 256)
+launches_bwd_tc = 0     # of those, on the tensor-core kernels (every one)
 launches_bwd_f32 = 0    # of which on f32 tensors
-MAX_TC_BWD_HEAD_DIM = 128   # the widest head dim of the tensor-core backward
 MAX_HEAD_DIM = 256
 
 
@@ -150,12 +145,10 @@ def flash_attention_lse(q, k, v, *, causal=True, window=0, prefix=0, offset=None
 
 def bwd_route(dtype: torch.dtype, D: int) -> tuple[bool, int]:
     """(tensor cores?, the head dim the backward kernels read) for q's dtype
-    and head dim D: bf16 whose head dim, padded to a multiple of 8, is at
-    most ``MAX_TC_BWD_HEAD_DIM`` runs the tensor-core kernels at that padded
-    width; anything else the CUDA-core kernels at D."""
-    Dk = -(-D // 8) * 8
-    if dtype == torch.bfloat16 and Dk <= MAX_TC_BWD_HEAD_DIM:
-        return True, Dk
+    and head dim D: bf16 runs the tensor-core kernels at D padded to a
+    multiple of 8, f32 the CUDA-core kernels at D."""
+    if dtype == torch.bfloat16:
+        return True, -(-D // 8) * 8
     return False, D
 
 
@@ -164,7 +157,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefi
     ``lse`` (the same mask and query offset): the backward kernels on CUDA
     tensors (route by ``bwd_route``; f32 accumulators; deterministic),
     ``attention_bwd_ref`` on the CPU."""
-    global launches_bwd, launches_bwd_bf16, launches_bwd_tc, launches_bwd_bf16_fma, launches_bwd_f32
+    global launches_bwd, launches_bwd_bf16, launches_bwd_tc, launches_bwd_f32
     off = _check(q, k, v, causal, window, prefix, offset)
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"out and dout must be q's shape {tuple(q.shape)} and lse [B, H, Lq]; got "
@@ -201,10 +194,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0, prefi
     launches_bwd += 1
     if bf16:
         launches_bwd_bf16 += 1
-        if tc:
-            launches_bwd_tc += 1
-        else:
-            launches_bwd_bf16_fma += 1
+        launches_bwd_tc += 1
     else:
         launches_bwd_f32 += 1
     if Dk != D:

@@ -79,13 +79,32 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in tree.values()))
 
 
+# Elements of a row slice: a larger plain leaf whose second moment is not
+# factored updates slice by slice (see ``adamw_update``).
+UPDATE_SLICE = 1 << 25
+
+
+def _row_slices(p: torch.Tensor, v) -> Optional[list]:
+    """Row slices of a large plain leaf with a full second moment, else None
+    (the leaf updates whole). A DTensor or the dry run's fake tensors
+    update whole: their slices would be collectives or other ops."""
+    if isinstance(v, dict) or type(p) is not torch.Tensor or p.dim() == 0 or p.numel() <= UPDATE_SLICE:
+        return None
+    rows = max(1, UPDATE_SLICE // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
 def adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor], state: dict,
                  cfg: AdamWConfig, *, stacked: Optional[Callable[[str], bool]] = None
                  ) -> Tuple[Dict[str, torch.Tensor], dict, Dict[str, torch.Tensor]]:
     """One step; returns (new_params, new_state, {"grad_norm", "lr"}) as new
     tensors, leaving the inputs as they were. ``stacked(name)`` is True for
     a leaf the reference holds with a group axis (decay then applies from
-    rank 1); None: no leaf is."""
+    rank 1); None: no leaf is. A plain leaf of more than ``UPDATE_SLICE``
+    elements with a full second moment is updated in row slices written
+    into its new tensors: the arithmetic is elementwise, so the bits are
+    the whole leaf's, and its temporaries stay a slice's size (a tied
+    262,144-word embedding is 1-1.4 billion elements)."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -94,26 +113,37 @@ def adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]
     bc2 = 1 - _f32(cfg.b2) ** _f32(step)
     mdt = getattr(torch, cfg.moment_dtype)
 
-    new_p, new_m, new_v = {}, {}, {}
-    for n, p in params.items():
-        g = grads[n].float() * scale
-        m32 = cfg.b1 * state["m"][n].float() + (1 - cfg.b1) * g
+    def leaf(p, g, m, v, decay):
+        g = g.float() * scale
+        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         mhat = m32 / bc1
-        v = state["v"][n]
         if isinstance(v, dict):                      # factored second moment
             g2 = g * g + 1e-30
             vr = cfg.b2 * v["vr"] + (1 - cfg.b2) * g2.mean(-1)
             vc = cfg.b2 * v["vc"] + (1 - cfg.b2) * g2.mean(-2)
             vhat = (vr[..., None] * vc[..., None, :]
                     / torch.clamp(vr.mean(-1)[..., None, None], min=1e-30)) / bc2
-            new_v[n] = {"vr": vr, "vc": vc}
+            new_v = {"vr": vr, "vc": vc}
         else:
             v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
             vhat = v32 / bc2
-            new_v[n] = v32.to(mdt)
+            new_v = v32.to(mdt)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() + bool(stacked is not None and stacked(n)) >= 2:   # decoupled decay on matrices only
+        if decay:                                    # decoupled decay on matrices only
             delta = delta + cfg.weight_decay * p.float()
-        new_p[n] = (p.float() - lr * delta).to(p.dtype)
-        new_m[n] = m32.to(mdt)
+        return (p.float() - lr * delta).to(p.dtype), m32.to(mdt), new_v
+
+    new_p, new_m, new_v = {}, {}, {}
+    for n, p in params.items():
+        decay = p.dim() + bool(stacked is not None and stacked(n)) >= 2
+        args = (grads[n], state["m"][n], state["v"][n])
+        rows = _row_slices(p, args[2])
+        if rows is None:
+            new_p[n], new_m[n], new_v[n] = leaf(p, *args, decay)
+            continue
+        outs = (torch.empty_like(p), torch.empty_like(p, dtype=mdt), torch.empty_like(p, dtype=mdt))
+        for r in rows:
+            for out, x in zip(outs, leaf(p[r], *(a[r] for a in args), decay)):
+                out[r] = x
+        new_p[n], new_m[n], new_v[n] = outs
     return new_p, {"m": new_m, "v": new_v, "step": step}, {"grad_norm": gnorm, "lr": lr}

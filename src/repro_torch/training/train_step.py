@@ -83,10 +83,12 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
             for n, g in zip(live, grads):
                 if g is not None:                    # unused: a zero gradient, as jax.grad gives
                     acc[n] += g.float()
+            del grads, g                             # held in acc: freed before the next forward
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
-        grads = {n: g / n_micro for n, g in acc.items()}
-        new_params, new_opt, om = adamw_update(state.params, grads, state.opt, opt_cfg, stacked=is_stacked)
+        for g in acc.values():                       # in place: one f32 copy of the gradients
+            g.div_(n_micro)
+        new_params, new_opt, om = adamw_update(state.params, acc, state.opt, opt_cfg, stacked=is_stacked)
         return TrainState(new_params, new_opt, state.step + 1), {"loss": loss_sum / n_micro, **om}
 
     return train_step

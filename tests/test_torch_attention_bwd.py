@@ -12,7 +12,8 @@ on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
 
 ``emulate_tc_bwd`` repeats, on the CPU, the arithmetic of the bf16
 tensor-core backward (``csrc/flash_attention_bwd.cu``:
-``bwd_dkdv_dq_tc_kernel``'s dK / dV and dQ blocks): bf16 inputs, exact
+``bwd_dkdv_dq_tc_kernel``'s dK / dV and dQ blocks, of one warpgroup up to
+a padded head dim of 128 and of two at 192 and 256): bf16 inputs, exact
 products with f32 sums for S and dP, P and dS fed to their products as
 bf16 parts hi = bf16(x) and lo = bf16(x - hi) (or one rounding), one
 rounding of dq, dk, dv to bf16.
@@ -52,10 +53,13 @@ CASES = [
 
 
 LM_TOL_BF16 = (2.0 ** -7, 1e-2)   # chip_smoke.LM_TOL[torch.bfloat16]
-# CASES and two at the tensor-core kernels' tile sizes: 256 x 256, GQA 3:1,
+# CASES and four at the tensor-core kernels' tile sizes: 256 x 256, GQA 3:1,
 # causal (4 query and 4 key tiles of 64: both rings wrap); 130 queries over
-# 200 keys at hd 32 with a window of 40 (ragged tiles, Lq < Lk).
-EMULATION_CASES = CASES + [(1, 256, 256, 6, 2, 64, True, 0, 0), (1, 130, 200, 4, 2, 32, True, 40, 0)]
+# 200 keys at hd 32 with a window of 40 (ragged tiles, Lq < Lk); gemma3's
+# head dims, which the two-warpgroup blocks take (padded to 192 and 256):
+# 27b's 168 with a window and a prefix over Lq < Lk, 12b's 240 causal.
+EMULATION_CASES = CASES + [(1, 256, 256, 6, 2, 64, True, 0, 0), (1, 130, 200, 4, 2, 32, True, 40, 0),
+                           (1, 100, 164, 4, 2, 168, True, 30, 64), (1, 150, 150, 4, 2, 240, True, 0, 0)]
 
 
 def _rel(want, got):
@@ -225,12 +229,12 @@ def test_flash_attention_bwd_checks_its_inputs():
 @pytest.mark.parametrize("D", [5, 20, 56, 64, 120, 128, 130, 168, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_route_by_dtype_and_head_dim(dtype, D):
-    """bf16 at a padded head dim (a multiple of 8) up to 128 takes the
-    tensor-core kernels at that width; wider bf16 and every f32 head dim
-    the CUDA-core kernels at D."""
+    """bf16 at every head dim up to 256 takes the tensor-core kernels at the
+    head dim padded to a multiple of 8; every f32 head dim the CUDA-core
+    kernels at D."""
     tc, Dk = flash_ops.bwd_route(dtype, D)
     padded = -(-D // 8) * 8
-    assert tc == (dtype == torch.bfloat16 and padded <= 128)
+    assert tc == (dtype == torch.bfloat16)
     assert Dk == (padded if tc else D)
 
 

@@ -454,17 +454,18 @@ def test_flash_attention_bf16_takes_only_its_head_dims(cuda_device):
     (1, 4, 2, 100, 164, 168, True, 30, 64),   # window and prefix, gemma3-27b's head dim
     (1, 4, 2, 300, 77, 64, False, 0, 0),      # unmasked, more queries than keys
     (1, 2, 1, 130, 250, 240, False, 0, 0),    # unmasked, fewer queries, gemma3-12b's head dim
-    (1, 2, 2, 65, 190, 256, True, 33, 0),     # widest head dim (32-key tiles)
+    (1, 2, 2, 65, 190, 256, True, 33, 0),     # widest head dim (f32: 32-key tiles)
+    (1, 4, 2, 150, 230, 240, True, 100, 0),   # gemma3-12b's head dim, window, Lq != Lk off the 64-row tiles
     (1, 4, 2, 90, 150, 20, True, 0, 0),       # a head dim no multiple of 8 (bf16: padded to 24)
     (1, 6, 2, 1000, 1000, 128, True, 0, 0),   # GQA 3:1, the two-stage rings wrap many times
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk, D, causal, window, prefix, dtype):
     """The backward kernels on the forward kernel's out and lse against
-    ``attention_bwd_ref`` on the same tensors, the route's counts (bf16 at a
-    padded head dim up to 128 on the tensor-core kernels, wider on the
-    CUDA-core ones), and two calls bitwise equal; the lse against
-    ``gqa_attend_lse``'s."""
+    ``attention_bwd_ref`` on the same tensors, the route's counts (bf16 on
+    the tensor-core kernels at every head dim: one warpgroup a block up to
+    a padded 128, two at 192 and 256; f32 on the CUDA-core ones), and two
+    calls bitwise equal; the lse against ``gqa_attend_lse``'s."""
     q, do = (torch.from_numpy(RNG.standard_normal((B, Lq, H, D)).astype(np.float32)).to(cuda_device, dtype)
              for _ in range(2))
     k, v = (torch.from_numpy(RNG.standard_normal((B, Lk, KV, D)).astype(np.float32)).to(cuda_device, dtype)
@@ -472,16 +473,14 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, B, H, KV, Lq, Lk,
     spec = MaskSpec(causal=causal, window=window, offset=Lk - Lq, prefix=prefix)
     out, lse = flash_ops.flash_attention_lse(q, k, v, causal=causal, window=window, prefix=prefix)
     _scaled_close(lse, gqa_attend_lse(q, k, v, mask_spec=spec)[1], torch.float32)
-    counts = lambda: (flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_tc, flash_ops.launches_bwd_bf16_fma,
-                      flash_ops.launches_bwd_f32)
+    counts = lambda: (flash_ops.launches_bwd_bf16, flash_ops.launches_bwd_tc, flash_ops.launches_bwd_f32)
     n0 = counts()
     got = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window, prefix=prefix)
     again = flash_ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window, prefix=prefix)
     torch.cuda.synchronize()
     bf16 = dtype == torch.bfloat16
-    tc = bf16 and -(-D // 8) * 8 <= 128
-    assert flash_ops.bwd_route(dtype, D)[0] == tc
-    assert counts() == (n0[0] + 2 * bf16, n0[1] + 2 * tc, n0[2] + 2 * (bf16 and not tc), n0[3] + 2 * (not bf16))
+    assert flash_ops.bwd_route(dtype, D)[0] == bf16
+    assert counts() == (n0[0] + 2 * bf16, n0[1] + 2 * bf16, n0[2] + 2 * (not bf16))
     for g, w, g2 in zip(got, attention_bwd_ref(q, k, v, out, lse, do, spec), again):
         assert g.dtype == dtype and g.shape == w.shape and torch.equal(g, g2)
         _scaled_close(g, w, dtype)

@@ -91,6 +91,38 @@ def test_adamw_update_matches_reference(kw):
         {"w", "e"} if kw.get("factored") else set())
 
 
+@pytest.mark.parametrize("kw", [{}, {"factored": True}, {"moment_dtype": "bfloat16"}])
+def test_adamw_update_in_row_slices_is_bitwise(kw, monkeypatch):
+    """A leaf past ``UPDATE_SLICE`` elements updates in row slices with the
+    whole leaf's bits (at 6: the [7, 3] leaf 2 rows a slice, the vector of
+    11 in slices of 6, the [3, 2, 4] leaf a row a slice); factored leaves
+    update whole. Three steps each way."""
+    from repro_torch.training import optimizer as topt
+
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, decay_steps=10, **kw)
+    rng = np.random.default_rng(3)
+    shapes = {"w": (7, 3), "b": (11,), "e": (3, 2, 4)}
+    start = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for n, s in shapes.items()}
+    grads = [{n: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for n, s in shapes.items()}
+             for _ in range(3)]
+
+    def run(slice_elems):
+        monkeypatch.setattr(topt, "UPDATE_SLICE", slice_elems)
+        p, st = dict(start), adamw_init(start, cfg)
+        for g in grads:
+            p, st, _ = adamw_update(p, g, st, cfg, stacked=lambda n: n == "b")
+        return p, st
+
+    monkeypatch.setattr(topt, "UPDATE_SLICE", 6)
+    assert len(topt._row_slices(start["w"], start["w"])) == 4
+    assert topt._row_slices(start["w"], {"vr": None}) is None
+    (pw, sw), (ps, ss) = run(1 << 30), run(6)
+    for n in shapes:
+        assert torch.equal(pw[n], ps[n]) and torch.equal(sw["m"][n], ss["m"][n]), (kw, n)
+        vw, vs = sw["v"][n], ss["v"][n]
+        assert all(torch.equal(vw[k], vs[k]) for k in vw) if isinstance(vw, dict) else torch.equal(vw, vs)
+
+
 def test_schedule_and_clip_match_reference():
     cfg = dict(lr=1e-3, warmup_steps=10, decay_steps=100, min_lr_ratio=0.1)
     for step in (0, 1, 5, 9, 10, 11, 50, 99, 100, 250):

@@ -34,8 +34,8 @@ def cases():
         out += [(f"small {c}", dt, c) for dt in ("float32", "bfloat16")]
     for label, c in {**cs.TRAIN_ATTENTION_FULL, **cs.LM_PATH_ATTENTION}.items():
         out.append((label, "bfloat16", c))
-    for label, (B, H, KV, L, D) in cs.BWD_SHAPES.items():
-        out.append((label, "bfloat16", (B, H, KV, L, L, D, True, 0, 0)))
+    for label, (B, H, KV, L, D, W) in cs.BWD_SHAPES.items():
+        out.append((label, "bfloat16", (B, H, KV, L, L, D, True, W, 0)))
     return out
 
 

@@ -5,9 +5,9 @@ port, in turns: a before / after in one run.
 
 Each ``--src`` (default: this checkout's ``src``) runs in its own process,
 in the order given, and builds its own kernels (under its checkout's
-``build/``). At ``chip_smoke.BWD_SHAPES`` (smollm-135m's training
-microbatch and llama-vision's self-attention heads at hd 128) and at a hd-32
-shape, bf16 and causal, each process checks ``flash_attention_bwd`` on the
+``build/``). At smollm-135m's training microbatch, llama-vision's
+self-attention heads at hd 128, gemma3-27b's at hd 168 (padded to 192) and
+a hd-32 shape, bf16 and causal, each process checks ``flash_attention_bwd`` on the
 forward kernel's out and lse against ``attention_bwd_ref`` (the largest
 share of ``LM_TOL``'s bf16 allowance, two calls bitwise equal), then
 times it with CUDA events (10 calls), SDPA's backward beside it (kernel,
@@ -27,7 +27,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = {"smollm training shape": (4, 9, 3, 2048, 64),
           "llama-vision self-attention, hd 128": (4, 64, 8, 2048, 128),
-          "hd 32": (4, 8, 8, 2048, 32)}
+          "hd 32": (4, 8, 8, 2048, 32),
+          "gemma3-27b heads, hd 168": (4, 32, 16, 2048, 168)}
 LM_TOL_BF16 = (2.0 ** -7, 1e-2)    # chip_smoke.LM_TOL[torch.bfloat16]
 
 
