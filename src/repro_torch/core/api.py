@@ -21,12 +21,12 @@ Entry points run on ``cuda`` unless ``device="cpu"`` is passed.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import as_tensor, host_array, resolve_device
 from ..launch.multiproc import is_multiprocess
 from .binning import apply_bins, bin_dataset, fit_bins, fit_bins_blocked
@@ -61,7 +61,11 @@ class PRFModel:
 
     def _binned(self, x) -> torch.Tensor:
         dev = self.forest.device
-        return apply_bins(as_tensor(x, dev), torch.from_numpy(np.asarray(self.bin_edges)).to(dev))
+        with tracing.span("binning.copy"):
+            xt = as_tensor(x, dev)
+            edges = torch.from_numpy(np.asarray(self.bin_edges)).to(dev)
+        with tracing.span("binning.digitize"):
+            return apply_bins(xt, edges)
 
     def _streams(self, x) -> bool:
         """Out-of-core models (``config.sample_block > 0``) also predict
@@ -79,10 +83,18 @@ class PRFModel:
                                for i in range(0, np.shape(x)[0], nb)])
 
     def predict(self, x) -> np.ndarray:
-        fn = predict_regression if self.forest.config.regression else predict
-        if self._streams(x):
-            return self._predict_blocks(x, lambda xb: fn(self.forest, xb))
-        return fn(self.forest, self._binned(x)).cpu().numpy()
+        """Labels (or regression values) of host rows ``x``. Spans: ``predict``,
+        its children ``predict.to_bins``, ``predict.vote``, ``predict.to_host``."""
+        with tracing.span("predict"):
+            fn = predict_regression if self.forest.config.regression else predict
+            if self._streams(x):
+                return self._predict_blocks(x, lambda xb: fn(self.forest, xb))
+            with tracing.span("predict.to_bins"):
+                xb = self._binned(x)
+            with tracing.span("predict.vote"):
+                out = fn(self.forest, xb)
+            with tracing.span("predict.to_host"):
+                return out.cpu().numpy()
 
     def predict_scores(self, x) -> np.ndarray:
         """Weighted-vote class scores [N, C] (classification only)."""
@@ -205,41 +217,51 @@ def fit_prf_from_draws(
     (``_fit_streamed``) when ``config.sample_block > 0``. ``x`` is not
     copied as a whole (an ``np.memmap`` stays on disk)."""
     dev = resolve_device(device)
-    y = np.asarray(y)
-    config = config.resolved(np.shape(x)[1])
-    if is_multiprocess():
-        from ..launch.multiproc import MultiHostMesh
-        from .distributed import fit_prf_multiproc_from_draws
+    with tracing.span("fit"):
+        y = np.asarray(y)
+        config = config.resolved(np.shape(x)[1])
+        if is_multiprocess():
+            from ..launch.multiproc import MultiHostMesh
+            from .distributed import fit_prf_multiproc_from_draws
 
-        return fit_prf_multiproc_from_draws(
-            x, y, config, weights, u, runtime=MultiHostMesh(device=dev), feeder_opts=feeder_opts,
-            bad_block_policy=bad_block_policy, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, checkpoint_keep=checkpoint_keep,
-            resume_from=resume_from, on_level=on_level,
-        )
-    weights = as_tensor(weights, dev, torch.float32)
-    u = as_tensor(u, dev, torch.float32)
-    k, (N, F) = config.n_trees, np.shape(x)
-    if tuple(weights.shape) != (k, N) or tuple(u.shape) != (k, F) or y.shape != (N,):
-        raise ValueError(
-            f"need weights [{k}, {N}], u [{k}, {F}] and y [{N}]; got weights "
-            f"{tuple(weights.shape)}, u {tuple(u.shape)}, y {y.shape}"
-        )
-    manager = _checkpoint_manager(checkpoint_dir, checkpoint_every, checkpoint_keep)
-    if config.sample_block > 0:
-        return _fit_streamed(x, y, config, weights, u, dev, feeder_opts, bad_block_policy,
+            return fit_prf_multiproc_from_draws(
+                x, y, config, weights, u, runtime=MultiHostMesh(device=dev),
+                feeder_opts=feeder_opts, bad_block_policy=bad_block_policy,
+                checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+                checkpoint_keep=checkpoint_keep, resume_from=resume_from, on_level=on_level,
+            )
+        weights = as_tensor(weights, dev, torch.float32)
+        u = as_tensor(u, dev, torch.float32)
+        k, (N, F) = config.n_trees, np.shape(x)
+        if tuple(weights.shape) != (k, N) or tuple(u.shape) != (k, F) or y.shape != (N,):
+            raise ValueError(
+                f"need weights [{k}, {N}], u [{k}, {F}] and y [{N}]; got weights "
+                f"{tuple(weights.shape)}, u {tuple(u.shape)}, y {y.shape}"
+            )
+        manager = _checkpoint_manager(checkpoint_dir, checkpoint_every, checkpoint_keep)
+        if config.sample_block > 0:
+            return _fit_streamed(x, y, config, weights, u, dev, feeder_opts, bad_block_policy,
+                                 manager, resume_from, on_level)
+        return _fit_resident(np.asarray(x), y, config, weights, u, dev, bad_block_policy,
                              manager, resume_from, on_level)
-    n_classes = None if config.regression else config.n_classes
 
-    x = np.asarray(x)
+
+def _fit_resident(x: np.ndarray, y: np.ndarray, config: ForestConfig, weights: torch.Tensor,
+                  u: torch.Tensor, dev: torch.device, bad_block_policy: Optional[str], manager,
+                  resume_from: Optional[str], on_level) -> PRFModel:
+    """``fit_prf_from_draws`` on the device-resident path, each stage a
+    span under ``fit``: ``fit.validation``, ``fit.binning``, ``fit.dimred``,
+    ``fit.growth`` and ``fit.oob``."""
+    n_classes = None if config.regression else config.n_classes
     report, cell_mask, label_mask = None, None, None
     if bad_block_policy not in (None, "off"):
         from ..data.pipeline import DataIntegrityError, screen_blocks
 
-        blocks1, y_clean, cmasks, lmasks, report = screen_blocks(
-            [x], y, policy=bad_block_policy, n_features=x.shape[1],
-            n_classes=n_classes, regression=config.regression,
-        )
+        with tracing.span("fit.validation"):
+            blocks1, y_clean, cmasks, lmasks, report = screen_blocks(
+                [x], y, policy=bad_block_policy, n_features=x.shape[1],
+                n_classes=n_classes, regression=config.regression,
+            )
         if not report.clean:
             if bad_block_policy == "quarantine":
                 raise DataIntegrityError(
@@ -251,44 +273,54 @@ def fit_prf_from_draws(
             x, y = blocks1[0], y_clean
             cell_mask, label_mask = cmasks.get(0), lmasks.get(0)
 
-    if config.resolved_bin_fit() == "blocked":
-        # The streamed trainer's sketch, fed with views of x; imputed
-        # cells are left out of it rather than counted as their zeros.
-        from ..data.pipeline import sample_blocks
+    with tracing.span("fit.binning"):
+        if config.resolved_bin_fit() == "blocked":
+            # The streamed trainer's sketch, fed with views of x; imputed
+            # cells are left out of it rather than counted as their zeros.
+            from ..data.pipeline import sample_blocks
 
-        nb_fit = 65536
-        edges = fit_bins_blocked(
-            sample_blocks(x, nb_fit), config.n_bins,
-            exclude_masks=None if cell_mask is None else sample_blocks(cell_mask, nb_fit),
-        )
-        xb = apply_bins(as_tensor(x, dev), torch.from_numpy(edges).to(dev))
-    else:
-        xb, edges = bin_dataset(x, config.n_bins, device=dev)
-    if cell_mask is not None:
-        xb[torch.from_numpy(cell_mask).to(dev)] = 0          # imputed cells -> bin 0
-    y_t = as_tensor(y, dev, torch.float32 if config.regression else None)
-    if label_mask is not None:
-        weights = torch.where(torch.from_numpy(label_mask).to(dev)[None, :], 0.0, weights)
+            nb_fit = 65536
+            with tracing.span("binning.fit"):
+                edges = fit_bins_blocked(
+                    sample_blocks(x, nb_fit), config.n_bins,
+                    exclude_masks=None if cell_mask is None else sample_blocks(cell_mask, nb_fit),
+                )
+            with tracing.span("binning.copy"):
+                xt, edges_dev = as_tensor(x, dev), torch.from_numpy(edges).to(dev)
+            with tracing.span("binning.digitize"):
+                xb = apply_bins(xt, edges_dev)
+            del xt
+        else:
+            xb, edges = bin_dataset(x, config.n_bins, device=dev)
+        if cell_mask is not None:
+            xb[torch.from_numpy(cell_mask).to(dev)] = 0          # imputed cells -> bin 0
 
-    feature_mask = None
-    if config.feature_mode == "importance" and not config.regression:
-        feature_mask = dimension_reduction(xb, y_t, weights, config, u)     # §3.2
-    elif config.feature_mode == "random":
-        feature_mask = random_feature_mask(u, n_selected=config.n_selected)
+    with tracing.span("fit.dimred"):
+        y_t = as_tensor(y, dev, torch.float32 if config.regression else None)
+        if label_mask is not None:
+            weights = torch.where(torch.from_numpy(label_mask).to(dev)[None, :], 0.0, weights)
+        feature_mask = None
+        if config.feature_mode == "importance" and not config.regression:
+            feature_mask = dimension_reduction(xb, y_t, weights, config, u)     # §3.2
+        elif config.feature_mode == "random":
+            feature_mask = random_feature_mask(u, n_selected=config.n_selected)
 
-    if manager is not None or resume_from is not None:                    # §4.2
-        forest = grow_forest_checkpointed(xb, y_t, weights, config, feature_mask, manager=manager,
-                                          resume_from=resume_from, on_level=on_level, device=dev)
-    else:
-        forest = grow_forest(xb, y_t, weights, config, feature_mask, device=dev)
+    with tracing.span("fit.growth"):                                      # §4.2
+        if manager is not None or resume_from is not None:
+            forest = grow_forest_checkpointed(xb, y_t, weights, config, feature_mask,
+                                              manager=manager, resume_from=resume_from,
+                                              on_level=on_level, device=dev)
+        else:
+            forest = grow_forest(xb, y_t, weights, config, feature_mask, device=dev)
 
     if config.weighted_voting:                                            # §3.3
-        xb_o, y_o, w_o = xb, y_t, weights
-        if label_mask is not None:
-            keep = torch.from_numpy(np.flatnonzero(~label_mask)).to(dev)
-            xb_o, y_o, w_o = xb_o[keep], y_o[keep], w_o[:, keep]
-        oob = oob_r2 if config.regression else oob_accuracy
-        forest.tree_weight = oob(forest, xb_o, y_o, w_o)
+        with tracing.span("fit.oob"):
+            xb_o, y_o, w_o = xb, y_t, weights
+            if label_mask is not None:
+                keep = torch.from_numpy(np.flatnonzero(~label_mask)).to(dev)
+                xb_o, y_o, w_o = xb_o[keep], y_o[keep], w_o[:, keep]
+            oob = oob_r2 if config.regression else oob_accuracy
+            forest.tree_weight = oob(forest, xb_o, y_o, w_o)
     return PRFModel(forest=forest, bin_edges=edges, quarantine=report)
 
 
@@ -541,8 +573,10 @@ def grow_forest_streamed(
     level's checkpoint.
 
     ``stats``, a dict, receives ``levels_s`` (the seconds of each level
-    this call ran, on the host clock, between the level loop's own
-    synchronising early-exit checks; the last one ends in a synchronise),
+    this call ran: its ``growth.level`` span, from the start of the
+    level's sweep to the return of the early-exit check that reads its
+    frontier; the last one, at ``max_depth``, ends in a synchronise
+    outside ``growth.sync``, so its span stays unsynced),
     ``feed_wait_s`` (the growth sweeps' summed wait for the feed,
     ``BlockFeeder.wait_s``) and ``retries``.
     """
@@ -599,40 +633,40 @@ def grow_forest_streamed(
                 )
             return hist
 
-        t_level, live = time.perf_counter(), True
-        for level in range(start, config.max_depth):
-            live = bool((slot_node >= 0).any())
-            if stats is not None and level > start:
-                now = time.perf_counter()
-                stats.setdefault("levels_s", []).append(now - t_level)
-                t_level = now
-            if not live:
-                break                                   # every frontier is empty
-            hist = level_sweep(route=level > 0)
-            if forest is None:
-                forest = _stream_init(hist, config)     # root node, free at level 0
-            if reuse:
-                forest, scores, split_rank, slot_node, cache = _stream_plan_write_reuse(
-                    forest, slot_node, hist, cache, mask, level, config)
-            else:
-                forest, scores, split_rank, slot_node = _stream_plan_write(
-                    forest, slot_node, hist, mask, level, config)
-            del hist
-            if manager is not None:
-                manager.maybe_save({
-                    "forest": forest, "slot_node": slot_node, "scores": scores,
-                    "split_rank": split_rank, "slots": slot_dev, "level": level + 1,
-                    "hist_cache": cache,
-                }, level + 1)
-            if on_level is not None:
-                on_level(level + 1, forest)
+        level = start
+        live = level < config.max_depth and bool((slot_node >= 0).any())
+        while live:
+            with tracing.level(timed=stats is not None) as lv:
+                hist = level_sweep(route=level > 0)
+                if forest is None:
+                    forest = _stream_init(hist, config)     # root node, free at level 0
+                if reuse:
+                    forest, scores, split_rank, slot_node, cache = _stream_plan_write_reuse(
+                        forest, slot_node, hist, cache, mask, level, config)
+                else:
+                    forest, scores, split_rank, slot_node = _stream_plan_write(
+                        forest, slot_node, hist, mask, level, config)
+                del hist
+                level += 1
+                if manager is not None:
+                    manager.maybe_save({
+                        "forest": forest, "slot_node": slot_node, "scores": scores,
+                        "split_rank": split_rank, "slots": slot_dev, "level": level,
+                        "hist_cache": cache,
+                    }, level)
+                if on_level is not None:
+                    on_level(level, forest)
+                live = level < config.max_depth
+                if live:
+                    with lv.sync():
+                        live = bool((slot_node >= 0).any())
+                elif stats is not None and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)             # the last level's seconds
+            if stats is not None:
+                stats.setdefault("levels_s", []).append(lv.seconds)
         if forest is None:                              # max_depth == 0: the root only
             forest = _stream_init(level_sweep(route=False), config)
         if stats is not None:
-            if live and start < config.max_depth:       # the loop ran to max_depth
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                stats.setdefault("levels_s", []).append(time.perf_counter() - t_level)
             stats.update(feed_wait_s=feeder.wait_s, retries=feeder.retries)
     finally:
         feeder.close()

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 
 MAX_BINS = 256
@@ -397,8 +398,14 @@ def host_digitize(x: np.ndarray, edges: np.ndarray) -> np.ndarray:
 def bin_dataset(x: np.ndarray, n_bins: int = 64, *, device=None):
     """Fit + apply. Returns (binned [N, F] uint8 tensor on ``device``, edges).
     ``device`` as ``device.resolve_device``: ``cuda`` unless the caller asks
-    for the CPU, and ``RuntimeError`` without a card."""
+    for the CPU, and ``RuntimeError`` without a card. Spans: ``binning.fit``
+    (the host's quantiles), ``binning.copy`` (to the device),
+    ``binning.digitize`` (``apply_bins``)."""
     device = resolve_device(device)
-    edges = fit_bins(x, n_bins)
-    xt = torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32))).to(device)
-    return apply_bins(xt, torch.from_numpy(edges).to(device)), edges
+    with tracing.span("binning.fit"):
+        edges = fit_bins(x, n_bins)
+    with tracing.span("binning.copy"):
+        xt = torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32))).to(device)
+        edges_dev = torch.from_numpy(edges).to(device)
+    with tracing.span("binning.digitize"):
+        return apply_bins(xt, edges_dev), edges

@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from .gain import SplitScores, level_scores, node_counts, resolve_split_backend, sibling_plan
 from .histograms import (
     FixedPoint, blocked_level_histograms, block_slot_orders, hist_feature_slab, level_histograms,
@@ -541,13 +542,19 @@ def grow(
     plane: CollectivePlane,
 ) -> Forest:
     """Level-synchronous growth. With ``config.early_exit`` the loop stops as
-    soon as every frontier is empty (one host sync per level)."""
+    soon as every frontier is empty (one host sync per level, the level's
+    ``growth.sync`` span)."""
     state = init_growth_state(base_channels, weights, config, plane,
                               n_features=x_binned.shape[1])
-    while state.level < config.max_depth:
-        if config.early_exit and not bool((state.slot_node >= 0).any()):
-            break
-        state = level_step(x_binned, base_channels, weights, state, config, plane)
+    live = state.level < config.max_depth and (
+        not config.early_exit or bool((state.slot_node >= 0).any()))
+    while live:
+        with tracing.level() as lv:
+            state = level_step(x_binned, base_channels, weights, state, config, plane)
+            live = state.level < config.max_depth
+            if live and config.early_exit:
+                with lv.sync():
+                    live = bool((state.slot_node >= 0).any())
     return finalize_forest(state.forest)
 
 
@@ -590,12 +597,18 @@ def grow_checkpointed(
     if state is None:
         state = init_growth_state(base_channels, weights, config, plane,
                                   n_features=x_binned.shape[1])
-    while state.level < config.max_depth and bool((state.slot_node >= 0).any()):
-        state = level_step(x_binned, base_channels, weights, state, config, plane)
-        if manager is not None:
-            manager.maybe_save(state, state.level)
-        if on_level is not None:
-            on_level(state.level, state)
+    live = state.level < config.max_depth and bool((state.slot_node >= 0).any())
+    while live:
+        with tracing.level() as lv:
+            state = level_step(x_binned, base_channels, weights, state, config, plane)
+            if manager is not None:
+                manager.maybe_save(state, state.level)
+            if on_level is not None:
+                on_level(state.level, state)
+            live = state.level < config.max_depth
+            if live:
+                with lv.sync():
+                    live = bool((state.slot_node >= 0).any())
     return finalize_forest(state.forest)
 
 
